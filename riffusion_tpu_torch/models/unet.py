@@ -1,0 +1,213 @@
+"""
+UNet2DCondition — the Stable Diffusion v1 denoiser, as an nn.Module.
+
+The counterpart of riffusion_tpu/models/unet.py, with the same block and
+parameter names (`down_blocks_0.attentions_0.blocks_0.attn1.to_q`, ...) and
+the same config dataclass. Inside it is NCHW; `forward` takes and returns
+NCHW latents. conv_out and the timestep embedding run in fp32 whatever the
+compute dtype, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing as T
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from riffusion_tpu_torch.models.layers import (
+    Downsample2D,
+    GroupNorm,
+    ResnetBlock2D,
+    TimestepEmbedding,
+    Transformer2D,
+    Upsample2D,
+    precise,
+    timestep_embedding,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """SD v1 geometry by default; `tiny()` for tests."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: T.Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    attention_head_dim: int = 8  # number of heads (diffusers v1 naming quirk)
+    cross_attn_blocks: T.Tuple[bool, ...] = (True, True, True, False)
+    norm_num_groups: int = 32
+    freq_shift: float = 0.0
+    flip_sin_to_cos: bool = True
+
+    @classmethod
+    def tiny(cls) -> "UNetConfig":
+        return cls(
+            block_out_channels=(32, 64, 64, 64),
+            layers_per_block=1,
+            cross_attention_dim=64,
+            attention_head_dim=2,
+        )
+
+
+class CrossAttnDownBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, in_channels: int, out_channels: int, temb_dim: int,
+                 add_downsample: bool, has_attn: bool):
+        super().__init__()
+        self.n = cfg.layers_per_block
+        self.has_attn = has_attn
+        self.add_downsample = add_downsample
+        for i in range(self.n):
+            self.add_module(f"resnets_{i}", ResnetBlock2D(
+                in_channels if i == 0 else out_channels, out_channels, temb_dim,
+                cfg.norm_num_groups,
+            ))
+            if has_attn:
+                self.add_module(f"attentions_{i}", Transformer2D(
+                    out_channels, cfg.attention_head_dim, cfg.cross_attention_dim,
+                    groups=cfg.norm_num_groups,
+                ))
+        if add_downsample:
+            self.downsamplers_0 = Downsample2D(out_channels, out_channels)
+
+    def forward(self, x, temb, context):
+        skips = []
+        for i in range(self.n):
+            x = getattr(self, f"resnets_{i}")(x, temb)
+            if self.has_attn:
+                x = getattr(self, f"attentions_{i}")(x, context)
+            skips.append(x)
+        if self.add_downsample:
+            x = self.downsamplers_0(x)
+            skips.append(x)
+        return x, skips
+
+
+class CrossAttnUpBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, in_channels: int, skip_channels: T.List[int],
+                 out_channels: int, temb_dim: int, add_upsample: bool, has_attn: bool):
+        super().__init__()
+        self.n = cfg.layers_per_block + 1
+        self.has_attn = has_attn
+        self.add_upsample = add_upsample
+        ch = in_channels
+        for i in range(self.n):
+            self.add_module(f"resnets_{i}", ResnetBlock2D(
+                ch + skip_channels[i], out_channels, temb_dim, cfg.norm_num_groups
+            ))
+            ch = out_channels
+            if has_attn:
+                self.add_module(f"attentions_{i}", Transformer2D(
+                    out_channels, cfg.attention_head_dim, cfg.cross_attention_dim,
+                    groups=cfg.norm_num_groups,
+                ))
+        if add_upsample:
+            self.upsamplers_0 = Upsample2D(out_channels, out_channels)
+
+    def forward(self, x, skips, temb, context, upsample_to=None):
+        for i in range(self.n):
+            x = torch.cat([x, skips.pop()], dim=1)
+            x = getattr(self, f"resnets_{i}")(x, temb)
+            if self.has_attn:
+                x = getattr(self, f"attentions_{i}")(x, context)
+        if self.add_upsample:
+            x = self.upsamplers_0(x, out_size=upsample_to)
+        return x
+
+
+class MidBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, channels: int, temb_dim: int):
+        super().__init__()
+        self.resnets_0 = ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups)
+        self.attentions_0 = Transformer2D(
+            channels, cfg.attention_head_dim, cfg.cross_attention_dim, groups=cfg.norm_num_groups
+        )
+        self.resnets_1 = ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups)
+
+    def forward(self, x, temb, context):
+        x = self.resnets_0(x, temb)
+        x = self.attentions_0(x, context)
+        return self.resnets_1(x, temb)
+
+
+class UNet2DCondition(nn.Module):
+    """forward(latents (B, C, H, W), timesteps (B,) or scalar,
+    encoder_hidden_states (B, seq, cross_dim)) -> noise prediction (B, C, H, W)
+    in precise(dtype)."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        ch = cfg.block_out_channels
+        temb_dim = ch[0] * 4
+        self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+
+        n = len(ch)
+        skip_channels = [ch[0]]
+        prev = ch[0]
+        for b in range(n):
+            self.add_module(f"down_blocks_{b}", CrossAttnDownBlock(
+                cfg, prev, ch[b], temb_dim, add_downsample=(b != n - 1),
+                has_attn=cfg.cross_attn_blocks[b],
+            ))
+            skip_channels += [ch[b]] * cfg.layers_per_block + ([ch[b]] if b != n - 1 else [])
+            prev = ch[b]
+
+        self.mid_block = MidBlock(cfg, ch[-1], temb_dim)
+
+        prev = ch[-1]
+        for i, b in enumerate(reversed(range(n))):
+            take = cfg.layers_per_block + 1
+            block_skips, skip_channels = skip_channels[-take:], skip_channels[:-take]
+            self.add_module(f"up_blocks_{i}", CrossAttnUpBlock(
+                cfg, prev, list(reversed(block_skips)), ch[b], temb_dim,
+                add_upsample=(b != 0), has_attn=cfg.cross_attn_blocks[b],
+            ))
+            prev = ch[b]
+
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch[0], eps=1e-5)
+        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = self.dtype
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        context = encoder_hidden_states.to(dtype)
+
+        t_emb = timestep_embedding(
+            timesteps, cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
+            downscale_freq_shift=cfg.freq_shift, dtype=precise(dtype),
+        )
+        temb = self.time_embedding(t_emb)
+        x = self.conv_in(sample.to(dtype))
+
+        n = len(cfg.block_out_channels)
+        skips: T.List[torch.Tensor] = [x]
+        for b in range(n):
+            x, block_skips = getattr(self, f"down_blocks_{b}")(x, temb, context)
+            skips.extend(block_skips)
+
+        x = self.mid_block(x, temb, context)
+
+        for i in range(n):
+            take = cfg.layers_per_block + 1
+            block_skips, skips = skips[-take:], skips[:-take]
+            # upsample to the next block's skip size (odd intermediate dims)
+            upsample_to = tuple(skips[-1].shape[2:4]) if skips else None
+            x = getattr(self, f"up_blocks_{i}")(x, list(block_skips), temb, context, upsample_to)
+
+        x = F.silu(self.conv_norm_out(x)).to(dtype)
+        p = precise(dtype)
+        return F.conv2d(x.to(p), self.conv_out.weight.to(p), self.conv_out.bias.to(p), padding=1)

@@ -1,0 +1,214 @@
+"""
+The port's attention (riffusion_tpu_torch/ops/attention.py) against the JAX
+package: the plain version against the full-row Pallas kernel (interpret
+mode) and its einsum reference, the port's `Attention` module against the
+JAX `Attention` on the CPU (its "pref" einsum path, which is what the JAX
+tests run at the flash sites), validation and the launch counters, and
+the tolerance the kernel is held to on the card against planted faults. The
+Hopper kernel against the plain version on a card is in
+tests/test_torch_attention_cuda.py.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
+from riffusion_tpu.models.layers import Attention as JaxAttention
+from riffusion_tpu.ops.attention import _reference, full_row_attention
+from riffusion_tpu_torch.models.layers import Attention
+from riffusion_tpu_torch.models.weights import state_dict_from_jax
+from riffusion_tpu_torch.ops import attention as attn_mod
+from riffusion_tpu_torch.ops.attention import (
+    COUNTS,
+    TOLERANCE,
+    attention,
+    attention_reference,
+    compare_to_plain,
+)
+
+
+def _qkv(rng, b, s, h, d, scale=1.0, s_kv=None):
+    s_kv = s if s_kv is None else s_kv
+    q = (scale * rng.standard_normal((b, s, h * d))).astype(np.float32)
+    k = (scale * rng.standard_normal((b, s_kv, h * d))).astype(np.float32)
+    v = rng.standard_normal((b, s_kv, h * d)).astype(np.float32)
+    return q, k, v
+
+
+# The tests/test_rowattn.py cases. In f32 both sides compute the same
+# composition in the same precision; 2e-6 is the f32 tolerance the JAX
+# package holds its own kernel to.
+@pytest.mark.parametrize("against", ["reference", "pallas_interpret"])
+def test_plain_version_matches_jax_f32(against):
+    rng = np.random.default_rng(0)
+    b, s, h, d = 2, 256, 3, 40
+    q, k, v = _qkv(rng, b, s, h, d)
+    scale = 1 / np.sqrt(d)
+    if against == "reference":
+        ref = _reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h, scale)
+    else:
+        ref = full_row_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            num_heads=h, scale=scale, block_q=128, interpret=True,
+        )
+    out = attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), num_heads=h, scale=scale
+    )
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    err = float(np.max(np.abs(out.numpy() - np.asarray(ref))))
+    assert err < 2e-6, err
+
+
+def test_plain_version_large_logits_stable():
+    """Logits of size ~3e4: the softmax's max subtraction keeps it finite.
+    1e-4 as in tests/test_rowattn.py (the logits are large, so f32 rounding
+    of the logits themselves is ~1e-3 relative to 1 in the exponent)."""
+    rng = np.random.default_rng(1)
+    b, s, h, d = 1, 128, 1, 40
+    q, k, v = _qkv(rng, b, s, h, d, scale=30.0)
+    out = attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), num_heads=h, scale=1.0
+    )
+    assert torch.isfinite(out).all()
+    ref = _reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h, 1.0)
+    assert float(np.max(np.abs(out.numpy() - np.asarray(ref)))) < 1e-4
+
+
+@pytest.mark.parametrize(
+    "lq,context_len,expect_wrapper",
+    [(256, None, True), (64, None, False), (256, 7, False)],
+    ids=["self-kernel-site", "self-short", "cross"],
+)
+def test_attention_module_matches_jax(lq, context_len, expect_wrapper):
+    """The port's Attention with the JAX module's weights. fp64 on both
+    sides (the wiring-oracle convention): the two compute the same
+    composition, so they agree to ~1e-12; 1e-9 leaves room for sum order."""
+    heads, head_dim, query_dim, ctx_dim = 2, 16, 24, 12
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, lq, query_dim))
+    ctx = None if context_len is None else rng.standard_normal((2, context_len, ctx_dim))
+    with jax.enable_x64(True):
+        module = JaxAttention(heads, head_dim, query_dim, dtype=jnp.float64, flash=False)
+        args = (jnp.asarray(x),) + (() if ctx is None else (jnp.asarray(ctx),))
+        params = module.init(jax.random.PRNGKey(0), *args)["params"]
+        params = jax.tree.map(lambda p: np.asarray(p, np.float64), params)
+        params = jax.tree.map(lambda p: p + 0.01 * rng.standard_normal(p.shape), params)
+        ref = np.asarray(module.apply({"params": params}, *args))
+
+    port = Attention(query_dim, heads, head_dim, query_dim,
+                     context_dim=None if ctx is None else ctx_dim).to(torch.float64)
+    port.load_state_dict(state_dict_from_jax(params), strict=True)
+    COUNTS.reset()
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), None if ctx is None else torch.from_numpy(ctx))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-9)
+    # on the CPU the wrapper takes the plain version and never the kernel
+    assert COUNTS.launches == 0
+    assert COUNTS.plain_calls == (1 if expect_wrapper else 0)
+
+
+def test_wrapper_validation():
+    q = torch.zeros(1, 8, 30)
+    with pytest.raises(ValueError, match="not divisible"):
+        attention(q, q, q, num_heads=4, scale=1.0)
+    q = torch.zeros(1, 8, 36)  # head_dim 12: not a multiple of 8
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention(q, q, q, num_heads=3, scale=1.0)
+    q = torch.zeros(1, 8, 272)  # head_dim 136 > 128
+    with pytest.raises(ValueError, match="at most 128"):
+        attention(q, q, q, num_heads=2, scale=1.0)
+    q = torch.zeros(1, 8, 32)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        attention(q, torch.zeros(1, 8, 16), torch.zeros(1, 8, 16), num_heads=2, scale=1.0)
+    with pytest.raises(ValueError, match="dtype mismatch"):
+        attention(q, q.double(), q, num_heads=2, scale=1.0)
+    with pytest.raises(ValueError, match=r"\(b, s, h\*d\)"):
+        attention(q[0], q[0], q[0], num_heads=2, scale=1.0)
+
+
+def test_cpu_wrapper_counts_plain_calls_only():
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 40, 2, 8, s_kv=24))
+    COUNTS.reset()
+    out = attention(q, k, v, num_heads=2, scale=0.3)
+    ref = attention_reference(q, k, v, num_heads=2, scale=0.3)
+    assert torch.equal(out, ref)
+    assert (COUNTS.launches, COUNTS.plain_calls) == (0, 1)
+
+
+def test_kernel_source_is_shipped():
+    assert attn_mod._SOURCE.is_file()
+    assert "riff_attention_forward" in attn_mod._SOURCE.read_text()
+
+
+def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_tile=None):
+    """csrc/attention.cu's bf16 arithmetic in PyTorch: fp32 logits, an online
+    softmax over 64-row K/V tiles in the log2 domain, unnormalized weights
+    rounded to bf16 for P V, fp32 accumulation, the division after P V, a
+    bf16 output. Two flags plant faults: the zero-padded keys of the ragged
+    last tile get logit 0 instead of -inf, or one K/V tile is skipped."""
+    b, s_q, inner = q.shape
+    d = inner // num_heads
+
+    def heads(x):
+        return x.float().reshape(b, x.shape[1], num_heads, d).transpose(1, 2)
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    if tail_logit_zero:
+        pad = torch.zeros(b, num_heads, -kh.shape[2] % 64, d)
+        kh, vh = torch.cat([kh, pad], 2), torch.cat([vh, pad], 2)
+    row_max = torch.full((b, num_heads, s_q, 1), -math.inf)
+    row_sum = torch.zeros(b, num_heads, s_q, 1)
+    acc = torch.zeros(b, num_heads, s_q, d)
+    for tile, n0 in enumerate(range(0, kh.shape[2], 64)):
+        if tile == skip_tile:
+            continue
+        logits = qh @ kh[:, :, n0:n0 + 64].transpose(-1, -2) * (scale * math.log2(math.e))
+        new_max = torch.maximum(row_max, logits.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(row_max - new_max), torch.exp2(logits - new_max)
+        row_sum = row_sum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vh[:, :, n0:n0 + 64]
+        row_max = new_max
+    return (acc / row_sum).transpose(1, 2).reshape(b, s_q, inner).to(torch.bfloat16)
+
+
+def _bf16_case(s_q, s_kv, h, d, seed=4):
+    """The smoke's bf16 operands: q and k standard normal, v uniform in [-1, 1)."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((1, s_q, h * d))).to(torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((1, s_kv, h * d))).to(torch.bfloat16)
+    v = torch.from_numpy(rng.uniform(-1, 1, (1, s_kv, h * d))).to(torch.bfloat16)
+    return q, k, v
+
+
+BF16_CASES = [(1024, 1024, 2, 40), (1000, 1000, 2, 16), (1000, 777, 2, 128)]
+
+
+@pytest.mark.parametrize("s_q,s_kv,h,d", BF16_CASES, ids=["d40", "ragged-d16", "ragged-d128"])
+def test_bf16_tolerance_admits_the_kernels_rounding(s_q, s_kv, h, d):
+    q, k, v = _bf16_case(s_q, s_kv, h, d)
+    ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
+    max_abs, rel_rms, ok = compare_to_plain(_kernel_numerics(q, k, v, h, d**-0.5), ref)
+    assert ok, (max_abs, rel_rms)
+
+
+@pytest.mark.parametrize(
+    "s_q,s_kv,h,d,fault",
+    [(1000, 1000, 2, 16, "tail"), (1000, 777, 2, 128, "tail"),
+     (1000, 1000, 2, 16, "skip"), (1024, 1024, 2, 40, "skip")],
+    ids=["tail-logit-0-d16", "tail-logit-0-d128", "skipped-tile-d16", "skipped-tile-d40"],
+)
+def test_bf16_tolerance_rejects_a_planted_fault(s_q, s_kv, h, d, fault):
+    q, k, v = _bf16_case(s_q, s_kv, h, d)
+    ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
+    out = _kernel_numerics(q, k, v, h, d**-0.5, tail_logit_zero=fault == "tail",
+                           skip_tile=3 if fault == "skip" else None)
+    max_abs, rel_rms, ok = compare_to_plain(out, ref)
+    assert not ok, (max_abs, rel_rms)
+    if fault == "tail":  # max abs alone passes it: the relative RMS bound is what fails it
+        assert max_abs <= TOLERANCE[torch.bfloat16][0]

@@ -1,0 +1,265 @@
+"""
+The port's single-clip slice (riffusion_tpu_torch/riffusion_pipeline.py)
+against the JAX package's, on the CPU at the tiny geometry: the JAX
+`RiffusionPipeline.load_checkpoint("random:tiny", device="cpu")` and the
+port built from the same parameters, with the JAX program's random draws
+(VAE eps, noise_a, noise_b, the Griffin-Lim phase) handed to the port.
+Also the pieces around it: prompt weighting, text embeddings, slerp, device
+selection, preprocessing, the int16 conversion and the default noise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
+from riffusion_tpu import riffusion_pipeline as jax_pipeline
+from riffusion_tpu.datatypes import InferenceInput, PromptInput
+from riffusion_tpu.external import prompt_weighting as jax_pw
+from riffusion_tpu.models.tokenizer import HashTokenizer
+from riffusion_tpu.ops import codec as jax_codec
+from riffusion_tpu.spectrogram_params import SpectrogramParams
+from riffusion_tpu.util import jax_util
+from riffusion_tpu_torch import riffusion_pipeline as pipeline
+from riffusion_tpu_torch.external import prompt_weighting
+from riffusion_tpu_torch.models.weights import bundle_from_jax_params
+from riffusion_tpu_torch.ops import codec
+from riffusion_tpu_torch.util import torch_util
+
+SIZE = 64
+PARAMS = SpectrogramParams(min_frequency=0, max_frequency=10000, num_frequencies=SIZE)
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    jp = jax_pipeline.RiffusionPipeline.load_checkpoint("random:tiny", device="cpu")
+    bundle = bundle_from_jax_params(
+        "tiny", jp.unet_params, jp.vae_params, jp.clip_params, device="cpu"
+    )
+    return jp, pipeline.RiffusionPipeline(bundle, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def seed_image():
+    rng = np.random.default_rng(0)
+    return Image.fromarray(rng.integers(0, 255, (SIZE, SIZE, 3), dtype=np.uint8), mode="RGB")
+
+
+def _inputs(**overrides):
+    # Plain prompts: with random weights the CLIP output has a mean of ~1e-9
+    # (final LayerNorm, unit scale, zero bias), and the prompt-weighting mean
+    # rescale divides two such means, so a weighted prompt's embedding is
+    # float32 rounding noise in either framework (test below for the
+    # weighting itself on a well-conditioned encoder).
+    kw = dict(
+        start=PromptInput(prompt="church bells", seed=42, negative_prompt="noise"),
+        end=PromptInput(prompt="techno", seed=123),
+        alpha=0.3,
+        num_inference_steps=6,
+    )
+    kw.update(overrides)
+    return InferenceInput(**kw)
+
+
+def _jax_draws(start_seed, end_seed, latent_hw, phase_shape):
+    """The draws the JAX program makes from request_keys, in the port's
+    layouts (latents NCHW)."""
+    keys = jax_pipeline.request_keys(start_seed, end_seed)
+
+    def latent(key):
+        x = jax.random.normal(key, (1, *latent_hw, 4), jnp.float32)
+        return np.array(x).transpose(0, 3, 1, 2)
+
+    kr, ki = jax.random.split(keys[3])
+    return pipeline.FixedNoise({
+        "vae_eps": latent(keys[0]),
+        "noise_a": latent(keys[1]),
+        "noise_b": latent(keys[2]),
+        "gl_real": np.array(jax.random.uniform(kr, phase_shape, jnp.float32)),
+        "gl_imag": np.array(jax.random.uniform(ki, phase_shape, jnp.float32)),
+    })
+
+
+# The slice. The UNet, VAE and DSP agree to ~1e-5 in float32 (the model and
+# DSP tests); the uint8 rounding of the decoded image turns that into a
+# one-level difference where a pixel sits on a rounding boundary (measured:
+# 0.08% of pixels). So: every pixel within one level, at least 99% equal.
+# The mel amplitudes are a function of the image: equal to float32
+# rounding where the pixels are. Griffin-Lim turns a one-level skew into a
+# large waveform difference (about 28% in ROADMAP.md's record), so the
+# waveforms are held loosely: relative L2 error below 0.35.
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "mask"])
+def test_riffuse_audio_matches_jax(pipes, seed_image, masked):
+    jp, tp = pipes
+    mask = None
+    if masked:
+        mask = Image.fromarray(np.tile(np.array([0, 255] * (SIZE // 2), np.uint8), (SIZE, 1)))
+    inputs = _inputs()
+    image_j, audio_j = jp.riffuse_audio(inputs, seed_image, mask_image=mask, params=PARAMS,
+                                        apply_filters=False)
+    n_active = tp.converter(PARAMS).n_active
+    noise = _jax_draws(42, 123, (SIZE // 8, SIZE // 8), (1, n_active, SIZE))
+    image_t, audio_t = tp.riffuse_audio(inputs, seed_image, mask_image=mask, params=PARAMS,
+                                        apply_filters=False, noise=noise)
+
+    a, b = np.asarray(image_j, np.int16), np.asarray(image_t, np.int16)
+    assert a.shape == b.shape == (SIZE, SIZE, 3)
+    assert np.abs(a - b).max() <= 1
+    assert (a == b).mean() >= 0.99
+
+    mel_j = np.asarray(jax_codec.spectrogram_from_codes(
+        jax_codec.codes_from_rgb_image(jnp.asarray(np.asarray(image_j)), False), 0.25, 30e6))
+    mel_t = codec.spectrogram_from_codes(
+        codec.codes_from_rgb_image(torch.from_numpy(np.array(image_t)), False), 0.25, 30e6
+    ).numpy()
+    same = np.flip(a[..., 0] == b[..., 0], axis=0)[None]
+    np.testing.assert_allclose(mel_t[same], mel_j[same], rtol=1e-6)
+
+    wj = audio_j.raw_data.astype(np.float64)
+    wt = audio_t.raw_data.astype(np.float64)
+    assert wj.shape == wt.shape and audio_t.frame_rate == audio_j.frame_rate
+    assert np.abs(wt).max() > 30000  # peak-normalized to int16 full scale
+    assert np.linalg.norm(wt - wj) / np.linalg.norm(wj) < 0.35
+
+
+def test_riffuse_image_only_and_default_noise(pipes, seed_image):
+    """`riffuse` returns the same image as `riffuse_audio`; the default
+    noise source is deterministic per seed pair and seed-sensitive."""
+    _, tp = pipes
+    inputs = _inputs(num_inference_steps=3)
+    a = np.asarray(tp.riffuse(inputs, seed_image))
+    b, _ = tp.riffuse_audio(inputs, seed_image, params=PARAMS)
+    np.testing.assert_array_equal(a, np.asarray(b))
+    c = np.asarray(tp.riffuse(_inputs(num_inference_steps=3,
+                                      end=PromptInput(prompt="techno", seed=7)), seed_image))
+    assert np.abs(a.astype(int) - c.astype(int)).max() > 0
+
+
+@pytest.mark.parametrize("use_reweighting", [True, False], ids=["weighted", "plain"])
+def test_text_embeddings_match_jax(pipes, seed_image, use_reweighting):
+    """The (negative, interpolated cond) pair the denoise loop sees. float32
+    through the same CLIP: 1e-5."""
+    jp, tp = pipes
+    inputs = _inputs()
+    _, args = jp._build_call(inputs, seed_image, None, use_reweighting, None)
+    ref = np.asarray(args[2])
+    out = tp.text_embeddings(inputs, use_reweighting).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def _table_encoder():
+    """A stand-in text encoder whose output mean is far from 0 (a fixed
+    random table plus an offset), so the mean rescale is well-conditioned."""
+    table = np.random.default_rng(0).standard_normal((1024, 16)).astype(np.float32) + 0.5
+    return lambda ids: table[np.asarray(ids)]
+
+
+def test_prompt_weighting_matches_jax():
+    """Weighted syntax and the mean rescale within one chunk. float32 both
+    sides: 1e-5."""
+    tok = HashTokenizer(vocab_size=1024)
+    enc_np = _table_encoder()
+    prompt = "a (loud:1.5) [quiet] ((nested)) \\(lit\\) " + " ".join(["x"] * 40)
+    for uncond in (None, "bad [sound]"):
+        ej, uj = jax_pw.get_weighted_text_embeddings(
+            lambda i: jnp.asarray(enc_np(i)), tok, prompt, uncond_prompt=uncond
+        )
+        et, ut = prompt_weighting.get_weighted_text_embeddings(
+            lambda i: torch.from_numpy(enc_np(i)), tok, prompt, uncond_prompt=uncond
+        )
+        np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-5, atol=1e-5)
+        if uncond is None:
+            assert ut is None and uj is None
+        else:
+            np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=1e-5, atol=1e-5)
+    assert prompt_weighting.parse_prompt_attention("a (b:1.5) [c]") == \
+        jax_pw.parse_prompt_attention("a (b:1.5) [c]")
+
+
+def test_weighted_prompt_of_two_chunks():
+    """A weighted prompt of more than 75 tokens: two 77-row chunks, each
+    token's weight on its own row, BOS/EOS rows at 1, then the mean
+    rescale. (The JAX module's weights are two rows short here and its
+    multiply fails; the port holds the weights to the embedding's rows.)"""
+    tok = HashTokenizer(vocab_size=1024)
+    enc_np = _table_encoder()
+    words = [f"w{i}" for i in range(100)]
+    prompt = " ".join(words[:80]) + " (" + " ".join(words[80:]) + ":1.4)"
+    emb, _ = prompt_weighting.get_weighted_text_embeddings(
+        lambda i: torch.from_numpy(enc_np(i)), tok, prompt
+    )
+    (ids,), (token_weights,) = prompt_weighting.get_prompts_with_weights(tok, [prompt], 225)
+    assert len(ids) == 100 and token_weights == [1.0] * 80 + [1.4] * 20
+    assert emb.shape == (1, 154, 16)
+    rows = []
+    for chunk in (ids[:75], ids[75:]):
+        rows += [tok.bos_token_id] + chunk + [tok.eos_token_id] * (76 - len(chunk))
+    base = enc_np(np.asarray([rows]))
+    w = np.ones(154, np.float32)
+    w[77 + 1 + 5 : 77 + 1 + 25] = 1.4  # tokens 80..99: chunk 2 rows 6..25
+    ref = base * w[None, :, None]
+    ref = ref * (base.mean() / ref.mean())
+    np.testing.assert_allclose(emb.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_slerp_matches_jax():
+    rng = np.random.default_rng(1)
+    v0 = rng.standard_normal((1, 4, 8, 8)).astype(np.float32)
+    v1 = rng.standard_normal((1, 4, 8, 8)).astype(np.float32)
+    for t, b in ((0.3, v1), (0.7, v0 + 1e-4 * v1)):  # slerp, and the near-parallel lerp
+        ref = np.asarray(jax_util.slerp(t, jnp.asarray(v0), jnp.asarray(b)))
+        out = torch_util.slerp(t, torch.from_numpy(v0), torch.from_numpy(b)).numpy()
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_check_device_never_falls_back():
+    assert torch_util.check_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unknown device"):
+        torch_util.check_device("tpu")
+    if torch.cuda.is_available():
+        assert torch_util.check_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            torch_util.check_device("cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pipeline.RiffusionPipeline.load_checkpoint("random:tiny", device="cuda")
+
+
+def test_waveform_to_int16_matches_jax():
+    rng = np.random.default_rng(2)
+    w = (0.3 * rng.standard_normal((2, 500))).astype(np.float32)
+    ref = np.asarray(jax_pipeline._waveform_to_int16(jnp.asarray(w)))
+    out = pipeline._waveform_to_int16(torch.from_numpy(w)).numpy()
+    assert out.dtype == np.int16 and np.abs(out).max() == 32767
+    np.testing.assert_array_equal(out, ref)
+    silent = pipeline._waveform_to_int16(torch.zeros(1, 8))
+    assert int(silent.abs().max()) == 0
+
+
+def test_preprocess_matches_jax():
+    rng = np.random.default_rng(3)
+    img = Image.fromarray(rng.integers(0, 255, (100, 70, 3), dtype=np.uint8))
+    np.testing.assert_array_equal(pipeline.preprocess_image(img),
+                                  jax_pipeline.preprocess_image(img))
+    mask = Image.fromarray(rng.integers(0, 255, (64, 96), dtype=np.uint8))
+    np.testing.assert_array_equal(pipeline.preprocess_mask(mask, size=(12, 8)),
+                                  jax_pipeline.preprocess_mask(mask, size=(12, 8)))
+
+
+def test_generator_noise_seeding():
+    dev = torch.device("cpu")
+    a = pipeline.GeneratorNoise(1, 2, dev)
+    b = pipeline.GeneratorNoise(1, 9, dev)
+    shape = (1, 4, 8, 8)
+    assert torch.equal(a("noise_a", shape, dev), b("noise_a", shape, dev))
+    assert not torch.equal(a("noise_b", shape, dev), b("noise_b", shape, dev))
+    eps = pipeline.GeneratorNoise(1, 2, dev)("vae_eps", shape, dev)
+    assert not torch.equal(eps, pipeline.GeneratorNoise(1, 2, dev)("noise_a", shape, dev))
+    phase = a("gl_real", (1, 8, 4), dev)
+    assert float(phase.min()) >= 0.0 and float(phase.max()) < 1.0
+    with pytest.raises(ValueError, match="needs draws"):
+        pipeline.FixedNoise({"vae_eps": np.zeros(1)})
