@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from riffusion_tpu_torch.ops.attention import attention, attention_reference, kernel_takes_head_dim
+from riffusion_tpu_torch.ops import attention as attention_ops
 
 
 def precise(dtype: torch.dtype) -> torch.dtype:
@@ -116,13 +116,14 @@ class ResnetBlock2D(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention over (b, s, c) tokens (self when context is None).
 
-    Self-attention with at least 256 queries and a head_dim the kernel takes
-    (ops.attention.kernel_takes_head_dim) goes through ops.attention.attention: the
-    Hopper kernel for CUDA tensors, its plain version for CPU tensors. These
-    are the sites where the JAX package runs Pallas flash attention (at full
-    SD v1 width: the 10 seq-4096 / seq-1024 self-attention sites of a UNet
-    evaluation). Cross-attention (77 keys) and the head_dim-160 sites take
-    the plain einsum composition with fp32 softmax, as in the JAX package.
+    ops.attention.route picks the attention at each call, in the JAX
+    package's order: K2's kernel (ops.attention.row_attention) at
+    self-attention with at least 2048 queries at a batch above 8 (the
+    batched path's seq-4096 sites), K1's (ops.attention.attention) at the
+    other self-attention sites with at least 256 queries, and the plain
+    einsum composition with fp32 softmax elsewhere (cross-attention with 77
+    keys, the head_dim-160 sites). Both kernel wrappers take their plain
+    version for CPU tensors.
     """
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int, out_dim: int,
@@ -140,12 +141,18 @@ class Attention(nn.Module):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         scale = 1.0 / math.sqrt(self.head_dim)
-        use_kernel = (
-            context is None and q.shape[1] >= 256 and kernel_takes_head_dim(self.head_dim)
-        )
-        op = attention if use_kernel else attention_reference
+        op = _ATTENTION_OPS[
+            attention_ops.route(q.shape[0], q.shape[1], self.head_dim, context is None)
+        ]
         out = op(q, k, v, num_heads=self.num_heads, scale=scale)
         return self.to_out(out)
+
+
+_ATTENTION_OPS = {
+    "row": attention_ops.row_attention,
+    "flash": attention_ops.attention,
+    "plain": attention_ops.attention_reference,
+}
 
 
 class GEGLUFeedForward(nn.Module):

@@ -1,27 +1,39 @@
 """
-Multi-head attention over the packed (b, s, h*d) layout: the hand-written
-Hopper kernel (csrc/attention.cu) and its plain PyTorch version.
+Multi-head attention over the packed (b, s, h*d) layout: the two
+hand-written Hopper kernels, their plain PyTorch version, and the gate that
+picks one of them at each UNet attention site.
 
-`attention(q, k, v, num_heads=..., scale=...)` computes
-softmax(q k^T * scale) v per head, with q, k, v and the output in the layout
-the to_q / to_k / to_v projections emit. It is the port of the JAX
-package's two Pallas attention kernels (jax's TPU flash_attention called
-from riffusion_tpu/models/layers.py, and riffusion_tpu/ops/attention.py
-full_row_attention); the CUDA source says what bounds the kernel on the
-card and what its design does about it.
+`attention(q, k, v, num_heads=..., scale=...)` and `row_attention(...)`
+compute softmax(q k^T * scale) v per head, with q, k, v and the output in
+the layout the to_q / to_k / to_v projections emit. They port the JAX
+package's two Pallas attention kernels:
 
-- For a CUDA tensor it launches the kernel, or raises. Nothing falls back.
-- For a CPU tensor it runs `attention_reference`, the plain version: the
-  einsum composition with fp32 softmax (riffusion_tpu/ops/attention.py
-  `_reference`, models/layers.py's "pref" path).
+- `attention` (csrc/attention.cu) is K1, jax's TPU flash_attention called
+  from riffusion_tpu/models/layers.py;
+- `row_attention` (csrc/row_attention.cu) is K2, riffusion_tpu/ops/
+  attention.py full_row_attention, the batched path's seq-4096 sites.
 
-`COUNTS.launches` counts kernel launches and `COUNTS.plain_calls` counts
-calls that took the plain version, so a run can show which one it went
-through. Calling `attention_reference` directly counts nothing.
+Each CUDA source says what bounds its kernel on the card and what its
+design does about it.
 
-The kernel is built with nvcc at first use (route (b): a shared library with
-a plain C entry point, loaded with ctypes) into csrc/build/, keyed by a hash
-of the source. No backward exists yet.
+- For a CUDA tensor a wrapper launches its kernel, or raises. Nothing falls
+  back.
+- For a CPU tensor it runs `attention_reference`, the plain version of
+  both: the einsum composition with fp32 softmax (riffusion_tpu/ops/
+  attention.py `_reference`, models/layers.py's "pref" path).
+
+`route` is the one owner of the gate (which sites take which kernel) and
+`kernel_takes_head_dim` of the head widths the kernels have instances for.
+
+`COUNTS.launches` counts K1 launches, `COUNTS.row_launches` K2 launches and
+`COUNTS.plain_calls` wrapper calls that took the plain version, so a run can
+show which one it went through. Calling `attention_reference` directly
+counts nothing.
+
+The kernels are built with nvcc at first use (route (b): shared libraries
+with a plain C entry point each, loaded with ctypes) into csrc/build/, keyed
+by a hash of the source and the headers it includes. No backward exists
+yet.
 """
 
 from __future__ import annotations
@@ -40,37 +52,52 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "attention", "attention_reference", "build_kernel", "compare_to_plain", "kernel_takes_head_dim",
-    "COUNTS", "TOLERANCE",
+    "attention", "row_attention", "attention_reference", "build_kernels", "compare_to_plain",
+    "kernel_takes_head_dim", "route", "COUNTS", "TOLERANCE",
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "attention.cu"
 BUILD_DIR = _CSRC / "build"
+# kernel name -> (source, C entry point)
+KERNELS = {
+    "attention": (_CSRC / "attention.cu", "riff_attention_forward"),
+    "row_attention": (_CSRC / "row_attention.cu", "riff_row_attention_forward"),
+}
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
-# How closely the kernel must match its plain version on the same inputs, per
+# How closely a kernel must match its plain version on the same inputs, per
 # dtype: (max abs error, RMS of the error / RMS of the plain output).
-# - bf16: both round the softmax weights (the kernel unnormalized, the plain
-#   version normalized) and the output to bf16, which moves the output by
-#   about 3e-3 of its RMS. Max abs alone cannot see a fault at bf16: with
+# - bf16: both round the softmax weights (the kernels unnormalized, the
+#   plain version normalized) and the output to bf16, which moves the output
+#   by about 3e-3 of its RMS. Max abs alone cannot see a fault at bf16: with
 #   near-uniform weights over a thousand keys the outputs are only ~0.05, and
 #   a fault that hands 1.5% of the softmax mass to the zero-padded ragged
 #   tail moves them by under 2e-3. The relative RMS bound, 6e-3, passes the
 #   rounding and fails that fault (it reaches 1.4e-2; tests/
-#   test_torch_attention.py plants it and a skipped K/V tile).
+#   test_torch_attention.py plants it, a skipped K/V tile, and Q read from
+#   the wrong head).
 # - fp32 (TF32 off): plain FMAs against an fp32 matmul, another sum order.
 TOLERANCE = {torch.bfloat16: (2e-2, 6e-3), torch.float32: (1e-4, 1e-5)}
+
+# The gate, as the JAX package's models/layers.py Attention sets it
+# (EINSUM_SEQ_MIN, EINSUM_B_LO, ROWATTN_BLOCK_Q, and the flash branch's
+# 256-query floor), without its environment knobs.
+ROW_SEQ_MIN = 2048  # K2 takes self-attention with at least this many queries,
+ROW_BATCH_ABOVE = 8  # at a batch above this,
+ROW_BLOCK_Q = 512  # and a query count that is a multiple of this.
+FLASH_SEQ_MIN = 256  # K1 takes the other self-attention sites from here up.
 
 
 @dataclasses.dataclass
 class Counts:
     launches: int = 0
+    row_launches: int = 0
     plain_calls: int = 0
 
     def reset(self) -> None:
         self.launches = 0
+        self.row_launches = 0
         self.plain_calls = 0
 
 
@@ -79,14 +106,14 @@ COUNTS = Counts()
 
 @dataclasses.dataclass(frozen=True)
 class BuiltKernel:
-    lib: ctypes.CDLL
+    fn: T.Any  # the ctypes entry point
     path: Path
     build_seconds: float  # 0.0 when an earlier build of the same source was reused
     compiler_log: str
 
 
 _build_lock = threading.Lock()
-_built: T.Optional[BuiltKernel] = None
+_built: T.Dict[str, BuiltKernel] = {}
 
 
 def _nvcc() -> str:
@@ -100,46 +127,61 @@ def _nvcc() -> str:
     return found
 
 
-def build_kernel(rebuild: bool = False) -> BuiltKernel:
-    """Compile csrc/attention.cu for sm_90a (once per source hash, or anew
-    with `rebuild`) and load it."""
-    global _built
+def _digest(source: Path) -> str:
+    """Hash of a source and every header beside it (what it may include)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_kernels(
+    names: T.Sequence[str] = tuple(KERNELS), rebuild: bool = False
+) -> T.Dict[str, BuiltKernel]:
+    """Compile the named sources for sm_90a (once per hash, or anew with
+    `rebuild`), one nvcc per source, all started together, and load them."""
     with _build_lock:
-        if _built is not None and not rebuild:
-            return _built
-        source = _SOURCE.read_bytes()
-        digest = hashlib.sha256(source).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so_path = BUILD_DIR / f"attention-{digest}.so"
-        log_path = BUILD_DIR / f"attention-{digest}.log"
-        seconds = 0.0
-        if rebuild or not so_path.is_file():
-            tmp = BUILD_DIR / f"attention-{digest}.{os.getpid()}.tmp.so"
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE),
-            ]
-            start = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - start
-            log_path.write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {_SOURCE.name}:\n{proc.stderr}"
-                )
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(str(so_path))
-        fn = lib.riff_attention_forward
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4
-            + [ctypes.c_longlong] * 8
-            + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        log = log_path.read_text() if log_path.is_file() else ""
-        _built = BuiltKernel(lib=lib, path=so_path, build_seconds=seconds, compiler_log=log)
-        return _built
+        todo = [n for n in names if rebuild or n not in _built]
+        if todo:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {}
+        for name in todo:
+            source = KERNELS[name][0]
+            stem = BUILD_DIR / f"{name}-{_digest(source)}"
+            so_path, log_path = stem.with_suffix(".so"), stem.with_suffix(".log")
+            proc = tmp = None
+            if rebuild or not so_path.is_file():
+                tmp = stem.with_suffix(f".{os.getpid()}.tmp.so")
+                cmd = [
+                    _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(source),
+                ]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+            jobs[name] = (so_path, log_path, tmp, proc, time.perf_counter())
+        for name, (so_path, log_path, tmp, proc, start) in jobs.items():
+            seconds = 0.0
+            if proc is not None:
+                out, _ = proc.communicate()
+                seconds = time.perf_counter() - start
+                log_path.write_text(out)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}) building {KERNELS[name][0].name}:\n{out}"
+                    )
+                os.replace(tmp, so_path)
+            fn = getattr(ctypes.CDLL(str(so_path)), KERNELS[name][1])
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] * 4
+                + [ctypes.c_longlong] * 8
+                + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            )
+            log = log_path.read_text() if log_path.is_file() else ""
+            _built[name] = BuiltKernel(fn=fn, path=so_path, build_seconds=seconds,
+                                       compiler_log=log)
+        return {n: _built[n] for n in names}
 
 
 def attention_reference(
@@ -172,8 +214,22 @@ def compare_to_plain(out: torch.Tensor, ref: torch.Tensor) -> T.Tuple[float, flo
 
 
 def kernel_takes_head_dim(head_dim: int) -> bool:
-    """The head widths csrc/attention.cu has an instance for."""
+    """The head widths both kernels have an instance for."""
     return head_dim % 8 == 0 and 0 < head_dim <= 128
+
+
+def route(batch: int, seq_q: int, head_dim: int, self_attention: bool) -> str:
+    """Which attention a UNet site takes, in the JAX package's order
+    (models/layers.py Attention): "row" (K2) for self-attention with at
+    least ROW_SEQ_MIN queries, a multiple of ROW_BLOCK_Q, at a batch above
+    ROW_BATCH_ABOVE; otherwise, outside that large-batch window, "flash"
+    (K1) for self-attention with at least FLASH_SEQ_MIN queries; "plain"
+    everywhere else. Both kernels need a head width they take."""
+    if not (self_attention and kernel_takes_head_dim(head_dim)):
+        return "plain"
+    if seq_q >= ROW_SEQ_MIN and batch > ROW_BATCH_ABOVE:
+        return "row" if seq_q % ROW_BLOCK_Q == 0 else "plain"
+    return "flash" if seq_q >= FLASH_SEQ_MIN else "plain"
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> None:
@@ -193,39 +249,63 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int)
         raise ValueError(f"device mismatch: {q.device}, {k.device}, {v.device}")
 
 
+def _launch(
+    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """Launch kernel `name` on CUDA operands (checked here) into a new
+    output, on the current stream; raises if the launch is refused."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(2) != 1 or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
+            raise ValueError(
+                f"{arg} must have a contiguous h*d dim, batch/seq strides that are "
+                f"multiples of 8 and a 16-byte aligned base (strides {x.stride()})"
+            )
+    b, s_q, inner = q.shape
+    out = torch.empty((b, s_q, inner), dtype=q.dtype, device=q.device)
+    fn = build_kernels((name,))[name].fn
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        b, s_q, k.shape[1], num_heads, inner // num_heads, float(scale),
+        _KERNEL_DTYPES[q.dtype], q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+    return out
+
+
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int, scale: float
 ) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (b, s, h*d) operands. CUDA tensors go
-    through the kernel (bf16 or fp32), CPU tensors through the plain version.
-    Requires head_dim = inner / num_heads to be a multiple of 8, at most 128."""
+    """softmax(q k^T * scale) v over (b, s, h*d) operands through K1's
+    kernel (csrc/attention.cu) for CUDA tensors (bf16 or fp32), the plain
+    version for CPU tensors. head_dim = inner / num_heads must be a
+    multiple of 8, at most 128."""
     _validate(q, k, v, num_heads)
     if q.device.type == "cpu":
         COUNTS.plain_calls += 1
         return attention_reference(q, k, v, num_heads=num_heads, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(2) != 1 or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
-            raise ValueError(
-                f"{name} must have a contiguous h*d dim, batch/seq strides that are "
-                f"multiples of 8 and a 16-byte aligned base (strides {x.stride()})"
-            )
-    b, s_q, inner = q.shape
-    s_kv = k.shape[1]
-    out = torch.empty((b, s_q, inner), dtype=q.dtype, device=q.device)
-    kernel = build_kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = kernel.lib.riff_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        b, s_q, s_kv, num_heads, inner // num_heads, float(scale),
-        _KERNEL_DTYPES[q.dtype], q.device.index, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"attention kernel launch failed with CUDA error {rc}")
+    out = _launch("attention", q, k, v, num_heads, scale)
     COUNTS.launches += 1
+    return out
+
+
+def row_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int, scale: float
+) -> torch.Tensor:
+    """The same function through K2's kernel (csrc/row_attention.cu) for
+    CUDA tensors, the plain version for CPU tensors; the batched path's
+    large-sequence sites (`route` == "row"). Same operand rules as
+    `attention`; ragged s_q and s_kv are masked."""
+    _validate(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        COUNTS.plain_calls += 1
+        return attention_reference(q, k, v, num_heads=num_heads, scale=scale)
+    out = _launch("row_attention", q, k, v, num_heads, scale)
+    COUNTS.row_launches += 1
     return out

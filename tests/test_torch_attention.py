@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
+from riffusion_tpu.models import layers as jax_layers
 from riffusion_tpu.models.layers import Attention as JaxAttention
 from riffusion_tpu.ops.attention import _reference, full_row_attention
 from riffusion_tpu_torch.models.layers import Attention
@@ -29,6 +30,8 @@ from riffusion_tpu_torch.ops.attention import (
     attention,
     attention_reference,
     compare_to_plain,
+    route,
+    row_attention,
 )
 
 
@@ -142,16 +145,24 @@ def test_cpu_wrapper_counts_plain_calls_only():
 
 
 def test_kernel_source_is_shipped():
-    assert attn_mod._SOURCE.is_file()
-    assert "riff_attention_forward" in attn_mod._SOURCE.read_text()
+    for source, entry in attn_mod.KERNELS.values():
+        assert source.is_file()
+        assert entry in source.read_text()
+        assert '#include "attention_common.cuh"' in source.read_text()
+    assert (attn_mod._CSRC / "attention_common.cuh").is_file()
 
 
-def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_tile=None):
-    """csrc/attention.cu's bf16 arithmetic in PyTorch: fp32 logits, an online
-    softmax over 64-row K/V tiles in the log2 domain, unnormalized weights
+def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_tile=None,
+                     fold_q_bf16=False, wrong_head=False):
+    """The bf16 arithmetic of csrc/attention.cu and csrc/row_attention.cu in
+    PyTorch: fp32 logits, an online softmax over 64-row K/V tiles in the
+    log2 domain with the scale*log2(e) fold in fp32, unnormalized weights
     rounded to bf16 for P V, fp32 accumulation, the division after P V, a
-    bf16 output. Two flags plant faults: the zero-padded keys of the ragged
-    last tile get logit 0 instead of -inf, or one K/V tile is skipped."""
+    bf16 output. (The two kernels differ in query rows per block, which
+    does not change a row's arithmetic.) Flags plant faults: the
+    zero-padded keys of the ragged last tile get logit 0 instead of -inf,
+    one K/V tile is skipped, Q is read from the next head's columns, or the
+    fold is made into Q in bf16 as the TPU kernel makes it."""
     b, s_q, inner = q.shape
     d = inner // num_heads
 
@@ -159,6 +170,11 @@ def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_t
         return x.float().reshape(b, x.shape[1], num_heads, d).transpose(1, 2)
 
     qh, kh, vh = heads(q), heads(k), heads(v)
+    if wrong_head:
+        qh = qh.roll(1, dims=1)
+    c = scale * math.log2(math.e)
+    if fold_q_bf16:
+        qh, c = (qh * c).to(torch.bfloat16).float(), 1.0
     if tail_logit_zero:
         pad = torch.zeros(b, num_heads, -kh.shape[2] % 64, d)
         kh, vh = torch.cat([kh, pad], 2), torch.cat([vh, pad], 2)
@@ -168,7 +184,7 @@ def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_t
     for tile, n0 in enumerate(range(0, kh.shape[2], 64)):
         if tile == skip_tile:
             continue
-        logits = qh @ kh[:, :, n0:n0 + 64].transpose(-1, -2) * (scale * math.log2(math.e))
+        logits = qh @ kh[:, :, n0:n0 + 64].transpose(-1, -2) * c
         new_max = torch.maximum(row_max, logits.amax(-1, keepdim=True))
         alpha, p = torch.exp2(row_max - new_max), torch.exp2(logits - new_max)
         row_sum = row_sum * alpha + p.sum(-1, keepdim=True)
@@ -177,11 +193,12 @@ def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_t
     return (acc / row_sum).transpose(1, 2).reshape(b, s_q, inner).to(torch.bfloat16)
 
 
-def _bf16_case(s_q, s_kv, h, d, seed=4):
-    """The smoke's bf16 operands: q and k standard normal, v uniform in [-1, 1)."""
+def _bf16_case(s_q, s_kv, h, d, seed=4, mult=1.0):
+    """The smoke's bf16 operands: q and k normal with std `mult`, v uniform
+    in [-1, 1)."""
     rng = np.random.default_rng(seed)
-    q = torch.from_numpy(rng.standard_normal((1, s_q, h * d))).to(torch.bfloat16)
-    k = torch.from_numpy(rng.standard_normal((1, s_kv, h * d))).to(torch.bfloat16)
+    q = torch.from_numpy(mult * rng.standard_normal((1, s_q, h * d))).to(torch.bfloat16)
+    k = torch.from_numpy(mult * rng.standard_normal((1, s_kv, h * d))).to(torch.bfloat16)
     v = torch.from_numpy(rng.uniform(-1, 1, (1, s_kv, h * d))).to(torch.bfloat16)
     return q, k, v
 
@@ -212,3 +229,99 @@ def test_bf16_tolerance_rejects_a_planted_fault(s_q, s_kv, h, d, fault):
     assert not ok, (max_abs, rel_rms)
     if fault == "tail":  # max abs alone passes it: the relative RMS bound is what fails it
         assert max_abs <= TOLERANCE[torch.bfloat16][0]
+
+
+@pytest.mark.parametrize("mult", [1.0, 8.0], ids=["normal", "large-logits"])
+def test_bf16_tolerance_admits_the_folded_arithmetic(mult):
+    """K2's fold made in fp32 (one FFMA per logit in row_attention.cu) stays
+    inside the bf16 tolerance at large logits; the TPU kernel's fold into Q
+    in bf16 does not (0.13-0.18 max abs at std-8 operands), which is why the
+    Hopper kernel keeps the fold in fp32."""
+    q, k, v = _bf16_case(1024, 1024, 2, 40, seed=7, mult=mult)
+    ref = attention_reference(q, k, v, num_heads=2, scale=40**-0.5)
+    assert compare_to_plain(_kernel_numerics(q, k, v, 2, 40**-0.5), ref)[2]
+    max_abs, rel_rms, ok = compare_to_plain(
+        _kernel_numerics(q, k, v, 2, 40**-0.5, fold_q_bf16=True), ref)
+    assert ok == (mult == 1.0), (max_abs, rel_rms)
+
+
+@pytest.mark.parametrize("s_q,s_kv,h,d", [(1024, 1024, 2, 40), (1000, 1000, 2, 16)],
+                         ids=["d40", "ragged-d16"])
+def test_bf16_tolerance_rejects_q_from_the_wrong_head(s_q, s_kv, h, d):
+    q, k, v = _bf16_case(s_q, s_kv, h, d)
+    ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
+    max_abs, rel_rms, ok = compare_to_plain(
+        _kernel_numerics(q, k, v, h, d**-0.5, wrong_head=True), ref)
+    assert not ok, (max_abs, rel_rms)
+
+
+# K2's plain version (the CPU path of `row_attention`) against the JAX
+# full-row kernel in interpret mode, as tests/test_rowattn.py runs it: fp32
+# within 2e-6, bf16 within 2e-2 (both round the weights and output to bf16,
+# at different points), large logits in fp32 within 1e-4.
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-6), ("bfloat16", 2e-2)])
+def test_row_attention_plain_matches_jax_kernel(dtype, tol):
+    rng = np.random.default_rng(8)
+    b, s, h, d = 2, 256, 3, 40
+    q, k, v = _qkv(rng, b, s, h, d)
+    ref = full_row_attention(
+        *(jnp.asarray(x, dtype) for x in (q, k, v)), num_heads=h, scale=d**-0.5, block_q=128,
+        interpret=True,
+    )
+    tdtype = getattr(torch, dtype)
+    COUNTS.reset()
+    out = row_attention(*(torch.from_numpy(x).to(tdtype) for x in (q, k, v)), num_heads=h,
+                        scale=d**-0.5)
+    assert (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls) == (0, 0, 1)
+    assert out.dtype == tdtype and out.shape == tuple(ref.shape)
+    err = float(np.max(np.abs(out.float().numpy() - np.asarray(ref.astype(jnp.float32)))))
+    assert err < tol, err
+
+
+def test_row_attention_plain_large_logits_matches_jax_kernel():
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(rng, 1, 128, 1, 40, scale=30.0)
+    ref = full_row_attention(*(jnp.asarray(x) for x in (q, k, v)), num_heads=1, scale=1.0,
+                             block_q=64, interpret=True)
+    out = row_attention(*(torch.from_numpy(x) for x in (q, k, v)), num_heads=1, scale=1.0)
+    assert torch.isfinite(out).all()
+    assert float(np.max(np.abs(out.numpy() - np.asarray(ref)))) < 1e-4
+
+
+def _jax_route(b, lq, d, self_attention):
+    """The JAX package's choice at one Attention call (models/layers.py
+    use_rowattn and use_flash, on a TPU), from its own constants."""
+    L = jax_layers
+    window = lq >= L.EINSUM_SEQ_MIN and L.EINSUM_B_LO < b < L.EINSUM_B_HI
+    if self_attention and window and lq % L.ROWATTN_BLOCK_Q == 0 and d <= 128:
+        return "row"
+    d_pad = 64 if d <= 64 else (128 if d <= 128 else 256)
+    if self_attention and lq >= 256 and d_pad <= L.FLASH_MAX_DPAD and not window:
+        return "flash"
+    return "plain"
+
+
+def test_route_matches_the_jax_gate():
+    """Over batches, sequence lengths (including ragged ones inside the
+    row window), the SD v1 head widths and self/cross attention."""
+    seen = set()
+    for b in (1, 2, 8, 9, 10, 16, 32, 64):
+        for lq in (64, 255, 256, 1024, 2047, 2048, 2500, 3072, 4096, 16384):
+            for d in (16, 40, 80, 128, 160):
+                for self_attention in (True, False):
+                    want = _jax_route(b, lq, d, self_attention)
+                    assert route(b, lq, d, self_attention) == want, (b, lq, d, self_attention)
+                    seen.add(want)
+    assert seen == {"row", "flash", "plain"}
+    # the serving shapes: batch 16 (UNet batch 32) and the single clip (2)
+    assert route(32, 4096, 40, True) == "row" and route(32, 1024, 80, True) == "flash"
+    assert route(2, 4096, 40, True) == "flash" and route(32, 4096, 40, False) == "plain"
+
+
+def test_row_attention_wrapper_validation():
+    q = torch.zeros(1, 8, 36)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        row_attention(q, q, q, num_heads=3, scale=1.0)
+    q = torch.zeros(1, 8, 32)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        row_attention(q, torch.zeros(1, 8, 16), torch.zeros(1, 8, 16), num_heads=2, scale=1.0)

@@ -1,7 +1,8 @@
 """
-The Hopper attention kernel (riffusion_tpu_torch/csrc/attention.cu) against
-its plain PyTorch version, on a CUDA card. Every test here is marked `cuda`
-and skips where torch sees no card; the kernel has no CPU mode. This file
+The Hopper attention kernels (riffusion_tpu_torch/csrc/attention.cu, K1, and
+csrc/row_attention.cu, K2) against their plain PyTorch version, on a CUDA
+card. Every test here is marked `cuda` and skips where torch sees no card;
+the kernels have no CPU mode. This file
 imports neither jax nor the JAX package, so it runs on a card machine
 without them:
 
@@ -17,6 +18,7 @@ from riffusion_tpu_torch.ops.attention import (
     attention,
     attention_reference,
     compare_to_plain,
+    row_attention,
 )
 
 pytestmark = pytest.mark.cuda
@@ -47,6 +49,9 @@ def _qkv(dev, b, s_q, s_kv, h, d, dtype, mult=1.0, seed=0):
     [
         (2, 4096, 4096, 8, 40, torch.bfloat16, 1.0),
         (2, 1024, 1024, 8, 80, torch.bfloat16, 1.0),
+        (32, 1024, 1024, 8, 80, torch.bfloat16, 1.0),
+        (16, 1024, 1024, 8, 80, torch.bfloat16, 1.0),
+        (8, 4096, 4096, 8, 40, torch.bfloat16, 1.0),
         (1, 1000, 1000, 2, 16, torch.bfloat16, 1.0),
         (1, 1000, 1000, 2, 32, torch.bfloat16, 1.0),
         (1, 1000, 777, 2, 128, torch.bfloat16, 1.0),
@@ -54,8 +59,8 @@ def _qkv(dev, b, s_q, s_kv, h, d, dtype, mult=1.0, seed=0):
         (2, 300, 300, 3, 32, torch.float32, 1.0),
         (1, 1000, 777, 2, 128, torch.float32, 1.0),
     ],
-    ids=["slice-d40", "slice-d80", "ragged-d16", "ragged-d32", "ragged-d128",
-         "large-logits", "f32-d32", "f32-ragged-d128"],
+    ids=["slice-d40", "slice-d80", "batch16-d80", "batch8-d80", "batch4-d40", "ragged-d16",
+         "ragged-d32", "ragged-d128", "large-logits", "f32-d32", "f32-ragged-d128"],
 )
 def test_kernel_matches_plain(cuda_device, b, s_q, s_kv, h, d, dtype, mult):
     q, k, v = _qkv(cuda_device, b, s_q, s_kv, h, d, dtype, mult)
@@ -108,3 +113,54 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros(1, 64, 36, device=cuda_device)[:, :, 4:]  # base not 16-byte aligned
     with pytest.raises(ValueError, match="aligned"):
         attention(q, q, q, num_heads=2, scale=1.0)
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,h,d,dtype,mult",
+    [
+        (32, 4096, 4096, 8, 40, torch.bfloat16, 1.0),
+        (9, 2048, 2048, 8, 40, torch.bfloat16, 1.0),
+        (10, 1000, 1000, 2, 16, torch.bfloat16, 1.0),
+        (1, 1000, 777, 2, 128, torch.bfloat16, 1.0),
+        (9, 1024, 1024, 2, 40, torch.bfloat16, 8.0),
+        (10, 2048, 2048, 2, 16, torch.float32, 1.0),
+        (1, 1000, 777, 2, 128, torch.float32, 1.0),
+    ],
+    ids=["batch16-site", "b9", "ragged-d16", "ragged-d128", "large-logits", "f32-d16",
+         "f32-ragged-d128"],
+)
+def test_row_kernel_matches_plain(cuda_device, b, s_q, s_kv, h, d, dtype, mult):
+    q, k, v = _qkv(cuda_device, b, s_q, s_kv, h, d, dtype, mult, seed=2)
+    COUNTS.reset()
+    out = row_attention(q, k, v, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls) == (0, 1, 0)
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
+    max_abs, rel_rms, ok = compare_to_plain(out, ref)
+    assert ok, (max_abs, rel_rms)
+
+
+def test_row_kernel_strided_operands(cuda_device):
+    b, s, h, d = 9, 2048, 4, 40
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.split(h * d, dim=-1)
+    out = row_attention(q, k, v, num_heads=h, scale=d**-0.5)
+    ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
+    max_abs, rel_rms, ok = compare_to_plain(out, ref)
+    assert ok, (max_abs, rel_rms)
+
+
+def test_attention_module_takes_the_row_kernel(cuda_device):
+    """At UNet batch 10 the seq-4096 self-attention goes through K2."""
+    module = Attention(320, 8, 40, 320).to(cuda_device, torch.bfloat16).eval()
+    x = torch.randn(10, 4096, 320, device=cuda_device).to(torch.bfloat16)
+    COUNTS.reset()
+    with torch.no_grad():
+        out = module(x)
+        q, k, v = module.to_q(x), module.to_k(x), module.to_v(x)
+        ref = module.to_out(attention_reference(q, k, v, num_heads=8, scale=40**-0.5))
+    assert (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls) == (0, 1, 0)
+    max_abs, rel_rms, ok = compare_to_plain(out, ref)
+    assert ok, (max_abs, rel_rms)

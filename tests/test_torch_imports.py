@@ -1,7 +1,7 @@
 """
 The port never imports jax or flax: a fresh interpreter imports every
-riffusion_tpu_torch module, runs the tiny slice on the CPU, and checks
-sys.modules. Also a static check that no source of the port imports them,
+riffusion_tpu_torch module (serving and server among them), runs the tiny
+slice on the CPU, single and batched, and checks sys.modules. Also a static check that no source of the port imports them,
 and that it calls no library attention or compiler.
 """
 
@@ -30,8 +30,15 @@ pipe = RiffusionPipeline.load_checkpoint("random:tiny", device="cpu")
 image = Image.fromarray(np.random.default_rng(0).integers(0, 255, (64, 64, 3), dtype=np.uint8))
 inputs = InferenceInput(start=PromptInput(prompt="a", seed=1), end=PromptInput(prompt="b", seed=2),
                         alpha=0.5, num_inference_steps=2)
-out, audio = pipe.riffuse_audio(inputs, image, params=SpectrogramParams(num_frequencies=64))
+params = SpectrogramParams(num_frequencies=64)
+out, audio = pipe.riffuse_audio(inputs, image, params=params)
 assert out.size == (64, 64) and audio.duration_seconds > 0
+# the batched path, through the server module's batcher
+from riffusion_tpu_torch.server import DynamicBatcher
+batcher = DynamicBatcher(pipe, window_ms=10, scheduler="unipc_k:rho=2")
+out, audio = batcher.submit(inputs, image, None, params, seed_image_id="s", mask_image_id=None)
+batcher.shutdown()
+assert len(pipe.riffuse_audio_batch([inputs, inputs], image, params=params)) == 2
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 print("LOADED", bad)
 """

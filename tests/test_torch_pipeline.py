@@ -8,6 +8,8 @@ Also the pieces around it: prompt weighting, text embeddings, slerp, device
 selection, preprocessing, the int16 conversion and the default noise.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -263,3 +265,166 @@ def test_generator_noise_seeding():
     assert float(phase.min()) >= 0.0 and float(phase.max()) < 1.0
     with pytest.raises(ValueError, match="needs draws"):
         pipeline.FixedNoise({"vae_eps": np.zeros(1)})
+
+
+# ----------------------------------------------------- samplers on the slice
+#
+# These tests run at guidance 1.25-2, not the default 7. Guidance multiplies
+# a difference in the UNet's output by up to 1 + 2g, and the random tiny UNet
+# amplifies a difference in its input from step to step, so at g = 7 float32
+# rounding alone (a batch of 3 against a batch of 1 in the port; JAX's
+# one-pass GroupNorm variance against the port's) moves a few percent of the
+# pixels by a level, or a few pixels by several. Measured at 64 px, 6 steps:
+# at g = 7, 93-99.9% of pixels equal; at g = 1.5-2, at least 99.8%. A wrong
+# guidance, plan, noise or ordering moves far more than that at either.
+# The step counts keep steps * strength off an integer: there, the batch's
+# mean strength and a request's own strength can round to different start
+# steps (the JAX package behaves the same).
+
+
+def _low_guidance(inputs, guidance=1.75):
+    return dataclasses.replace(
+        inputs,
+        start=dataclasses.replace(inputs.start, guidance=guidance),
+        end=dataclasses.replace(inputs.end, guidance=guidance),
+    )
+
+
+def _assert_images_agree(a_img, b_img):
+    """One uint8 level everywhere, equal on at least 99% of pixels (the
+    rounding-boundary argument above)."""
+    a, b = np.asarray(a_img, np.int16), np.asarray(b_img, np.int16)
+    assert a.shape == b.shape
+    stats = (int(np.abs(a - b).max()), float((a == b).mean()))
+    assert stats[0] <= 1 and stats[1] >= 0.99, stats
+
+
+def _assert_mels_agree(a_img, b_img):
+    """Mel magnitudes decoded from the two images agree where their pixels
+    do (raw waveforms are not compared: ROADMAP Queue 3's warning)."""
+    a, b = np.asarray(a_img), np.asarray(b_img)
+    mel_a, mel_b = (
+        codec.spectrogram_from_codes(
+            codec.codes_from_rgb_image(torch.from_numpy(np.array(x)), False), 0.25, 30e6
+        ).numpy()
+        for x in (a, b)
+    )
+    same = np.flip(a[..., 0] == b[..., 0], axis=0)[None]
+    np.testing.assert_allclose(mel_a[same], mel_b[same], rtol=1e-6)
+
+
+@pytest.mark.parametrize("scheduler", ["unipc_k:rho=2", "dpmpp"])
+def test_riffuse_audio_scheduler_matches_jax(pipes, seed_image, scheduler):
+    """The single path with a sigma-space sampler: the scheduler argument
+    and the sigma-space start noising (x0 + sigma_0 * eps)."""
+    jp, tp = pipes
+    inputs = _low_guidance(_inputs(num_inference_steps=6))
+    image_j, _ = jp.riffuse_audio(inputs, seed_image, params=PARAMS, apply_filters=False,
+                                  scheduler=scheduler)
+    n_active = tp.converter(PARAMS).n_active
+    noise = _jax_draws(42, 123, (SIZE // 8, SIZE // 8), (1, n_active, SIZE))
+    image_t, audio_t = tp.riffuse_audio(inputs, seed_image, params=PARAMS, apply_filters=False,
+                                        scheduler=scheduler, noise=noise)
+    _assert_images_agree(image_j, image_t)
+    _assert_mels_agree(image_j, image_t)
+    assert np.abs(audio_t.raw_data.astype(int)).max() > 30000
+    # interpolate_img2img is riffuse under the reference's name
+    alias = tp.interpolate_img2img(inputs, seed_image, scheduler=scheduler, noise=noise)
+    np.testing.assert_array_equal(np.asarray(alias), np.asarray(image_t))
+
+
+# ---------------------------------------------------------- the batched path
+
+def _batch_inputs(num_inference_steps):
+    """Three requests at one strength (0.75), with other prompts, seeds,
+    alphas and guidances (low ones: see _low_guidance)."""
+    return [
+        _low_guidance(_inputs(num_inference_steps=num_inference_steps)),
+        _inputs(num_inference_steps=num_inference_steps, alpha=0.5,
+                start=PromptInput(prompt="jazz", seed=7, guidance=1.25),
+                end=PromptInput(prompt="rain", seed=8, guidance=1.75)),
+        _inputs(num_inference_steps=num_inference_steps, alpha=0.8,
+                start=PromptInput(prompt="organ", seed=9, guidance=2.0),
+                end=PromptInput(prompt="bass", seed=10, negative_prompt="hiss", guidance=1.5)),
+    ]
+
+
+def _draws_for(tp, inputs_list):
+    n_active = tp.converter(PARAMS).n_active
+    return [_jax_draws(i.start.seed, i.end.seed, (SIZE // 8, SIZE // 8), (1, n_active, SIZE))
+            for i in inputs_list]
+
+
+def _mask():
+    return Image.fromarray(np.tile(np.array([0, 255] * (SIZE // 2), np.uint8), (SIZE, 1)))
+
+
+@pytest.mark.parametrize(
+    "scheduler,masked", [("pndm", False), ("unipc_k:rho=2", False), ("unipc_k:rho=2", True)],
+    ids=["pndm", "unipc_k", "unipc_k-mask"],
+)
+def test_riffuse_audio_batch_matches_jax(pipes, seed_image, scheduler, masked):
+    """N = 3 through the port's batch and the JAX package's batch program,
+    on the JAX program's draws rebuilt per request."""
+    jp, tp = pipes
+    inputs_list = _batch_inputs(6)
+    mask = _mask() if masked else None
+    out_j = jp.riffuse_audio_batch(inputs_list, seed_image, params=PARAMS, apply_filters=False,
+                                   mask_image=mask, scheduler=scheduler)
+    out_t = tp.riffuse_audio_batch(inputs_list, seed_image, params=PARAMS, apply_filters=False,
+                                   mask_image=mask, scheduler=scheduler,
+                                   noises=_draws_for(tp, inputs_list))
+    assert len(out_t) == 3
+    for (image_j, audio_j), (image_t, audio_t) in zip(out_j, out_t):
+        _assert_images_agree(image_j, image_t)
+        _assert_mels_agree(image_j, image_t)
+        assert audio_t.raw_data.shape == audio_j.raw_data.shape
+        assert np.abs(audio_t.raw_data.astype(int)).max() > 30000  # per-item peak
+
+
+def test_batch_item_equals_single_request(pipes, seed_image):
+    """Request i of a batch is request i alone: the same draws, the same
+    plan, per-item guidance and peak normalization."""
+    _, tp = pipes
+    inputs_list = _batch_inputs(6)
+    draws = _draws_for(tp, inputs_list)
+    batch = tp.riffuse_audio_batch(inputs_list, seed_image, params=PARAMS, apply_filters=False,
+                                   noises=draws)
+    for inputs, noise, (image_b, audio_b) in zip(inputs_list, draws, batch):
+        image_s, audio_s = tp.riffuse_audio(inputs, seed_image, params=PARAMS,
+                                            apply_filters=False, noise=noise)
+        _assert_images_agree(image_b, image_s)
+        assert audio_b.raw_data.shape == audio_s.raw_data.shape
+
+
+def test_batch_async_dispatch_and_per_item_images(pipes, seed_image):
+    """`async_dispatch` returns a finalize that gives the results; a
+    sequence of seed images gives each request its own (encoded as one
+    batch), and request i then equals request i alone on image i."""
+    _, tp = pipes
+    inputs_list = _batch_inputs(6)[:2]
+    draws = _draws_for(tp, inputs_list)
+    other = Image.fromarray(255 - np.asarray(seed_image))
+    finalize = tp.riffuse_audio_batch(inputs_list, [seed_image, other], params=PARAMS,
+                                      async_dispatch=True, noises=draws)
+    assert callable(finalize)
+    results = finalize()
+    assert len(results) == 2
+    for inputs, image, noise, (image_b, _) in zip(inputs_list, [seed_image, other], draws,
+                                                 results):
+        _assert_images_agree(image_b, tp.riffuse(inputs, image, noise=noise))
+    with pytest.raises(ValueError, match="one init image"):
+        tp.riffuse_audio_batch(inputs_list, [seed_image] * 3, params=PARAMS)
+
+
+def test_batch_rejects_mixed_strengths_and_steps(pipes, seed_image):
+    jp, tp = pipes
+    mixed = [_inputs(num_inference_steps=3),
+             _inputs(num_inference_steps=3, start=PromptInput(prompt="a", seed=1, denoising=0.5),
+                     end=PromptInput(prompt="b", seed=2, denoising=0.5))]
+    for pipe in (jp, tp):
+        with pytest.raises(ValueError, match="single denoising strength"):
+            pipe.riffuse_audio_batch(mixed, seed_image, params=PARAMS)
+    with pytest.raises(ValueError, match="single num_inference_steps"):
+        tp.riffuse_audio_batch([_inputs(num_inference_steps=3), _inputs(num_inference_steps=4)],
+                               seed_image, params=PARAMS)

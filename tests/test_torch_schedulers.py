@@ -73,3 +73,102 @@ def test_add_noise_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="not ported"):
         sched.make_plan("ddim", 10)
+
+
+# ------------------------------------------------------------ dpmpp and unipc
+
+SIGMA_SCHEDULERS = ["dpmpp", "dpmpp_k", "unipc", "unipc_k:rho=2"]
+
+
+@pytest.mark.parametrize("name", SIGMA_SCHEDULERS)
+@pytest.mark.parametrize("num_steps,t_start", [(16, 4), (24, 6), (50, 13)])
+def test_sigma_plan_matches_jax(name, num_steps, t_start):
+    """The plans are the same numpy code on both sides: 1e-6."""
+    pj = jax_sched.make_plan(name, num_steps, t_start)
+    pt = sched.make_plan(name, num_steps, t_start)
+    assert pt.name == pj.name and pt.history == pj.history
+    np.testing.assert_array_equal(pt.timesteps, pj.timesteps)
+    assert set(pt.coeffs) == set(pj.coeffs)
+    for key, value in pj.coeffs.items():
+        np.testing.assert_allclose(pt.coeffs[key], np.asarray(value), rtol=1e-6, atol=1e-6,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("anchor", ["suffix", "suffix_exact"])
+def test_karras_anchor_options_match_jax(anchor):
+    name = f"dpmpp_k:anchor={anchor},rho=5"
+    pj, pt = jax_sched.make_plan(name, 20, 5), sched.make_plan(name, 20, 5)
+    np.testing.assert_array_equal(pt.timesteps, pj.timesteps)
+    np.testing.assert_allclose(pt.coeffs["sigmas"], pj.coeffs["sigmas"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", SIGMA_SCHEDULERS)
+@pytest.mark.parametrize("edit", [False, True], ids=["plain", "edited"])
+def test_sigma_steps_match_jax(name, edit):
+    """A run of `step` on the same latents and eps, in float32. With `edit`
+    the latents are changed between steps (what mask re-noising does), which
+    unipc's delta correction has to carry. Latents of order 10: 1e-5
+    relative is float32 rounding with room for another operation order."""
+    plan_j, plan_t = jax_sched.make_plan(name, 16, 4), sched.make_plan(name, 16, 4)
+    rng = np.random.default_rng(5)
+    shape = (2, 4, 6, 5)
+    sample = (plan_t.coeffs["sigmas"][0] * rng.standard_normal(shape)).astype(np.float32)
+    eps_seq = rng.standard_normal((plan_j.num_steps,) + shape).astype(np.float32)
+    lat_j, st_j = jnp.asarray(sample), jax_sched.init_state(plan_j, shape, jnp.float32)
+    lat_t, st_t = torch.from_numpy(sample), sched.init_state(plan_t, shape, torch.float32)
+    for i in range(plan_j.num_steps):
+        lat_j, st_j = jax_sched.step(plan_j, st_j, jnp.asarray(i), jnp.asarray(eps_seq[i]), lat_j)
+        lat_t, st_t = sched.step(plan_t, st_t, i, torch.from_numpy(eps_seq[i]), lat_t)
+        if edit:
+            lat_j = 0.9 * lat_j + 0.1 * jnp.asarray(sample)
+            lat_t = 0.9 * lat_t + 0.1 * torch.from_numpy(sample)
+        scale = float(np.max(np.abs(np.asarray(lat_j))))
+        assert float(np.max(np.abs(lat_t.numpy() - np.asarray(lat_j)))) < 1e-5 * scale, i
+
+
+@pytest.mark.parametrize("name", ["pndm", "dpmpp", "unipc_k:rho=2"])
+def test_noising_and_input_scaling_match_jax(name):
+    cfg_j, cfg_t = jax_sched.NoiseConfig(), sched.NoiseConfig()
+    plan_j, plan_t = jax_sched.make_plan(name, 16, 4), sched.make_plan(name, 16, 4)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 4, 3, 3)).astype(np.float32)
+    n = rng.standard_normal((2, 4, 3, 3)).astype(np.float32)
+    xt, nt, xj, nj = torch.from_numpy(x), torch.from_numpy(n), jnp.asarray(x), jnp.asarray(n)
+    for i in (0, 3, plan_t.num_steps - 1):
+        pairs = [
+            (sched.add_noise_at_index(plan_t, cfg_t, xt, nt, i),
+             jax_sched.add_noise_at_index(plan_j, cfg_j, xj, nj, i)),
+            (sched.scale_model_input(plan_t, xt, i), jax_sched.scale_model_input(plan_j, xj, i)),
+        ]
+        if name != "pndm":
+            pairs.append((sched.add_noise_sigma(plan_t, xt, nt, i),
+                          jax_sched.add_noise_sigma(plan_j, xj, nj, i)))
+        for out, ref in pairs:
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "name,match",
+    [("unipc_k:rho=2,bogus=1", "unknown scheduler options"),
+     ("dpmpp:rho=2", "only apply to"),
+     ("unipc_k:anchor=middle", "unknown Karras slice anchor"),
+     ("euler", "not ported")],
+)
+def test_bad_scheduler_names_raise_as_in_jax(name, match):
+    with pytest.raises(ValueError, match=match):
+        sched.make_plan(name, 16, 4)
+    if name != "euler":  # JAX has euler; the port does not yet
+        with pytest.raises(ValueError):
+            jax_sched.make_plan(name, 16, 4)
+
+
+def test_fast_preset_unet_evaluations():
+    """The FAST preset at the gated strength 0.75 (unipc_k:rho=2, 16 steps)
+    and its fallback at 0.65 (dpmpp, 24 steps): 12 and 15 evaluations."""
+    def evals(name, num_steps, strength):
+        init_timestep = min(int(num_steps * strength) + 1, num_steps)
+        return sched.make_plan(name, num_steps, max(num_steps - init_timestep + 1, 0)).num_steps
+
+    assert evals("unipc_k:rho=2", 16, 0.75) == 12
+    assert evals("dpmpp", 24, 0.65) == 15
+    assert sched.make_plan("unipc_k:rho=2", 16, 4) is sched.make_plan("unipc_k:rho=2", 16, 4)
