@@ -9,41 +9,73 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. card: the card's name and power limit (nvidia-smi); no CUDA device fails.
-2. build: nvcc builds csrc/attention.cu (K1) and csrc/row_attention.cu (K2)
-   from this checkout, both at once; prints each build's seconds and ptxas
-   register lines.
-3. kernel: each kernel against its plain PyTorch version on the card, held
-   to ops.attention.TOLERANCE: max abs error (bf16 2e-2, fp32 with TF32 off
-   1e-4) and error RMS over output RMS (bf16 6e-3, fp32 1e-5). K1 at the
-   single path's two shapes, the batched path's (32, 1024, 8*80),
-   (16, 1024, 8*80) and (8, 4096, 8*40), ragged lengths, other head dims and
-   large logits; K2 at the batched path's (32, 4096, 8*40), (9, 2048, 8*40), a
-   ragged (10, 1000, 2*16), large logits and fp32 (10, 2048, 2*16). Times
-   (CUDA events, median of 20) K1 and plain at the two single-path shapes,
-   and K2, K1 and plain at (32, 4096, 8*40) bf16, before any model is
+2. build: nvcc builds csrc/attention.cu (K1), csrc/row_attention.cu (K2),
+   csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward) from this
+   checkout, all at once; prints each build's seconds and ptxas register
+   lines.
+3. kernel: each forward kernel against its plain PyTorch version on the
+   card, held to ops.attention.TOLERANCE: max abs error (bf16 2e-2, fp32
+   with TF32 off 1e-4) and error RMS over output RMS (bf16 6e-3, fp32
+   1e-5). K1 at the single path's two shapes, the batched path's
+   (32, 1024, 8*80), (16, 1024, 8*80) and (8, 4096, 8*40), ragged lengths,
+   other head dims and large logits; K2 at the batched path's
+   (32, 4096, 8*40), (9, 2048, 8*40), a ragged (10, 1000, 2*16), large
+   logits and fp32 (10, 2048, 2*16). Times (CUDA events, median of 20) K1,
+   plain and torch's scaled_dot_product_attention (the library yardstick,
+   never called by the port) at the two single-path shapes, and K2, K1,
+   plain and the library at (32, 4096, 8*40) bf16, before any model is
    loaded (the plain version there needs about 45 GB).
-4. dsp: audio -> mel -> Griffin-Lim audio on the card keeps a 220 Hz tone
+4. kernel-grad: K1's backward kernels (dK/dV, dQ) through `attention`'s
+   autograd against the plain backward (ops.attention.
+   attention_backward_reference), each of dQ, dK and dV held to
+   GRAD_TOLERANCE (bf16 max abs 1.25e-1 and rel RMS 1e-2; fp32 1e-3 and
+   2e-5), at the fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80)
+   bf16, ragged lengths, large logits and the fp32 instances; the forward's
+   log-sum-exp against torch.logsumexp; times of the forward with LSE, each
+   backward kernel, the plain backward and the library's backward at the
+   path's shapes; `row_attention`'s backward (the plain recompute) at
+   (9, 2048, 8*40).
+5. dsp: audio -> mel -> Griffin-Lim audio on the card keeps a 220 Hz tone
    far above the noise floor (bench.py's gate).
-5. tiny: the tiny model end to end on the card (fp32) against the same model
+6. tiny: the tiny model end to end on the card (fp32) against the same model
    on the CPU, with the same injected noise, at a 256 px seed (K1 sites
    reached, K2 not); images agree within one uint8 level on >= 99% of pixels.
-6. tiny batch: 5 requests through riffuse_audio_batch, the tiny model in fp32
+7. tiny batch: 5 requests through riffuse_audio_batch, the tiny model in fp32
    at a 512 px seed (UNet batch 10, the 64x64 level is lq 4096 at d=16, so K2
    is reached), on the card against the CPU with the same noise per request;
    the same image bound, K2 launched, no plain-version call.
-7. slice: random:full (SD v1 width) in bf16 behind the port's HTTP server;
+8. tiny train: three trainer steps of the tiny UNet in fp32 (32x32
+   latents, so K1 and its backward are reached) on the card against the
+   same steps on the CPU with the same t and noise: the losses, and the
+   parameters' movement.
+9. slice: random:full (SD v1 width) in bf16 behind the port's HTTP server;
    three POST /run_inference/ requests (og_beat seed, 50 steps, default
    strength) each return 200, a 512x512 image and 5.11 s of non-silent
    audio, and go through K1 exactly 380 times (38 UNet evaluations x 10
    self-attention sites) and K2 never, with no plain-version call.
-8. batch: the same model behind the threading server with a DynamicBatcher
+10. batch: the same model behind the threading server with a DynamicBatcher
    (max_batch 16, the strength-gated FAST preset). 16 concurrent
    /run_inference/ requests coalesce into one launch of 16 (unipc_k:rho=2,
    12 UNet evaluations at UNet batch 32): K2 5*E and K1 5*E times. One
    request at strength 0.65 runs dpmpp-24 alone (K1 10*E), timed with the
    batching window closed so that it does not wait 3 s for company. One
    /run_inference_batch/ of 16 at 50-step PNDM: K2 and K1 190 times each.
-   E comes from the port's plans. Every response passes the checks of 7.
+   E comes from the port's plans. Every response passes the checks of 9.
+11. train: fine-tuning at full width. 8 synthesized clips of 5.12 s go
+   through build_latent_dataset with the random:full pipeline, then
+   run_finetune(steps=4, batch_size=4) (fp32 masters, bf16 compute, AdamW,
+   EMA, the final checkpoint and the export) in a directory under .chipwork/
+   that is deleted at the end. Every step takes exactly 10 K1 forwards,
+   10 dK/dV and 10 dQ launches and no plain call, with a finite loss.
+   Prints the step time (median of steps 2-4), the peak device memory, the
+   checkpoint's bytes and seconds and the free disk before the run. One
+   full-width step's gradients with the kernels against the same step with
+   the plain attention (the smoke swaps models.layers._ATTENTION_OPS in
+   its own process) within TRAIN_GRAD_BOUND; the export reloaded with
+   RiffusionPipeline.load_checkpoint and one request riffused.
+
+`--mutants` instead builds each planted fault of MUTANTS into a copy of
+the kernel sources and shows that every kernel's check rejects it.
 
 The last two lines are the kernel table and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -56,9 +88,11 @@ import copy
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -68,7 +102,20 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SLICE_SHAPES = ((2, 4096, 8, 40), (2, 1024, 8, 80))  # (batch, seq, heads, head_dim)
 BATCH_SHAPE = (32, 4096, 8, 40)  # K2's site at serving batch 16
+TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # K1's sites at fine-tuning batch 4
 LAUNCHES_PER_REQUEST = 38 * 10
+LAUNCHES_PER_STEP = 10  # self-attention sites on K1 at UNet batch 4
+
+# The card's published peaks (H100 SXM, dense) for the bound of each kernel:
+# the larger of its FLOPs over the bf16 tensor-core rate and its bytes (each
+# input read once, each output written once) over the memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+# One full-width step's gradients with the kernels against the plain
+# attention's (PERF.md "Fine-tuning", written before the first run): the
+# relative L2 of the difference over all parameters, and of the loss.
+TRAIN_GRAD_BOUND = {"grad_rel_l2": 5e-2, "loss_rel": 1e-2}
 
 # Each kernel's cases against its plain version: name, b, s_q, s_kv, h, d,
 # dtype, logit scale on q and k. "path" cases are the main path's shapes;
@@ -96,19 +143,37 @@ K2_CASES = (
     ("fp32 d16", 10, 2048, 2048, 2, 16, "fp32", 1.0),
 )
 
-# --mutants: faults planted in a copy of csrc/attention_common.cuh, the
-# kernel body both kernels share: (what the fault does, text, replacement).
-# The kernel phase's bf16 cases must reject each one in both kernels.
+K1_GRAD_CASES = (
+    ("path d40", 4, 4096, 4096, 8, 40, "bf16", 1.0),
+    ("path d80", 4, 1024, 1024, 8, 80, "bf16", 1.0),
+    ("ragged d128 s_kv 777", 1, 1000, 777, 2, 128, "bf16", 1.0),
+    ("ragged d16 s_q 333", 2, 333, 1000, 2, 16, "bf16", 1.0),
+    ("large logits d40", 1, 1024, 1024, 2, 40, "bf16", 4.0),
+    ("fp32 d32", 2, 300, 300, 3, 32, "fp32", 1.0),
+    ("fp32 ragged d128 s_kv 777", 1, 1000, 777, 2, 128, "fp32", 1.0),
+)
+
+# --mutants: faults planted in a copy of the kernel sources: (what, file,
+# text, replacement). The forward faults (in attention_common.cuh, the body
+# K1 and K2 share) must be rejected by both forward kernels' bf16 cases; the
+# backward faults (attention_bwd.cuh, the body both backward kernels share)
+# by both backward kernels' bf16 gradient cases.
 MUTANTS = (
-    ("Q read from the next head's columns",
+    ("Q read from the next head's columns", "attention_common.cuh",
      "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + col0;",
      "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb +\n"
      "      ((blockIdx.y + 1) % gridDim.y) * p.head_dim;"),
-    ("ragged K/V tail unmasked (the zero-padded keys get logit 0)",
+    ("ragged K/V tail unmasked (the zero-padded keys get logit 0)", "attention_common.cuh",
      "if (col >= p.s_kv) s[nt][e] = -INFINITY;", "(void)col;"),
-    ("the fourth K/V tile skipped",
+    ("the fourth K/V tile skipped", "attention_common.cuh",
      "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n",
      "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n    if (n0 == 3 * kTileN) continue;\n"),
+    ("dS without its -delta term", "attention_bwd.cuh",
+     "  return prob * (dp - delta);", "  return prob * dp;"),
+    ("the LSE of the next head", "attention_bwd.cuh",
+     "  return p.lse + ((long long)blockIdx.z * gridDim.y + blockIdx.y) * p.s_q;",
+     "  return p.lse + ((long long)blockIdx.z * gridDim.y + (blockIdx.y + 1) % gridDim.y) *\n"
+     "                     p.s_q;"),
 )
 
 
@@ -132,15 +197,17 @@ def phase_card(torch) -> str:
 def phase_build(attn) -> None:
     start = time.perf_counter()
     built = attn.build_kernels(rebuild=True)
-    log(f"[build] both sources in {time.perf_counter() - start:.1f} s (one nvcc each, in parallel)")
+    log(f"[build] {len(built)} sources in {time.perf_counter() - start:.1f} s (one nvcc each, "
+        "in parallel)")
     for name, kernel in built.items():
         log(f"[build] nvcc built {kernel.path.name} in {kernel.build_seconds:.1f} s")
         instance = "?"
         for line in kernel.compiler_log.splitlines():
-            entry = re.search(r"Compiling entry function '(\w+?_kernel)I((?:Li\d+E)+)E", line)
+            entry = re.search(r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E)+)E", line)
             if entry:  # the name after the mangling's last length prefix, and its arguments
                 name_part = re.split(r"\d+(?=[a-z])", entry.group(1))[-1]
-                instance = f"{name_part}<{', '.join(re.findall(r'Li(\d+)E', entry.group(2)))}>"
+                args = re.findall(r"L[ib](\d+)E", entry.group(2))
+                instance = f"{name_part}<{', '.join(args)}>"
             elif "registers" in line:
                 log(f"[build]   {instance}: {line.split(':', 1)[-1].strip()}")
 
@@ -186,7 +253,21 @@ def _check_cases(torch, attn, fn, cases, gen) -> dict:
     return {"max_abs_err": worst[0], "rel_rms_err": worst[1]}
 
 
+def _bound(flop: float, nbytes: float) -> tuple:
+    """(least time in ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _heads_first(torch, x, h):
+    """(b, s, h*d) -> a contiguous (b, h, s, d) copy, the library's layout."""
+    b, s, inner = x.shape
+    return x.view(b, s, h, inner // h).transpose(1, 2).contiguous()
+
+
 def phase_kernel(torch, attn) -> dict:
+    import torch.nn.functional as F
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     result = {"attention": _check_cases(torch, attn, attn.attention, K1_CASES, gen),
@@ -205,55 +286,195 @@ def phase_kernel(torch, attn) -> dict:
             times[(name, b, s, d)] = ms
             log(f"[kernel] time (b={b}, s={s}, h={h}, d={d}, bf16): {name} {ms:.4f} ms "
                 f"({flop / ms / 1e9:.1f} TFLOP/s)")
-        del q, k, v
+        qh, kh, vh = (_heads_first(torch, x, h) for x in (q, k, v))
+        ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=d**-0.5))
+        times[("library", b, s, d)] = ms
+        times[("bound", b, s, d)] = _bound(flop, 4 * b * s * h * d * 2)
+        log(f"[kernel] time (b={b}, s={s}, h={h}, d={d}, bf16): library "
+            f"scaled_dot_product_attention {ms:.4f} ms; bound {times[('bound', b, s, d)][0]:.4f} "
+            f"ms ({times[('bound', b, s, d)][1]})")
+        del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
     result["times"] = times
     return result
 
 
+def _grad_case(torch, dev, gen, b, s_q, s_kv, h, d, dtype, mult):
+    """q, k ~ N(0, 1) (times `mult`), v ~ N(1, 1) (a mean away from 0, so that
+    delta is not small next to dP), dO ~ N(0, 1)."""
+    q = (mult * torch.randn(b, s_q, h * d, generator=gen, device=dev)).to(dtype)
+    k = (mult * torch.randn(b, s_kv, h * d, generator=gen, device=dev)).to(dtype)
+    v = (torch.randn(b, s_kv, h * d, generator=gen, device=dev) + 1).to(dtype)
+    dout = torch.randn(b, s_q, h * d, generator=gen, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+def _check_grad_cases(torch, attn, cases, gen) -> dict:
+    """`attention`'s gradient (K1 with LSE, then the dK/dV and dQ kernels)
+    against the plain backward on each case. Returns, per backward kernel,
+    the worst (max abs, rel RMS) over the bf16 path cases and the cases its
+    outputs (dK and dV, or dQ) failed."""
+    dev = torch.device("cuda")
+    result = {name: {"max_abs_err": 0.0, "rel_rms_err": 0.0, "failed": []}
+              for name in ("attention_dkv", "attention_dq")}
+    owner = {"dk": "attention_dkv", "dv": "attention_dkv", "dq": "attention_dq"}
+    for name, b, s_q, s_kv, h, d, dtype_name, mult in cases:
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+        q, k, v, dout = _grad_case(torch, dev, gen, b, s_q, s_kv, h, d, dtype, mult)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        attn.COUNTS.reset()
+        out = attn.attention(*leaves, num_heads=h, scale=d**-0.5)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches,
+                  attn.COUNTS.bwd_dq_launches, attn.COUNTS.plain_calls)
+        if counts != (1, 1, 1, 0):
+            raise AssertionError(f"{name}: (K1, dK/dV, dQ, plain) launches {counts}")
+        refs = attn.attention_backward_reference(q, k, v, out.detach(), dout, num_heads=h,
+                                                 scale=d**-0.5)
+        checks = attn.compare_grads_to_plain([x.grad for x in leaves], refs)
+        log(f"[kernel-grad] {name}: (b={b}, s_q={s_q}, s_kv={s_kv}, h={h}, d={d}, {dtype}) "
+            + ", ".join(f"{g} max_abs_err {e:.3e} rel_rms_err {r:.3e} {'ok' if ok else 'FAIL'}"
+                        for g, (e, r, ok) in checks.items())
+            + f" (tol {attn.GRAD_TOLERANCE[dtype]})")
+        for g, (err, rel, ok) in checks.items():
+            entry = result[owner[g]]
+            if not ok and name not in entry["failed"]:
+                entry["failed"].append(name)
+            if name.startswith("path"):
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
+        del q, k, v, dout, leaves, out, refs
+    return result
+
+
+def phase_kernel_grad(torch, attn) -> dict:
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    result = _check_grad_cases(torch, attn, K1_GRAD_CASES, gen)
+    failed = {k: v["failed"] for k, v in result.items() if v["failed"]}
+    if failed:
+        raise AssertionError(f"the backward kernels disagree with the plain backward: {failed}")
+
+    times = {}
+    for b, s, h, d in TRAIN_SHAPES:
+        scale = d**-0.5
+        q, k, v, dout = _grad_case(torch, dev, gen, b, s, s, h, d, torch.bfloat16, 1.0)
+        lse = torch.empty(b, h, s, device=dev)
+        out = attn._launch("attention", q, k, v, h, scale, lse=lse)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float().view(b, s, h, d),
+                              k.float().view(b, s, h, d)) * scale
+        lse_err = float((lse - torch.logsumexp(logits, dim=-1)).abs().max())
+        del logits
+        log(f"[kernel-grad] forward LSE (b={b}, s={s}, h={h}, d={d}): max abs error "
+            f"{lse_err:.3e} against logsumexp of the fp32 logits (tol 1e-3)")
+        if not lse_err <= 1e-3:
+            raise AssertionError("the forward's log-sum-exp is wrong")
+        delta = attn.backward_delta(out, dout, h)
+        one = b * s * h * d * 2  # bytes of one (b, s, h*d) bf16 operand
+        stats = b * h * s * 4  # bytes of one (b, h, s) fp32 row statistic
+        qh, kh, vh, doh = (_heads_first(torch, x, h).requires_grad_() for x in (q, k, v, dout))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        fns = {
+            "forward with LSE": (lambda: attn._launch("attention", q, k, v, h, scale, lse=lse),
+                                 4 * b * h * s * s * d, 4 * one + stats),
+            "attention_dkv": (lambda: attn._launch_backward("attention_dkv", q, k, v, dout, lse,
+                                                            delta, h, scale),
+                              8 * b * h * s * s * d, 6 * one + 2 * stats),
+            "attention_dq": (lambda: attn._launch_backward("attention_dq", q, k, v, dout, lse,
+                                                           delta, h, scale),
+                             6 * b * h * s * s * d, 5 * one + 2 * stats),
+            "plain backward": (lambda: attn.attention_backward_reference(
+                q, k, v, out, dout, num_heads=h, scale=scale), 10 * b * h * s * s * d, 8 * one),
+            "library backward": (lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                                             retain_graph=True),
+                                 10 * b * h * s * s * d, 8 * one),
+        }
+        for name, (fn, flop, nbytes) in fns.items():
+            ms = _time_ms(torch, fn)
+            bound = _bound(flop, nbytes)
+            times[(name, b, s, d)] = ms
+            times[("bound " + name, b, s, d)] = bound
+            log(f"[kernel-grad] time (b={b}, s={s}, h={h}, d={d}, bf16): {name} {ms:.4f} ms "
+                f"({flop / ms / 1e9:.1f} TFLOP/s); bound {bound[0]:.4f} ms ({bound[1]})")
+        del fns, q, k, v, dout, lse, out, delta, qh, kh, vh, doh, lib_out
+        torch.cuda.empty_cache()
+    result["times"] = times
+
+    # K2's backward is the plain recompute: against autograd of the plain version
+    b, s, h, d = 9, 2048, 8, 40
+    q, k, v, dout = _grad_case(torch, dev, gen, b, s, s, h, d, torch.bfloat16, 1.0)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    attn.COUNTS.reset()
+    attn.row_attention(*leaves, num_heads=h, scale=d**-0.5).backward(dout)
+    rows = (attn.COUNTS.row_launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.plain_calls)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    attn.attention_reference(*plain, num_heads=h, scale=d**-0.5).backward(dout)
+    checks = attn.compare_grads_to_plain([x.grad for x in leaves], [x.grad for x in plain])
+    log(f"[kernel-grad] row_attention backward (b={b}, s={s}, h={h}, d={d}, bf16) against "
+        "autograd of the plain version: "
+        + ", ".join(f"{g} max_abs_err {e:.3e}" for g, (e, _, _) in checks.items())
+        + f"; (K2, dK/dV, plain) launches {rows}")
+    if rows != (1, 0, 0) or not all(ok for _, _, ok in checks.values()):
+        raise AssertionError("row_attention's backward is not the plain recompute")
+    return result
+
+
 def phase_mutants(torch, attn) -> None:
     """Build each MUTANTS copy of the kernel sources (in csrc/build/, which
-    git ignores) and show that the kernel phase's bf16 cases reject it in
-    both kernels; the real sources are loaded again at the end."""
-    import shutil
-
+    git ignores) and show that every kernel its fault touches rejects it:
+    both forward kernels' bf16 cases for a forward fault, both backward
+    kernels' bf16 gradient cases for a backward fault. The real sources are
+    loaded again at the end."""
     original = dict(attn.KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     passed = []
     try:
-        for i, (what, old, new) in enumerate(MUTANTS):
+        for i, (what, file, old, new) in enumerate(MUTANTS):
             src = attn.BUILD_DIR / "mutants" / str(i)
             shutil.rmtree(src, ignore_errors=True)
             shutil.copytree(attn._CSRC, src, ignore=shutil.ignore_patterns("build"))
-            header = src / "attention_common.cuh"
+            header = src / file
             text = header.read_text()
             if text.count(old) != 1:
-                raise AssertionError(f"mutant {what!r}: its text is not in the kernel body once")
+                raise AssertionError(f"mutant {what!r}: its text is not in {file} once")
             header.write_text(text.replace(old, new))
             attn.KERNELS.update({n: (src / path.name, entry) for n, (path, entry) in original.items()})
             attn._built.clear()
             attn.build_kernels()
-            for name, fn, cases in (("attention", attn.attention, K1_CASES),
-                                    ("row_attention", attn.row_attention, K2_CASES)):
-                try:
-                    _check_cases(torch, attn, fn, [c for c in cases if c[6] == "bf16"], gen)
-                    passed.append(f"{what} ({name})")
-                    log(f"[mutants] {what}: {name} PASSED the check")
-                except AssertionError as e:
-                    log(f"[mutants] {what}: {name} rejected ({e})")
+            if file == "attention_common.cuh":
+                for name, fn, cases in (("attention", attn.attention, K1_CASES),
+                                        ("row_attention", attn.row_attention, K2_CASES)):
+                    try:
+                        _check_cases(torch, attn, fn, [c for c in cases if c[6] == "bf16"], gen)
+                        passed.append(f"{what} ({name})")
+                        log(f"[mutants] {what}: {name} PASSED the check")
+                    except AssertionError as e:
+                        log(f"[mutants] {what}: {name} rejected ({e})")
+            else:
+                result = _check_grad_cases(
+                    torch, attn, [c for c in K1_GRAD_CASES if c[6] == "bf16"], gen)
+                for name, entry in result.items():
+                    if entry["failed"]:
+                        log(f"[mutants] {what}: {name} rejected (cases {entry['failed']})")
+                    else:
+                        passed.append(f"{what} ({name})")
+                        log(f"[mutants] {what}: {name} PASSED the check")
     finally:
         attn.KERNELS.update(original)
         attn._built.clear()
     attn.build_kernels()
     if passed:
-        raise AssertionError(f"the kernel check let mutants through: {passed}")
+        raise AssertionError(f"the kernel checks let mutants through: {passed}")
 
 
 def phase_dsp(torch) -> None:
     import numpy as np
 
-    from riffusion_tpu.audio.segment import AudioSegment
-    from riffusion_tpu.spectrogram_params import SpectrogramParams
+    from riffusion_tpu_torch.audio.segment import AudioSegment
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
     from riffusion_tpu_torch.spectrogram_converter import SpectrogramConverter
 
     sr = 44100
@@ -280,8 +501,8 @@ def phase_tiny(torch, attn) -> None:
     import numpy as np
     from PIL import Image
 
-    from riffusion_tpu.datatypes import InferenceInput, PromptInput
-    from riffusion_tpu.spectrogram_params import SpectrogramParams
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
     from riffusion_tpu_torch.models.weights import random_bundle
     from riffusion_tpu_torch.riffusion_pipeline import FixedNoise, RiffusionPipeline
 
@@ -336,8 +557,8 @@ def phase_tiny_batch(torch, attn) -> None:
     import numpy as np
     from PIL import Image
 
-    from riffusion_tpu.datatypes import InferenceInput, PromptInput
-    from riffusion_tpu.spectrogram_params import SpectrogramParams
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
     from riffusion_tpu_torch.models.weights import random_bundle
     from riffusion_tpu_torch.riffusion_pipeline import FixedNoise, RiffusionPipeline
 
@@ -380,6 +601,214 @@ def phase_tiny_batch(torch, attn) -> None:
         raise AssertionError("the tiny batch on the card did not go through both kernels")
     if any(m > 1 or e < 0.99 for e, m in agreement):
         raise AssertionError("the card's tiny batch disagrees with the CPU's")
+
+
+def _movement_agreement(torch, ours: dict, ref: dict, start: dict) -> tuple:
+    """(relative L2, max abs) of the difference between two runs' parameter
+    movement from the same start."""
+    a = torch.cat([(ours[k].cpu() - start[k].cpu()).flatten() for k in ref])
+    b = torch.cat([(ref[k].cpu() - start[k].cpu()).flatten() for k in ref])
+    return float((a - b).norm() / b.norm()), float((a - b).abs().max())
+
+
+def phase_tiny_train(torch, attn) -> None:
+    """Three fp32 trainer steps of the tiny UNet on the card and on the CPU,
+    with the same weights, batch, t and noise: losses within 1e-4 relative,
+    the parameters' movement within 1e-2 relative L2 (another sum order,
+    which Adam amplifies on single elements whose gradient is near 0: their
+    update is the gradient over its own magnitude, so the largest elementwise
+    difference, printed, can reach a step's size and is not held)."""
+    import numpy as np
+
+    from riffusion_tpu_torch.models.weights import random_bundle
+    from riffusion_tpu_torch.parallel.train import DiffusionTrainer
+
+    unet = random_bundle("tiny", seed=0, device="cpu").unet
+    start = {k: v.clone() for k, v in unet.state_dict().items()}
+    rng = np.random.default_rng(3)
+    b, hw = 2, 32  # 32x32 latents: the 1024- and 256-query levels take K1
+    latents = rng.standard_normal((b, hw, hw, 4)).astype(np.float32)
+    context = rng.standard_normal((b, 77, unet.cfg.cross_attention_dim)).astype(np.float32)
+    draws = [(rng.integers(0, 1000, b), rng.standard_normal((b, hw, hw, 4)).astype(np.float32))
+             for _ in range(3)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = DiffusionTrainer(device=device, learning_rate=1e-3, dtype=torch.float32)
+        trainer.init_from(unet)
+        attn.COUNTS.reset()
+        losses = [float(trainer.step(latents, context, t=t, noise=n)) for t, n in draws]
+        counts = (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches,
+                  attn.COUNTS.bwd_dq_launches, attn.COUNTS.plain_calls)
+        runs[device] = (losses, {k: v.cpu() for k, v in trainer.master.state_dict().items()},
+                        counts)
+    (loss_g, params_g, counts), (loss_c, params_c, _) = runs["cuda"], runs["cpu"]
+    rel, worst = _movement_agreement(torch, params_g, params_c, start)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c))
+    log(f"[tiny train] 3 fp32 steps, cuda vs cpu: losses {[f'{x:.6f}' for x in loss_g]} vs "
+        f"{[f'{x:.6f}' for x in loss_c]} (rel {loss_err:.2e}); movement rel L2 {rel:.3e}, "
+        f"max abs {worst:.3e}; (K1, dK/dV, dQ, plain) launches on the card {counts}")
+    if not (counts[0] > 0 and counts[0] == counts[1] == counts[2] and counts[3] == 0):
+        raise AssertionError("the tiny train on the card did not go through K1 and its backward")
+    if not (loss_err < 1e-4 and rel < 1e-2):
+        raise AssertionError("the card's tiny train disagrees with the CPU's")
+
+
+def _synth_clips(root: Path, files: int, clips_per_file: int, sr: int = 44100) -> None:
+    """Deterministic music-like wav files (decaying partials, a beat, light
+    noise), long enough for `clips_per_file` clips of 5.12 s each."""
+    import numpy as np
+
+    from riffusion_tpu_torch.audio.segment import AudioSegment
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(11)
+    t = np.arange(int((clips_per_file * 5.12 + 0.05) * sr)) / sr
+    for i in range(files):
+        sig = sum(0.5 ** j * np.sin(2 * np.pi * f * (1 + 0.01 * i) * t + rng.uniform(0, 6.3))
+                  for j, f in enumerate((110.0, 220.0, 330.0, 554.37, 880.0)))
+        sig *= 0.55 + 0.45 * np.square(np.sin(2 * np.pi * (2.0 + i) * t))
+        sig += 0.01 * rng.standard_normal(t.size)
+        AudioSegment((sig / np.abs(sig).max() * 0.8 * 32767).astype(np.int16), sr).export(
+            str(root / f"clip_{i}.wav"))
+
+
+def _full_width_gradients(torch, attn, layers, ds_dir: Path) -> dict:
+    """One step's loss and gradients at full width with the kernels, then
+    the same step (weights, batch, t, noise) with the plain attention at
+    the kernel sites (layers._ATTENTION_OPS swapped in this process only)."""
+    from riffusion_tpu_torch.models.weights import random_bundle
+    from riffusion_tpu_torch.parallel.train import DiffusionTrainer
+    from riffusion_tpu_torch.training import LatentDataset
+
+    dev = torch.device("cuda")
+    unet = random_bundle("full", seed=0, device=dev, dtype=torch.float32).unet
+    trainer = DiffusionTrainer(device=dev, learning_rate=0.0, dtype=torch.bfloat16)
+    trainer.init_from(unet)
+    del unet
+    latents, context = next(LatentDataset(ds_dir).batches(4, seed=0))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t = torch.randint(0, 1000, (4,), generator=gen, device=dev)
+    noise = torch.randn(latents.shape, generator=gen, device=dev)
+
+    attn.COUNTS.reset()
+    loss_k = float(trainer.loss_and_grads(latents, context, t=t, noise=noise))
+    counts = (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
+              attn.COUNTS.plain_calls)
+    grads_k = [p.grad.clone() for p in trainer.master.parameters()]
+    kernel_op = layers._ATTENTION_OPS["flash"]
+    layers._ATTENTION_OPS["flash"] = attn.attention_reference
+    try:
+        loss_p = float(trainer.loss_and_grads(latents, context, t=t, noise=noise))
+    finally:
+        layers._ATTENTION_OPS["flash"] = kernel_op
+    grads_p = [p.grad for p in trainer.master.parameters()]
+    diff = torch.sqrt(sum(torch.sum(torch.square(a - b)) for a, b in zip(grads_k, grads_p)))
+    norm = torch.sqrt(sum(torch.sum(torch.square(b)) for b in grads_p))
+    result = {"loss_kernel": loss_k, "loss_plain": loss_p,
+              "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+              "grad_rel_l2": float(diff / norm), "counts": counts}
+    del trainer, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train(torch, attn, pipe) -> dict:
+    """Fine-tuning at full width: the latent dataset from the random:full
+    pipeline, run_finetune of 4 steps at batch 4, the kernels' gradients
+    against the plain attention's, and the export reloaded and served."""
+    import numpy as np
+
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+    from riffusion_tpu_torch.models import layers
+    from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
+    from riffusion_tpu_torch.serving import load_seed_image
+    from riffusion_tpu_torch.training import FinetuneConfig, build_latent_dataset, run_finetune
+
+    work = REPO / ".chipwork"
+    work.mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(work).free / 1e9
+    tmp = Path(tempfile.mkdtemp(prefix="train-", dir=work))
+    log(f"[train] free disk before the run: {free_gb:.1f} GB ({work})")
+    try:
+        _synth_clips(tmp / "audio", files=2, clips_per_file=4)
+        start = time.perf_counter()
+        meta = build_latent_dataset(pipe, tmp / "audio", tmp / "dataset")
+        log(f"[train] dataset: {meta.num_clips} clips, latents {meta.latent_shape}, contexts "
+            f"{meta.context_shape}, in {time.perf_counter() - start:.1f} s")
+        if meta.num_clips != 8 or tuple(meta.latent_shape) != (64, 64, 4):
+            raise AssertionError(f"unexpected dataset: {meta}")
+
+        marks = []
+
+        def on_log(msg: str) -> None:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), (
+                attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
+                attn.COUNTS.plain_calls), msg))
+            log(f"[train] {msg}")
+
+        torch.cuda.reset_peak_memory_stats()
+        attn.COUNTS.reset()
+        start = time.perf_counter()
+        stats = run_finetune(FinetuneConfig(
+            checkpoint="random:full", dataset_dir=str(tmp / "dataset"),
+            output_dir=str(tmp / "run"), steps=4, batch_size=4, log_every=1, device="cuda",
+        ), log=on_log)
+        wall = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_marks = [m for m in marks if m[2].startswith("step ")]
+        per_step = [tuple(b - a for a, b in zip(prev[1], cur[1]))
+                    for prev, cur in zip([(0, (0, 0, 0, 0), "")] + step_marks, step_marks)]
+        step_s = [b[0] - a[0] for a, b in zip(step_marks, step_marks[1:])]
+        ckpt = stats["checkpoint"]
+        log(f"[train] run_finetune: 4 steps at batch 4 in {wall:.2f} s wall (dataset load, "
+            f"weights, steps, checkpoint, export); step time {statistics.median(step_s):.4f} s "
+            f"(median of steps 2-4: {[f'{x:.4f}' for x in step_s]}); final loss "
+            f"{stats['final_loss']:.5f}; peak device memory {peak:.2f} GiB; checkpoint "
+            f"{ckpt['bytes'] / 1e9:.3f} GB in {ckpt['seconds']:.2f} s; (K1, dK/dV, dQ, plain) "
+            f"launches per step {per_step}")
+        if per_step != [(LAUNCHES_PER_STEP,) * 3 + (0,)] * 4:
+            raise AssertionError(f"the training steps' launches {per_step} are not "
+                                 f"{LAUNCHES_PER_STEP} K1, dK/dV and dQ each and no plain call")
+        if not np.isfinite(stats["final_loss"]):
+            raise AssertionError("non-finite training loss")
+        launches = {"attention": sum(c[0] for c in per_step),
+                    "attention_dkv": sum(c[1] for c in per_step),
+                    "attention_dq": sum(c[2] for c in per_step)}
+
+        grads = _full_width_gradients(torch, attn, layers, tmp / "dataset")
+        log(f"[train] one full-width step, kernels against the plain attention: loss "
+            f"{grads['loss_kernel']:.6f} vs {grads['loss_plain']:.6f} (rel {grads['loss_rel']:.3e}), "
+            f"gradient rel L2 {grads['grad_rel_l2']:.3e} (bound {TRAIN_GRAD_BOUND}); "
+            f"(K1, dK/dV, dQ, plain) launches with the kernels {grads['counts']}")
+        if grads["counts"] != (LAUNCHES_PER_STEP,) * 3 + (0,):
+            raise AssertionError("the gradient comparison's kernel step missed a kernel")
+        if not (grads["grad_rel_l2"] <= TRAIN_GRAD_BOUND["grad_rel_l2"]
+                and grads["loss_rel"] <= TRAIN_GRAD_BOUND["loss_rel"]):
+            raise AssertionError("the kernels' gradients disagree with the plain attention's")
+
+        start = time.perf_counter()
+        tuned = RiffusionPipeline.load_checkpoint(stats["export_dir"], device="cuda")
+        attn.COUNTS.reset()
+        image, segment = tuned.riffuse_audio(
+            InferenceInput(start=PromptInput(prompt="funky synth solo", seed=42),
+                           end=PromptInput(prompt="jazzy saxophone", seed=123), alpha=0.5),
+            load_seed_image(REPO / "seed_images", "og_beat"))
+        torch.cuda.synchronize()
+        samples = segment.raw_data.astype(np.float64)
+        log(f"[train] export reloaded and one 50-step request riffused in "
+            f"{time.perf_counter() - start:.2f} s: image {image.size}, pixel std "
+            f"{np.asarray(image, np.float64).std():.2f}, audio {segment.duration_seconds:.2f} s "
+            f"(std {samples.std():.0f}); K1 launches {attn.COUNTS.launches}")
+        if image.size != (512, 512) or not np.asarray(image).std() > 0 \
+                or not samples.std() > 100 or attn.COUNTS.launches != LAUNCHES_PER_REQUEST:
+            raise AssertionError("the reloaded export did not serve a request")
+        del tuned
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"launches": launches, "step_s": statistics.median(step_s), "peak_gib": peak,
+            "grads": grads}
 
 
 def _check_response(out: dict) -> None:
@@ -585,12 +1014,15 @@ def main(argv=None) -> int:
     phase_build(attn)
     if args.mutants:
         phase_mutants(torch, attn)
-        log(f"[mutants] every one of {len(MUTANTS)} mutants was rejected by both kernels' checks")
+        log(f"[mutants] every one of {len(MUTANTS)} mutants was rejected by the checks of every "
+            "kernel it touches")
         return 0
     kernel = phase_kernel(torch, attn)
+    grad = phase_kernel_grad(torch, attn)
     phase_dsp(torch)
     phase_tiny(torch, attn)
     phase_tiny_batch(torch, attn)
+    phase_tiny_train(torch, attn)
 
     start = time.perf_counter()
     pipe = RiffusionPipeline.load_checkpoint("random:full", device="cuda")
@@ -599,27 +1031,47 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - start:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     single = phase_slice(torch, attn, pipe)
     batch = phase_batch(torch, attn, pipe)
+    train = phase_train(torch, attn, pipe)
 
-    times = kernel["times"]
+    times, grad_times = kernel["times"], grad["times"]
     b, s, _, d = BATCH_SHAPE
-    entries = [
-        ("attention", "attention.cu", "riffusion_tpu/models/layers.py:251",
-         times[("attention", 2, 4096, 40)], times[("plain", 2, 4096, 40)]),
-        ("row_attention", "row_attention.cu", "riffusion_tpu/ops/attention.py:188",
-         times[("row_attention", b, s, d)], times[("plain", b, s, d)]),
+    tb, ts, _, td = TRAIN_SHAPES[0]
+    flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    entries = [  # name, source, replaces, ms, plain_ms, (bound ms, by), library_ms, launches
+        ("attention", "attention.cu",
+         f"{flash}:589 _flash_attention_impl (called from riffusion_tpu/models/layers.py:251)",
+         times[("attention", 2, 4096, 40)], times[("plain", 2, 4096, 40)],
+         times[("bound", 2, 4096, 40)], times[("library", 2, 4096, 40)],
+         single["attention"] + batch["counts"]["attention"] + train["launches"]["attention"]),
+        ("row_attention", "row_attention.cu",
+         "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
+         times[("row_attention", b, s, d)], times[("plain", b, s, d)],
+         times[("bound", b, s, d)], times[("library", b, s, d)],
+         single["row_attention"] + batch["counts"]["row_attention"]),
+    ] + [
+        # the plain and library times are of the whole backward (dQ, dK, dV)
+        (name, f"{name}.cu", f"{flash}:{line} {fn}", grad_times[(name, tb, ts, td)],
+         grad_times[("plain backward", tb, ts, td)], grad_times[("bound " + name, tb, ts, td)],
+         grad_times[("library backward", tb, ts, td)], train["launches"][name])
+        for name, line, fn in (("attention_dkv", 941, "_flash_attention_bwd_dkv"),
+                               ("attention_dq", 1287, "_flash_attention_bwd_dq"))
     ]
+    errors = {**kernel, **grad}
     log(smi)
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"riffusion_tpu_torch/csrc/{source}",
         "replaces": replaces,
-        "launches": single[name] + batch["counts"][name],
-        "max_abs_err": kernel[name]["max_abs_err"],
-        "rel_rms_err": kernel[name]["rel_rms_err"],
+        "launches": launches,
+        "max_abs_err": errors[name]["max_abs_err"],
+        "rel_rms_err": errors[name]["rel_rms_err"],
         "ms": ms,
         "plain_ms": plain_ms,
-    } for name, source, replaces, ms, plain_ms in entries]}))
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": library_ms,
+    } for name, source, replaces, ms, plain_ms, bound, library_ms, launches in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

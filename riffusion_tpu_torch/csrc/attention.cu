@@ -44,12 +44,12 @@ constexpr int kWarps = 4;  // 16 query rows per warp: a 64-row query tile
 }  // namespace
 
 extern "C" int riff_attention_forward(const void* q, const void* k, const void* v, void* o,
-                                      long long q_sb, long long q_ss, long long k_sb,
+                                      float* lse, long long q_sb, long long q_ss, long long k_sb,
                                       long long k_ss, long long v_sb, long long v_ss,
                                       long long o_sb, long long o_ss, int batch, int s_q,
                                       int s_kv, int num_heads, int head_dim, float scale,
                                       int dtype, int device, void* stream) {
-  return riff::attention_forward<kWarps>(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
-                                         o_ss, batch, s_q, s_kv, num_heads, head_dim, scale,
-                                         dtype, device, stream);
+  return riff::attention_forward<kWarps>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                         o_sb, o_ss, batch, s_q, s_kv, num_heads, head_dim,
+                                         scale, dtype, device, stream);
 }

@@ -6,6 +6,13 @@
 // and the fp32 instance both keep for checks against their plain version.
 // Each .cu file includes this header and is built into a shared library of
 // its own, with its own C entry point; the build hash covers this header.
+//
+// The forward writes each query row's log-sum-exp when it is given an LSE
+// buffer (training keeps it for the backward kernels of attention_bwd.cuh):
+// fp32, (batch, heads, s_q) contiguous, the natural log of
+// sum_j exp(scale * q.k_j). The bf16 kernel takes that as a template
+// argument, so the instance that serving runs (a null buffer) is the kernel
+// without the write.
 
 #pragma once
 
@@ -25,17 +32,19 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (batch, heads, s_q) log-sum-exp, or null
   // element strides of the batch and sequence dims; the packed h*d dim is
   // contiguous
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
   int s_q, s_kv, head_dim;
+  float scale;
   float scale_log2;  // scale * log2(e)
 };
 
 // Fills Params from the C entry points' common argument list; returns false
 // for arguments no instance takes.
 inline bool make_params(Params& p, const void* q, const void* k, const void* v, void* o,
-                        long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                        float* lse, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                         long long v_sb, long long v_ss, long long o_sb, long long o_ss,
                         int batch, int s_q, int s_kv, int num_heads, int head_dim, float scale,
                         int dtype) {
@@ -48,6 +57,7 @@ inline bool make_params(Params& p, const void* q, const void* k, const void* v, 
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = q_sb;
   p.q_ss = q_ss;
   p.k_sb = k_sb;
@@ -59,6 +69,7 @@ inline bool make_params(Params& p, const void* q, const void* k, const void* v, 
   p.s_q = s_q;
   p.s_kv = s_kv;
   p.head_dim = head_dim;
+  p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   return true;
 }
@@ -128,8 +139,9 @@ __device__ __forceinline__ void stage_rows_transposed(__nv_bfloat16* dst,
 // online, in fp32, in the log2 domain: the running max is kept in logit
 // units and the scale*log2(e) fold c enters each exp2 argument through one
 // fp32 FFMA (s * c - m * c). P is cast to bf16 unnormalized for P V; the
-// division by the row sum comes once, on the (rows, d) output.
-template <int DP, int WARPS>
+// division by the row sum comes once, on the (rows, d) output. With LSE the
+// rows' log-sum-exp goes to p.lse.
+template <int DP, int WARPS, bool LSE>
 __global__ void __launch_bounds__(WARPS * 32) attention_bf16_kernel(const Params p) {
   constexpr int kThreads = WARPS * 32;
   constexpr int kBlockM = WARPS * 16;
@@ -279,6 +291,14 @@ __global__ void __launch_bounds__(WARPS * 32) attention_bf16_kernel(const Params
   const float inv1 = 1.f / row_sum[1];
   const int row0 = m0 + warp * 16 + g;
   const int row1 = row0 + 8;
+  if constexpr (LSE) {
+    if (t == 0) {
+      // log sum_j exp(scale * s_j) = scale * m + log(sum_j exp2((s_j - m) * c))
+      float* lse = p.lse + ((long long)batch * gridDim.y + blockIdx.y) * p.s_q;
+      if (row0 < p.s_q) lse[row0] = fmaf(row_max[0], p.scale, logf(row_sum[0]));
+      if (row1 < p.s_q) lse[row1] = fmaf(row_max[1], p.scale, logf(row_sum[1]));
+    }
+  }
 #pragma unroll
   for (int dt = 0; dt < kDTiles; ++dt) {
     const int cc = dt * 8 + t * 2;
@@ -354,6 +374,10 @@ __global__ void __launch_bounds__(ROWS) attention_f32_kernel(const Params p) {
   }
 
   if (row < p.s_q) {
+    if (p.lse != nullptr) {  // row_max is in log2 units here
+      p.lse[((long long)blockIdx.z * gridDim.y + blockIdx.y) * p.s_q + row] =
+          (row_max + log2f(row_sum)) / kLog2e;
+    }
     const float inv = 1.f / row_sum;
 #pragma unroll
     for (int c = 0; c < DP; ++c) {
@@ -364,8 +388,10 @@ __global__ void __launch_bounds__(ROWS) attention_f32_kernel(const Params p) {
 
 template <int DP, int WARPS>
 void launch(const Params& p, int dtype, dim3 grid, cudaStream_t stream) {
-  if (dtype == 0) {
-    attention_bf16_kernel<DP, WARPS><<<grid, WARPS * 32, 0, stream>>>(p);
+  if (dtype == 0 && p.lse != nullptr) {
+    attention_bf16_kernel<DP, WARPS, true><<<grid, WARPS * 32, 0, stream>>>(p);
+  } else if (dtype == 0) {
+    attention_bf16_kernel<DP, WARPS, false><<<grid, WARPS * 32, 0, stream>>>(p);
   } else {
     attention_f32_kernel<DP, WARPS * 16><<<grid, WARPS * 16, 0, stream>>>(p);
   }
@@ -376,17 +402,17 @@ void launch(const Params& p, int dtype, dim3 grid, cudaStream_t stream) {
 // a grid of (query tiles of WARPS * 16 rows, heads, batch rows). The query
 // tile varies fastest, then the head, then the batch row, so the blocks in
 // flight share one batch row's K/V in L2. dtype: 0 = bfloat16, 1 = float32;
-// strides are in elements. Returns a cudaError_t value: 0 when the launch
-// was accepted.
+// strides are in elements; `lse` is null or a (batch, heads, s_q) fp32
+// buffer. Returns a cudaError_t value: 0 when the launch was accepted.
 template <int WARPS>
-int attention_forward(const void* q, const void* k, const void* v, void* o, long long q_sb,
-                      long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-                      long long v_ss, long long o_sb, long long o_ss, int batch, int s_q,
-                      int s_kv, int num_heads, int head_dim, float scale, int dtype, int device,
-                      void* stream) {
+int attention_forward(const void* q, const void* k, const void* v, void* o, float* lse,
+                      long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                      long long v_sb, long long v_ss, long long o_sb, long long o_ss, int batch,
+                      int s_q, int s_kv, int num_heads, int head_dim, float scale, int dtype,
+                      int device, void* stream) {
   Params p;
-  if (!make_params(p, q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, batch, s_q,
-                   s_kv, num_heads, head_dim, scale, dtype)) {
+  if (!make_params(p, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, batch,
+                   s_q, s_kv, num_heads, head_dim, scale, dtype)) {
     return (int)cudaErrorInvalidValue;
   }
   // Each library carries its own (static) CUDA runtime, whose current device

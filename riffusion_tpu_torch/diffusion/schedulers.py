@@ -471,11 +471,19 @@ def scale_model_input(plan: SchedulerPlan, sample: torch.Tensor, i: int) -> torc
 
 
 def add_noise(
-    noise_cfg: NoiseConfig, sample: torch.Tensor, noise: torch.Tensor, timestep: int
+    noise_cfg: NoiseConfig, sample: torch.Tensor, noise: torch.Tensor,
+    timestep: T.Union[int, torch.Tensor],
 ) -> torch.Tensor:
-    """Forward-process noising at an integer train timestep (DDPM)."""
-    a = noise_cfg.alphas_cumprod.astype(np.float32)[int(timestep)]
+    """Forward-process noising at an integer train timestep (DDPM), one for
+    the whole batch or, as a (B,) integer tensor, one per batch element (the
+    training step's)."""
+    acp = noise_cfg.alphas_cumprod.astype(np.float32)
     # both coefficients in fp32, as the JAX function computes them
+    if isinstance(timestep, torch.Tensor):
+        a = torch.from_numpy(acp).to(sample.device)[timestep.long()]
+        a = a.view(-1, *([1] * (sample.dim() - 1)))
+        return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
+    a = acp[int(timestep)]
     sqrt_a = float(np.sqrt(a))
     sqrt_1ma = float(np.sqrt(np.float32(1.0) - a))
     return sqrt_a * sample + sqrt_1ma * noise

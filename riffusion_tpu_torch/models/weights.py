@@ -1,8 +1,8 @@
 """
 Model bundles: configs, modules with weights, tokenizer, scheduler id.
 
-The counterpart of riffusion_tpu/models/weights.py for the two specs the
-port loads so far:
+The counterpart of riffusion_tpu/models/weights.py for the specs the port
+loads so far:
 
 - "random:tiny" / "random:full": deterministic random weights with the
   right architecture, synthesized directly on the target device with a
@@ -10,23 +10,33 @@ port loads so far:
   weights ~ N(0, 1/fan_in) with fan_in counted in the JAX layout (all dims
   but the output dim; the vocabulary size for embeddings), zero biases, unit
   norm scales. The values differ from the JAX bundle's (another generator).
+- A directory written by `save_native` (the fine-tuning export among
+  them): `riffusion_tpu_torch.json` with the three configs under the JAX
+  package's names ("unet", "vae", "clip", "scheduler"; keys a port config
+  does not have, such as the UNet's sample_size, are ignored) and one
+  torch.save state dict per model (`unet.pt`, `vae.pt`, `clip.pt`), plus a
+  CLIP BPE vocabulary when the directory has one (`tokenizer/`).
 - `from_jax_params`: the JAX package's parameter trees (as numpy) -> this
   package's state dicts, so that both packages run the same weights in the
   tests.
 
-Loading diffusers checkpoints is later work.
+Loading diffusers checkpoints, and the JAX package's own native export
+(msgpack), is later work.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import typing as T
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch import nn
 
-from riffusion_tpu.models.tokenizer import HashTokenizer
+from riffusion_tpu_torch.models.tokenizer import CLIPTokenizer, HashTokenizer
 from riffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from riffusion_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from riffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -57,11 +67,12 @@ def configs(size: str) -> T.Tuple[UNetConfig, VAEConfig, CLIPTextConfig]:
 
 
 def build_modules(
-    size: str, device: torch.device
+    size: T.Union[str, T.Tuple[UNetConfig, VAEConfig, CLIPTextConfig]], device: torch.device
 ) -> T.Tuple[UNet2DCondition, AutoencoderKL, CLIPTextModel]:
-    """Modules of the given geometry, allocated on `device` without
-    initializing (their weights come from `randomize_` or a state dict)."""
-    unet_cfg, vae_cfg, clip_cfg = configs(size)
+    """Modules of the given geometry ("tiny", "full" or three configs),
+    allocated on `device` without initializing (their weights come from
+    `randomize_` or a state dict)."""
+    unet_cfg, vae_cfg, clip_cfg = configs(size) if isinstance(size, str) else size
     with torch.device("meta"):
         modules = (UNet2DCondition(unet_cfg), AutoencoderKL(vae_cfg), CLIPTextModel(clip_cfg))
     return tuple(m.to_empty(device=device) for m in modules)  # type: ignore[return-value]
@@ -115,16 +126,74 @@ def random_bundle(
     )
 
 
+NATIVE_META = "riffusion_tpu_torch.json"
+_MODELS = ("unet", "vae", "clip")
+
+
+def save_native(bundle: ModelBundle, out_dir: T.Union[str, Path]) -> None:
+    """Write `bundle` to `out_dir` in the port's native layout (the module
+    docstring): the configs as JSON and one state dict per model, each in
+    the dtype its module holds."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    modules = dict(zip(_MODELS, (bundle.unet, bundle.vae, bundle.text_encoder)))
+    meta = {name: dataclasses.asdict(m.cfg) for name, m in modules.items()}
+    meta["scheduler"] = bundle.scheduler_name
+    (out / NATIVE_META).write_text(json.dumps(meta, indent=2))
+    for name, module in modules.items():
+        torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()},
+                   out / f"{name}.pt")
+
+
+def _config(cls, fields: T.Mapping[str, T.Any]):
+    """A config dataclass from JSON fields: lists become tuples, fields the
+    class does not have are ignored."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in fields.items() if k in names})
+
+
+def load_native(
+    root: T.Union[str, Path], device: T.Union[str, torch.device] = "cuda",
+    dtype: torch.dtype = torch.float32,
+) -> ModelBundle:
+    """Load a `save_native` directory onto `device`: UNet and CLIP in
+    `dtype`, the VAE in fp32; the directory's CLIP vocabulary when it has
+    one, else the hash tokenizer."""
+    root = Path(root)
+    device = torch.device(device)
+    meta = json.loads((root / NATIVE_META).read_text())
+    cfgs = (_config(UNetConfig, meta["unet"]), _config(VAEConfig, meta["vae"]),
+            _config(CLIPTextConfig, meta["clip"]))
+    modules = build_modules(cfgs, device)
+    for name, module in zip(_MODELS, modules):
+        state = torch.load(root / f"{name}.pt", map_location=device, weights_only=True)
+        module.load_state_dict(state, strict=True)
+    unet, vae, clip = modules
+    try:
+        tokenizer: T.Any = CLIPTokenizer.from_pretrained(str(root))
+    except FileNotFoundError:
+        tokenizer = HashTokenizer(vocab_size=clip.cfg.vocab_size)
+    return ModelBundle(
+        unet=unet.to(dtype).eval(), vae=vae.to(torch.float32).eval(),
+        text_encoder=clip.to(dtype).eval(), tokenizer=tokenizer,
+        scheduler_name=meta.get("scheduler", "pndm"),
+    )
+
+
 def load_bundle(
     checkpoint: str, device: T.Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32
 ) -> ModelBundle:
-    """Resolve a checkpoint spec. Only "random:tiny" and "random:full" (seed
-    0) are ported so far."""
+    """Resolve a checkpoint spec: "random:tiny" / "random:full" (seed 0), or
+    a directory written by `save_native`."""
     if checkpoint.startswith("random:"):
         return random_bundle(checkpoint.split(":", 1)[1], device=device, dtype=dtype)
+    if os.path.isfile(os.path.join(checkpoint, NATIVE_META)):
+        return load_native(checkpoint, device=device, dtype=dtype)
     raise FileNotFoundError(
-        f"Cannot resolve checkpoint {checkpoint!r}: the port loads 'random:tiny' and "
-        "'random:full' (diffusers checkpoints are not ported yet)"
+        f"Cannot resolve checkpoint {checkpoint!r}: the port loads 'random:tiny', "
+        f"'random:full' and directories written by save_native ({NATIVE_META}); diffusers "
+        "checkpoints and the JAX package's msgpack export are not ported yet"
     )
 
 

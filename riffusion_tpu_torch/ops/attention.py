@@ -1,39 +1,49 @@
 """
-Multi-head attention over the packed (b, s, h*d) layout: the two
-hand-written Hopper kernels, their plain PyTorch version, and the gate that
-picks one of them at each UNet attention site.
+Multi-head attention over the packed (b, s, h*d) layout: the hand-written
+Hopper kernels, their plain PyTorch versions, and the gate that picks one
+of them at each UNet attention site.
 
 `attention(q, k, v, num_heads=..., scale=...)` and `row_attention(...)`
 compute softmax(q k^T * scale) v per head, with q, k, v and the output in
 the layout the to_q / to_k / to_v projections emit. They port the JAX
-package's two Pallas attention kernels:
+package's Pallas attention kernels:
 
 - `attention` (csrc/attention.cu) is K1, jax's TPU flash_attention called
-  from riffusion_tpu/models/layers.py;
+  from riffusion_tpu/models/layers.py. Its gradient is two more kernels,
+  as the TPU's custom VJP is: csrc/attention_dkv.cu (dK, dV) and
+  csrc/attention_dq.cu (dQ), behind `attention_backward`.
 - `row_attention` (csrc/row_attention.cu) is K2, riffusion_tpu/ops/
-  attention.py full_row_attention, the batched path's seq-4096 sites.
+  attention.py full_row_attention, the batched path's seq-4096 sites. Its
+  gradient is the plain recompute, autograd through `attention_reference`,
+  as the JAX package's `_bwd` takes jax.vjp of its einsum reference.
 
 Each CUDA source says what bounds its kernel on the card and what its
 design does about it.
 
 - For a CUDA tensor a wrapper launches its kernel, or raises. Nothing falls
   back.
-- For a CPU tensor it runs `attention_reference`, the plain version of
-  both: the einsum composition with fp32 softmax (riffusion_tpu/ops/
-  attention.py `_reference`, models/layers.py's "pref" path).
+- For a CPU tensor it runs the plain version: `attention_reference`, the
+  einsum composition with fp32 softmax (riffusion_tpu/ops/attention.py
+  `_reference`, models/layers.py's "pref" path), and for the gradient
+  `attention_backward_reference`, the explicit formulas of jax's
+  `mha_reference_bwd`.
+- Both wrappers are differentiable. A call whose operands need no gradient
+  (serving, under inference_mode) launches the forward alone, without the
+  log-sum-exp the backward kernels need.
 
 `route` is the one owner of the gate (which sites take which kernel) and
 `kernel_takes_head_dim` of the head widths the kernels have instances for.
 
-`COUNTS.launches` counts K1 launches, `COUNTS.row_launches` K2 launches and
-`COUNTS.plain_calls` wrapper calls that took the plain version, so a run can
-show which one it went through. Calling `attention_reference` directly
-counts nothing.
+`COUNTS.launches` counts K1 launches, `COUNTS.row_launches` K2 launches,
+`COUNTS.bwd_dkv_launches` / `COUNTS.bwd_dq_launches` the backward kernels'
+launches and `COUNTS.plain_calls` wrapper calls that took the plain version
+(forward or backward), so a run can show which one it went through. Calling
+`attention_reference` or `attention_backward_reference` directly counts
+nothing.
 
 The kernels are built with nvcc at first use (route (b): shared libraries
 with a plain C entry point each, loaded with ctypes) into csrc/build/, keyed
-by a hash of the source and the headers it includes. No backward exists
-yet.
+by a hash of the source and the headers it includes.
 """
 
 from __future__ import annotations
@@ -52,8 +62,10 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "attention", "row_attention", "attention_reference", "build_kernels", "compare_to_plain",
-    "kernel_takes_head_dim", "route", "COUNTS", "TOLERANCE",
+    "attention", "row_attention", "attention_backward", "attention_reference",
+    "attention_backward_reference", "build_kernels", "compare_to_plain", "backward_delta",
+    "compare_grads_to_plain", "kernel_takes_head_dim", "route", "COUNTS", "TOLERANCE",
+    "GRAD_TOLERANCE",
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -62,7 +74,19 @@ BUILD_DIR = _CSRC / "build"
 KERNELS = {
     "attention": (_CSRC / "attention.cu", "riff_attention_forward"),
     "row_attention": (_CSRC / "row_attention.cu", "riff_row_attention_forward"),
+    "attention_dkv": (_CSRC / "attention_dkv.cu", "riff_attention_bwd_dkv"),
+    "attention_dq": (_CSRC / "attention_dq.cu", "riff_attention_bwd_dq"),
 }
+# C entry point -> its argument types (pointers, element strides, ints,
+# scale, dtype, device, stream)
+_ARGTYPES = {
+    "riff_attention_forward": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 8
+    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "riff_attention_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 10
+    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+_ARGTYPES["riff_row_attention_forward"] = _ARGTYPES["riff_attention_forward"]
+_ARGTYPES["riff_attention_bwd_dq"] = _ARGTYPES["riff_attention_bwd_dkv"]
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -80,6 +104,19 @@ _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # - fp32 (TF32 off): plain FMAs against an fp32 matmul, another sum order.
 TOLERANCE = {torch.bfloat16: (2e-2, 6e-3), torch.float32: (1e-4, 1e-5)}
 
+# How closely the backward kernels' dQ, dK and dV must each match the plain
+# backward on the same inputs, per dtype: (max abs error, error RMS / plain
+# RMS). Derived from a CPU emulation of the kernels' arithmetic
+# (tests/test_torch_attention_grad.py): bf16 rounds P for dV = P^T dO, dS
+# for dK and dQ, and the outputs, which moves each gradient by 2.2e-3 to
+# 3.0e-3 of its RMS, and its largest element by up to 6.25e-2 where large
+# logits make gradients of 12 (one bf16 rounding there). The bounds pass
+# that with a margin and fail the planted faults (dS without its -delta
+# term, a skipped Q tile in dK/dV, the LSE of the wrong head, dK without
+# the scale), which move a gradient by 0.14 of its RMS or more. fp32:
+# another sum order only.
+GRAD_TOLERANCE = {torch.bfloat16: (1.25e-1, 1e-2), torch.float32: (1e-3, 2e-5)}
+
 # The gate, as the JAX package's models/layers.py Attention sets it
 # (EINSUM_SEQ_MIN, EINSUM_B_LO, ROWATTN_BLOCK_Q, and the flash branch's
 # 256-query floor), without its environment knobs.
@@ -93,12 +130,13 @@ FLASH_SEQ_MIN = 256  # K1 takes the other self-attention sites from here up.
 class Counts:
     launches: int = 0
     row_launches: int = 0
+    bwd_dkv_launches: int = 0
+    bwd_dq_launches: int = 0
     plain_calls: int = 0
 
     def reset(self) -> None:
-        self.launches = 0
-        self.row_launches = 0
-        self.plain_calls = 0
+        for field in dataclasses.fields(self):
+            setattr(self, field.name, 0)
 
 
 COUNTS = Counts()
@@ -170,14 +208,10 @@ def build_kernels(
                         f"nvcc failed ({proc.returncode}) building {KERNELS[name][0].name}:\n{out}"
                     )
                 os.replace(tmp, so_path)
-            fn = getattr(ctypes.CDLL(str(so_path)), KERNELS[name][1])
+            entry = KERNELS[name][1]
+            fn = getattr(ctypes.CDLL(str(so_path)), entry)
             fn.restype = ctypes.c_int
-            fn.argtypes = (
-                [ctypes.c_void_p] * 4
-                + [ctypes.c_longlong] * 8
-                + [ctypes.c_int] * 5
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            )
+            fn.argtypes = _ARGTYPES[entry]
             log = log_path.read_text() if log_path.is_file() else ""
             _built[name] = BuiltKernel(fn=fn, path=so_path, build_seconds=seconds,
                                        compiler_log=log)
@@ -202,15 +236,54 @@ def attention_reference(
     return out.reshape(b, s_q, inner)
 
 
-def compare_to_plain(out: torch.Tensor, ref: torch.Tensor) -> T.Tuple[float, float, bool]:
-    """(max abs error, error RMS / plain RMS, within TOLERANCE) of a kernel
+def compare_to_plain(
+    out: torch.Tensor, ref: torch.Tensor, tolerance: T.Mapping = TOLERANCE
+) -> T.Tuple[float, float, bool]:
+    """(max abs error, error RMS / plain RMS, within `tolerance`) of a kernel
     output against the plain version's on the same inputs, in fp32."""
     err = out.float() - ref.float()
     max_abs = float(err.abs().max())
     rel_rms = float(err.norm() / ref.float().norm())
-    abs_tol, rel_tol = TOLERANCE[ref.dtype]
+    abs_tol, rel_tol = tolerance[ref.dtype]
     ok = bool(torch.isfinite(out).all()) and max_abs <= abs_tol and rel_rms <= rel_tol
     return max_abs, rel_rms, ok
+
+
+def attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    *, num_heads: int, scale: float,
+) -> T.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward: (dq, dk, dv) of `attention_reference` for the
+    output `out` and its gradient `dout`, by the explicit formulas of jax's
+    mha_reference_bwd (with the scale): P = softmax(q k^T * scale),
+    dv = P^T dout, dP = dout v^T, delta = rowsum(dout * out),
+    dS = P * (dP - delta), dq = scale * dS k, dk = scale * dS^T q; in fp32
+    (fp64 for fp64 operands), returned in q's dtype."""
+    b, s_q, inner = q.shape
+    d = inner // num_heads
+    precise = torch.promote_types(torch.float32, q.dtype)
+
+    def heads(x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(b, x.shape[1], num_heads, d).to(precise)
+
+    qh, kh, vh, oh, doh = (heads(x) for x in (q, k, v, out, dout))
+    probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs, doh)
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+    delta = (doh * oh).sum(-1).transpose(1, 2)  # (b, h, s_q)
+    ds = probs * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh) * scale
+    return tuple(x.reshape(b, x.shape[1], inner).to(q.dtype) for x in (dq, dk, dv))
+
+
+def compare_grads_to_plain(
+    grads: T.Sequence[torch.Tensor], refs: T.Sequence[torch.Tensor]
+) -> T.Dict[str, T.Tuple[float, float, bool]]:
+    """compare_to_plain for each of (dq, dk, dv) against the plain
+    backward's, under GRAD_TOLERANCE."""
+    return {name: compare_to_plain(g, ref, GRAD_TOLERANCE)
+            for name, g, ref in zip(("dq", "dk", "dv"), grads, refs)}
 
 
 def kernel_takes_head_dim(head_dim: int) -> bool:
@@ -249,34 +322,164 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int)
         raise ValueError(f"device mismatch: {q.device}, {k.device}, {v.device}")
 
 
-def _launch(
-    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
-) -> torch.Tensor:
-    """Launch kernel `name` on CUDA operands (checked here) into a new
-    output, on the current stream; raises if the launch is refused."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
-    for arg, x in (("q", q), ("k", k), ("v", v)):
+def _check_operands(name: str, **tensors: torch.Tensor) -> None:
+    """The layout every kernel reads: CUDA, bf16 or fp32, a contiguous h*d
+    dim, batch/seq strides that are multiples of 8, a 16-byte aligned base."""
+    for arg, x in tensors.items():
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} runs on cuda or cpu tensors, got {x.device}")
+        if x.dtype not in _KERNEL_DTYPES:
+            raise ValueError(f"the kernel takes bfloat16 or float32, got {x.dtype}")
         if x.stride(2) != 1 or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
             raise ValueError(
                 f"{arg} must have a contiguous h*d dim, batch/seq strides that are "
                 f"multiples of 8 and a 16-byte aligned base (strides {x.stride()})"
             )
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(
+    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+    lse: T.Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch forward kernel `name` on CUDA operands (checked here) into a
+    new output, on the current stream, writing the rows' log-sum-exp into
+    `lse` ((b, h, s_q) fp32) when it is given; raises if the launch is
+    refused."""
+    _check_operands(name, q=q, k=k, v=v)
     b, s_q, inner = q.shape
     out = torch.empty((b, s_q, inner), dtype=q.dtype, device=q.device)
     fn = build_kernels((name,))[name].fn
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         b, s_q, k.shape[1], num_heads, inner // num_heads, float(scale),
-        _KERNEL_DTYPES[q.dtype], q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        _KERNEL_DTYPES[q.dtype], q.device.index, _stream(q),
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     return out
+
+
+def backward_delta(out: torch.Tensor, dout: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """delta = rowsum(dout * out) per head, (b, h, s_q) fp32: the backward
+    kernels' input that the TPU's VJP also computes outside its kernels
+    (flash_attention.py `di`)."""
+    b, s_q, inner = out.shape
+    prod = dout.float() * out.float()
+    return prod.view(b, s_q, num_heads, inner // num_heads).sum(-1).transpose(1, 2).contiguous()
+
+
+def _launch_backward(
+    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, num_heads: int, scale: float,
+) -> T.Tuple[torch.Tensor, ...]:
+    """Launch backward kernel `name` ("attention_dkv" -> (dk, dv),
+    "attention_dq" -> (dq,)) on checked CUDA operands into new outputs, on
+    the current stream; raises if the launch is refused."""
+    b, s_q, inner = q.shape
+    rows = k.shape if name == "attention_dkv" else q.shape
+    outs = tuple(torch.empty(rows, dtype=q.dtype, device=q.device)
+                 for _ in range(2 if name == "attention_dkv" else 1))
+    fn = build_kernels((name,))[name].fn
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        dout.stride(0), dout.stride(1), outs[0].stride(0), outs[0].stride(1),
+        b, s_q, k.shape[1], num_heads, inner // num_heads, float(scale),
+        _KERNEL_DTYPES[q.dtype], q.device.index, _stream(q),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+    return outs
+
+
+def attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    lse: T.Optional[torch.Tensor], *, num_heads: int, scale: float,
+) -> T.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `attention` for its output `out` and the output's
+    gradient `dout`. For CUDA tensors: the dK/dV kernel (csrc/attention_dkv.cu)
+    and the dQ kernel (csrc/attention_dq.cu), which recompute the
+    probabilities from `lse`, the forward's (b, h, s_q) log-sum-exp. For CPU
+    tensors: `attention_backward_reference` (`lse` is not used)."""
+    _validate(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        COUNTS.plain_calls += 1
+        return attention_backward_reference(q, k, v, out, dout, num_heads=num_heads, scale=scale)
+    dout = dout.to(q.dtype)
+    if dout.stride(2) != 1 or dout.stride(0) % 8 or dout.stride(1) % 8 or dout.data_ptr() % 16:
+        dout = dout.contiguous()
+    _check_operands("attention_backward", q=q, k=k, v=v, dout=dout)
+    b, s_q, _ = q.shape
+    if lse is None or lse.shape != (b, num_heads, s_q) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("the backward kernels need the forward's (b, h, s_q) fp32 log-sum-exp")
+    delta = backward_delta(out, dout, num_heads)
+    dk, dv = _launch_backward("attention_dkv", q, k, v, dout, lse, delta, num_heads, scale)
+    COUNTS.bwd_dkv_launches += 1
+    (dq,) = _launch_backward("attention_dq", q, k, v, dout, lse, delta, num_heads, scale)
+    COUNTS.bwd_dq_launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """`attention` with its gradient: K1 writing the log-sum-exp and the two
+    backward kernels on CUDA, the plain forward and backward on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        lse = None
+        if q.device.type == "cpu":
+            COUNTS.plain_calls += 1
+            out = attention_reference(q, k, v, num_heads=num_heads, scale=scale)
+        else:
+            b, s_q, _ = q.shape
+            lse = torch.empty((b, num_heads, s_q), dtype=torch.float32, device=q.device)
+            out = _launch("attention", q, k, v, num_heads, scale, lse=lse)
+            COUNTS.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, dout, lse, num_heads=ctx.num_heads,
+                                        scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class _RowAttention(torch.autograd.Function):
+    """`row_attention` on CUDA with its gradient: K2 forward, and the plain
+    recompute (autograd through `attention_reference`) backward, as the JAX
+    package's full_row_attention VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        out = _launch("row_attention", q, k, v, num_heads, scale)
+        COUNTS.row_launches += 1
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+            out = attention_reference(q, k, v, num_heads=ctx.num_heads, scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
 def attention(
@@ -284,9 +487,11 @@ def attention(
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v over (b, s, h*d) operands through K1's
     kernel (csrc/attention.cu) for CUDA tensors (bf16 or fp32), the plain
-    version for CPU tensors. head_dim = inner / num_heads must be a
-    multiple of 8, at most 128."""
+    version for CPU tensors; differentiable (`attention_backward`).
+    head_dim = inner / num_heads must be a multiple of 8, at most 128."""
     _validate(q, k, v, num_heads)
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, num_heads, scale)
     if q.device.type == "cpu":
         COUNTS.plain_calls += 1
         return attention_reference(q, k, v, num_heads=num_heads, scale=scale)
@@ -301,11 +506,14 @@ def row_attention(
     """The same function through K2's kernel (csrc/row_attention.cu) for
     CUDA tensors, the plain version for CPU tensors; the batched path's
     large-sequence sites (`route` == "row"). Same operand rules as
-    `attention`; ragged s_q and s_kv are masked."""
+    `attention`; ragged s_q and s_kv are masked. Differentiable, by the
+    plain recompute."""
     _validate(q, k, v, num_heads)
     if q.device.type == "cpu":
         COUNTS.plain_calls += 1
         return attention_reference(q, k, v, num_heads=num_heads, scale=scale)
+    if _needs_grad(q, k, v):
+        return _RowAttention.apply(q, k, v, num_heads, scale)
     out = _launch("row_attention", q, k, v, num_heads, scale)
     COUNTS.row_launches += 1
     return out

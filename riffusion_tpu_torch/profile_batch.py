@@ -95,11 +95,11 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from riffusion_tpu.datatypes import InferenceInput, PromptInput
-    from riffusion_tpu.spectrogram_params import SpectrogramParams
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
     from riffusion_tpu_torch.ops import attention as attn
     from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
     from riffusion_tpu_torch.serving import FAST_PRESET
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_batch: torch sees no CUDA device")

@@ -40,16 +40,15 @@ import torch
 from PIL import Image
 from torch.profiler import record_function
 
-from riffusion_tpu.audio.segment import AudioSegment
-from riffusion_tpu.datatypes import InferenceInput
-from riffusion_tpu.spectrogram_params import SpectrogramParams
-from riffusion_tpu.util import audio_util
+from riffusion_tpu_torch.audio.segment import AudioSegment
+from riffusion_tpu_torch.datatypes import InferenceInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.external import prompt_weighting
 from riffusion_tpu_torch.models.weights import ModelBundle, load_bundle
 from riffusion_tpu_torch.ops import codec
 from riffusion_tpu_torch.spectrogram_converter import SpectrogramConverter
-from riffusion_tpu_torch.util import torch_util
+from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
+from riffusion_tpu_torch.util import audio_util, torch_util
 
 NOISE_NAMES = ("vae_eps", "noise_a", "noise_b", "gl_real", "gl_imag")
 NoiseSource = T.Callable[[str, T.Tuple[int, ...], torch.device], torch.Tensor]

@@ -44,13 +44,13 @@ from socketserver import ThreadingMixIn
 import numpy as np
 import PIL.Image
 
-from riffusion_tpu.audio.segment import _ffmpeg_path
-from riffusion_tpu.datatypes import InferenceInput, InferenceOutput, PromptInput
-from riffusion_tpu.spectrogram_params import SpectrogramParams
-from riffusion_tpu.util import base64_util
-from riffusion_tpu.util.dataclass_util import DecodeError, from_dict
+from riffusion_tpu_torch.audio.segment import _ffmpeg_path
+from riffusion_tpu_torch.datatypes import InferenceInput, InferenceOutput, PromptInput
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 from riffusion_tpu_torch.serving import FAST_PRESET, DynamicBatcher
+from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
+from riffusion_tpu_torch.util import base64_util
+from riffusion_tpu_torch.util.dataclass_util import DecodeError, from_dict
 
 # Global pipeline (single-model server, as in the JAX package)
 PIPELINE: T.Optional[RiffusionPipeline] = None
@@ -374,7 +374,8 @@ def run_app(
 def main(argv: T.Optional[T.Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description="riffusion_tpu_torch inference server")
     parser.add_argument("--checkpoint", default="random:full",
-                        help="'random:full' or 'random:tiny' (random weights)")
+                        help="'random:full' or 'random:tiny' (random weights), or a directory "
+                             "written by models.weights.save_native (a fine-tune's export)")
     parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=3013)

@@ -18,13 +18,12 @@ import typing as T
 import numpy as np
 import torch
 
-from riffusion_tpu.audio.segment import AudioSegment
-from riffusion_tpu.spectrogram_params import SpectrogramParams
-from riffusion_tpu.util import audio_util
+from riffusion_tpu_torch.audio.segment import AudioSegment
 from riffusion_tpu_torch.ops.griffin_lim import griffin_lim
 from riffusion_tpu_torch.ops.mel import active_bin_count, inverse_mel_operator, mel_filterbank
 from riffusion_tpu_torch.ops.stft import get_stft_kernel
-from riffusion_tpu_torch.util import torch_util
+from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
+from riffusion_tpu_torch.util import audio_util, torch_util
 
 
 class SpectrogramConverter:

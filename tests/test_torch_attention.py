@@ -148,8 +148,11 @@ def test_kernel_source_is_shipped():
     for source, entry in attn_mod.KERNELS.values():
         assert source.is_file()
         assert entry in source.read_text()
-        assert '#include "attention_common.cuh"' in source.read_text()
+        # the forward body, or the backward body (which includes it)
+        assert ('#include "attention_common.cuh"' in source.read_text()
+                or '#include "attention_bwd.cuh"' in source.read_text())
     assert (attn_mod._CSRC / "attention_common.cuh").is_file()
+    assert '#include "attention_common.cuh"' in (attn_mod._CSRC / "attention_bwd.cuh").read_text()
 
 
 def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_tile=None,

@@ -1,6 +1,7 @@
 """
-The Hopper attention kernels (riffusion_tpu_torch/csrc/attention.cu, K1, and
-csrc/row_attention.cu, K2) against their plain PyTorch version, on a CUDA
+The Hopper attention kernels (riffusion_tpu_torch/csrc/attention.cu, K1,
+csrc/row_attention.cu, K2, and K1's backward, csrc/attention_dkv.cu and
+csrc/attention_dq.cu) against their plain PyTorch versions, on a CUDA
 card. Every test here is marked `cuda` and skips where torch sees no card;
 the kernels have no CPU mode. This file
 imports neither jax nor the JAX package, so it runs on a card machine
@@ -13,10 +14,13 @@ import pytest
 import torch
 
 from riffusion_tpu_torch.models.layers import Attention
+from riffusion_tpu_torch.ops import attention as attn
 from riffusion_tpu_torch.ops.attention import (
     COUNTS,
     attention,
+    attention_backward_reference,
     attention_reference,
+    compare_grads_to_plain,
     compare_to_plain,
     row_attention,
 )
@@ -164,3 +168,88 @@ def test_attention_module_takes_the_row_kernel(cuda_device):
     assert (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls) == (0, 1, 0)
     max_abs, rel_rms, ok = compare_to_plain(out, ref)
     assert ok, (max_abs, rel_rms)
+
+
+def _grad_case(dev, b, s_q, s_kv, h, d, dtype, mult=1.0, seed=4):
+    """q, k ~ N(0, 1) (times `mult`), v ~ N(1, 1) (so that delta is not small
+    next to dP: tests/test_torch_attention_grad.py), dO ~ N(0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (mult * torch.randn(b, s_q, h * d, generator=gen, device=dev)).to(dtype)
+    k = (mult * torch.randn(b, s_kv, h * d, generator=gen, device=dev)).to(dtype)
+    v = (torch.randn(b, s_kv, h * d, generator=gen, device=dev) + 1).to(dtype)
+    dout = torch.randn(b, s_q, h * d, generator=gen, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+# Each case is held to ops.attention.GRAD_TOLERANCE for each of dQ, dK, dV
+# (tests/test_torch_attention_grad.py derives it and plants faults).
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,h,d,dtype,mult",
+    [
+        (4, 4096, 4096, 8, 40, torch.bfloat16, 1.0),
+        (4, 1024, 1024, 8, 80, torch.bfloat16, 1.0),
+        (1, 1000, 777, 2, 128, torch.bfloat16, 1.0),
+        (2, 333, 1000, 2, 16, torch.bfloat16, 1.0),
+        (1, 1024, 1024, 2, 40, torch.bfloat16, 4.0),
+        (2, 300, 300, 3, 32, torch.float32, 1.0),
+        (1, 1000, 777, 2, 128, torch.float32, 1.0),
+    ],
+    ids=["train-d40", "train-d80", "ragged-d128", "ragged-d16", "large-logits", "f32-d32",
+         "f32-ragged-d128"],
+)
+def test_backward_kernels_match_plain(cuda_device, b, s_q, s_kv, h, d, dtype, mult):
+    q, k, v, dout = _grad_case(cuda_device, b, s_q, s_kv, h, d, dtype, mult)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    COUNTS.reset()
+    out = attention(*leaves, num_heads=h, scale=d**-0.5)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (COUNTS.launches, COUNTS.bwd_dkv_launches, COUNTS.bwd_dq_launches,
+            COUNTS.plain_calls) == (1, 1, 1, 0)
+    refs = attention_backward_reference(q, k, v, out.detach(), dout, num_heads=h,
+                                        scale=d**-0.5)
+    result = compare_grads_to_plain([x.grad for x in leaves], refs)
+    assert all(ok for _, _, ok in result.values()), result
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_forward_writes_the_log_sum_exp(cuda_device, dtype):
+    """The LSE K1 writes when asked, against logsumexp of the fp32 logits:
+    1e-3 (the same products summed in another order, exp2 for exp)."""
+    b, s, h, d = 2, 1000, 3, 40
+    q, k, v = _qkv(cuda_device, b, s, s, h, d, dtype, mult=2.0)
+    lse = torch.empty(b, h, s, device=cuda_device)
+    out = attn._launch("attention", q, k, v, h, d**-0.5, lse=lse)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float().view(b, s, h, d),
+                          k.float().view(b, s, h, d)) * d**-0.5
+    assert float((lse - torch.logsumexp(logits, dim=-1)).abs().max()) < 1e-3
+    assert torch.equal(out, attn._launch("attention", q, k, v, h, d**-0.5))
+
+
+def test_backward_strided_operands(cuda_device):
+    """q, k, v as column slices of one packed projection, with its gradient."""
+    b, s, h, d = 2, 512, 4, 40
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=cuda_device).to(torch.bfloat16)
+    dout = torch.randn(b, s, h * d, generator=gen, device=cuda_device).to(torch.bfloat16)
+    leaf = qkv.clone().requires_grad_()
+    out = attention(*leaf.split(h * d, dim=-1), num_heads=h, scale=d**-0.5)
+    out.backward(dout)
+    refs = attention_backward_reference(*qkv.split(h * d, dim=-1), out.detach(), dout,
+                                        num_heads=h, scale=d**-0.5)
+    result = compare_grads_to_plain(leaf.grad.split(h * d, dim=-1), refs)
+    assert all(ok for _, _, ok in result.values()), result
+
+
+def test_row_attention_backward_is_the_plain_recompute(cuda_device):
+    """K2's gradient (b = 9, s = 2048) against autograd of the plain version."""
+    b, s, h, d = 9, 2048, 8, 40
+    q, k, v, dout = _grad_case(cuda_device, b, s, s, h, d, torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    COUNTS.reset()
+    row_attention(*leaves, num_heads=h, scale=d**-0.5).backward(dout)
+    assert (COUNTS.row_launches, COUNTS.bwd_dkv_launches, COUNTS.plain_calls) == (1, 0, 0)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    attention_reference(*plain, num_heads=h, scale=d**-0.5).backward(dout)
+    for got, ref in zip(leaves, plain):  # the same recompute on the same operands
+        torch.testing.assert_close(got.grad, ref.grad)

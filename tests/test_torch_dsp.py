@@ -12,20 +12,23 @@ import pytest
 import torch
 
 from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
-from riffusion_tpu.audio.segment import AudioSegment
+from riffusion_tpu.audio.segment import AudioSegment as JaxAudioSegment
 from riffusion_tpu.ops import codec as jax_codec
 from riffusion_tpu.ops import mel as jax_mel
 from riffusion_tpu.ops.griffin_lim import griffin_lim as jax_griffin_lim
 from riffusion_tpu.ops.stft import get_stft_kernel as jax_stft_kernel
 from riffusion_tpu.spectrogram_converter import SpectrogramConverter as JaxConverter
-from riffusion_tpu.spectrogram_params import SpectrogramParams
+from riffusion_tpu.spectrogram_params import SpectrogramParams as JaxParams
+from riffusion_tpu_torch.audio.segment import AudioSegment
 from riffusion_tpu_torch.ops import codec, mel
 from riffusion_tpu_torch.ops.griffin_lim import griffin_lim
 from riffusion_tpu_torch.ops.stft import get_stft_kernel
 from riffusion_tpu_torch.spectrogram_converter import SpectrogramConverter
+from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 
 SR = 44100
 PARAMS = SpectrogramParams(num_frequencies=64)
+JAX_PARAMS = JaxParams(num_frequencies=64)
 
 
 def _wave(seconds: float, channels: int = 1, seed: int = 0) -> np.ndarray:
@@ -96,8 +99,8 @@ def test_istft_matches_jax(n_bins):
 
 def test_mel_forward_matches_jax():
     wave = _wave(0.5)
-    mj = JaxConverter(PARAMS, device="cpu").spectrogram_from_audio(
-        AudioSegment.from_float(wave * 32767, SR)
+    mj = JaxConverter(JAX_PARAMS, device="cpu").spectrogram_from_audio(
+        JaxAudioSegment.from_float(wave * 32767, SR)
     )
     mt = SpectrogramConverter(PARAMS, device="cpu").spectrogram_from_audio(
         AudioSegment.from_float(wave * 32767, SR)
@@ -141,7 +144,7 @@ def test_waveform_from_mel_matches_jax():
     JAX program's phase draws; the same 1e-3 Griffin-Lim tolerance."""
     rng = np.random.default_rng(3)
     mel_amps = (30e6 * rng.random((1, 64, 40)) ** 4).astype(np.float32)
-    jconv = JaxConverter(PARAMS, device="cpu")
+    jconv = JaxConverter(JAX_PARAMS, device="cpu")
     tconv = SpectrogramConverter(PARAMS, device="cpu")
     key = jax.random.PRNGKey(9)
     wj = jconv.waveform_from_mel_amplitudes(jnp.asarray(mel_amps), key=key)

@@ -1,10 +1,14 @@
 """
-The port never imports jax or flax: a fresh interpreter imports every
+The port never imports jax, flax or the JAX package (riffusion_tpu), not
+even its modules that are free of JAX: a fresh interpreter imports every
 riffusion_tpu_torch module (serving and server among them), runs the tiny
-slice on the CPU, single and batched, and checks sys.modules. Also a static check that no source of the port imports them,
-and that it calls no library attention or compiler.
+slice on the CPU, single and batched, then a fine-tune of two steps with
+its export reloaded, and checks sys.modules. Also a static check that no
+source of the port, nor chip_smoke.py or scripts/profile_torch_request.py,
+imports them, and that the port calls no library attention or compiler.
 """
 
+import ast
 import os
 import pathlib
 import re
@@ -22,8 +26,8 @@ import riffusion_tpu_torch
 for mod in pkgutil.walk_packages(riffusion_tpu_torch.__path__, "riffusion_tpu_torch."):
     importlib.import_module(mod.name)
 
-from riffusion_tpu.datatypes import InferenceInput, PromptInput
-from riffusion_tpu.spectrogram_params import SpectrogramParams
+from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 
 pipe = RiffusionPipeline.load_checkpoint("random:tiny", device="cpu")
@@ -39,7 +43,24 @@ batcher = DynamicBatcher(pipe, window_ms=10, scheduler="unipc_k:rho=2")
 out, audio = batcher.submit(inputs, image, None, params, seed_image_id="s", mask_image_id=None)
 batcher.shutdown()
 assert len(pipe.riffuse_audio_batch([inputs, inputs], image, params=params)) == 2
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+# the training slice: dataset, two steps, the export reloaded and riffused
+import tempfile
+from pathlib import Path
+from riffusion_tpu_torch.audio.segment import AudioSegment
+from riffusion_tpu_torch.training import FinetuneConfig, build_latent_dataset, run_finetune
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    (tmp / "audio").mkdir()
+    wave = np.sin(np.arange(44100) * 2 * np.pi * 440 / 44100) * 16000
+    AudioSegment(wave.astype(np.int16), 44100).export(str(tmp / "audio" / "a.wav"))
+    build_latent_dataset(pipe, tmp / "audio", tmp / "ds", params=params, clip_duration_ms=640)
+    stats = run_finetune(FinetuneConfig(checkpoint="random:tiny", dataset_dir=str(tmp / "ds"),
+                                        output_dir=str(tmp / "run"), steps=2, batch_size=1,
+                                        device="cpu"), log=lambda s: None)
+    tuned = RiffusionPipeline.load_checkpoint(stats["export_dir"], device="cpu")
+    assert tuned.riffuse(inputs, image).size == (64, 64)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu"))
 print("LOADED", bad)
 """
 
@@ -53,12 +74,27 @@ def test_port_runs_without_jax():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+def _imported_top_levels(source: str) -> set:
+    """The first dotted part of every module an import statement names."""
+    names = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
 def test_sources_import_no_jax_and_no_library_attention():
-    imports = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
     banned = re.compile(r"scaled_dot_product_attention|torch\.compile")
     sources = sorted(PACKAGE.rglob("*.py"))
     assert len(sources) > 10
-    for path in sources:
+    for path in sources + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_request.py"]:
         text = path.read_text()
-        assert not imports.search(text), path
-        assert not banned.search(text), path
+        # the top-level name exactly: riffusion_tpu_torch is the port itself
+        assert not _imported_top_levels(text) & {"jax", "jaxlib", "flax", "riffusion_tpu"}, path
+        if path.is_relative_to(PACKAGE):
+            assert not banned.search(text), path
+    assert _imported_top_levels("from riffusion_tpu.datatypes import InferenceInput\n"
+                                "import riffusion_tpu.serving as s\n") == {"riffusion_tpu"}
+    assert _imported_top_levels("from riffusion_tpu_torch import cli\n") == {"riffusion_tpu_torch"}

@@ -17,22 +17,24 @@ import pytest
 import torch
 from PIL import Image
 
-from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
+from torch_port_util import jax_twin, torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu import riffusion_pipeline as jax_pipeline
-from riffusion_tpu.datatypes import InferenceInput, PromptInput
 from riffusion_tpu.external import prompt_weighting as jax_pw
-from riffusion_tpu.models.tokenizer import HashTokenizer
+from riffusion_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
 from riffusion_tpu.ops import codec as jax_codec
-from riffusion_tpu.spectrogram_params import SpectrogramParams
 from riffusion_tpu.util import jax_util
 from riffusion_tpu_torch import riffusion_pipeline as pipeline
+from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.external import prompt_weighting
+from riffusion_tpu_torch.models.tokenizer import HashTokenizer
 from riffusion_tpu_torch.models.weights import bundle_from_jax_params
 from riffusion_tpu_torch.ops import codec
+from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 from riffusion_tpu_torch.util import torch_util
 
 SIZE = 64
 PARAMS = SpectrogramParams(min_frequency=0, max_frequency=10000, num_frequencies=SIZE)
+JAX_PARAMS = jax_twin(PARAMS)
 
 
 @pytest.fixture(scope="module")
@@ -100,8 +102,8 @@ def test_riffuse_audio_matches_jax(pipes, seed_image, masked):
     if masked:
         mask = Image.fromarray(np.tile(np.array([0, 255] * (SIZE // 2), np.uint8), (SIZE, 1)))
     inputs = _inputs()
-    image_j, audio_j = jp.riffuse_audio(inputs, seed_image, mask_image=mask, params=PARAMS,
-                                        apply_filters=False)
+    image_j, audio_j = jp.riffuse_audio(jax_twin(inputs), seed_image, mask_image=mask,
+                                        params=JAX_PARAMS, apply_filters=False)
     n_active = tp.converter(PARAMS).n_active
     noise = _jax_draws(42, 123, (SIZE // 8, SIZE // 8), (1, n_active, SIZE))
     image_t, audio_t = tp.riffuse_audio(inputs, seed_image, mask_image=mask, params=PARAMS,
@@ -146,7 +148,7 @@ def test_text_embeddings_match_jax(pipes, seed_image, use_reweighting):
     through the same CLIP: 1e-5."""
     jp, tp = pipes
     inputs = _inputs()
-    _, args = jp._build_call(inputs, seed_image, None, use_reweighting, None)
+    _, args = jp._build_call(jax_twin(inputs), seed_image, None, use_reweighting, None)
     ref = np.asarray(args[2])
     out = tp.text_embeddings(inputs, use_reweighting).numpy()
     assert out.shape == ref.shape
@@ -168,7 +170,8 @@ def test_prompt_weighting_matches_jax():
     prompt = "a (loud:1.5) [quiet] ((nested)) \\(lit\\) " + " ".join(["x"] * 40)
     for uncond in (None, "bad [sound]"):
         ej, uj = jax_pw.get_weighted_text_embeddings(
-            lambda i: jnp.asarray(enc_np(i)), tok, prompt, uncond_prompt=uncond
+            lambda i: jnp.asarray(enc_np(i)), JaxHashTokenizer(vocab_size=1024), prompt,
+            uncond_prompt=uncond,
         )
         et, ut = prompt_weighting.get_weighted_text_embeddings(
             lambda i: torch.from_numpy(enc_np(i)), tok, prompt, uncond_prompt=uncond
@@ -319,8 +322,8 @@ def test_riffuse_audio_scheduler_matches_jax(pipes, seed_image, scheduler):
     and the sigma-space start noising (x0 + sigma_0 * eps)."""
     jp, tp = pipes
     inputs = _low_guidance(_inputs(num_inference_steps=6))
-    image_j, _ = jp.riffuse_audio(inputs, seed_image, params=PARAMS, apply_filters=False,
-                                  scheduler=scheduler)
+    image_j, _ = jp.riffuse_audio(jax_twin(inputs), seed_image, params=JAX_PARAMS,
+                                  apply_filters=False, scheduler=scheduler)
     n_active = tp.converter(PARAMS).n_active
     noise = _jax_draws(42, 123, (SIZE // 8, SIZE // 8), (1, n_active, SIZE))
     image_t, audio_t = tp.riffuse_audio(inputs, seed_image, params=PARAMS, apply_filters=False,
@@ -369,8 +372,9 @@ def test_riffuse_audio_batch_matches_jax(pipes, seed_image, scheduler, masked):
     jp, tp = pipes
     inputs_list = _batch_inputs(6)
     mask = _mask() if masked else None
-    out_j = jp.riffuse_audio_batch(inputs_list, seed_image, params=PARAMS, apply_filters=False,
-                                   mask_image=mask, scheduler=scheduler)
+    out_j = jp.riffuse_audio_batch([jax_twin(x) for x in inputs_list], seed_image,
+                                   params=JAX_PARAMS, apply_filters=False, mask_image=mask,
+                                   scheduler=scheduler)
     out_t = tp.riffuse_audio_batch(inputs_list, seed_image, params=PARAMS, apply_filters=False,
                                    mask_image=mask, scheduler=scheduler,
                                    noises=_draws_for(tp, inputs_list))
@@ -422,9 +426,10 @@ def test_batch_rejects_mixed_strengths_and_steps(pipes, seed_image):
     mixed = [_inputs(num_inference_steps=3),
              _inputs(num_inference_steps=3, start=PromptInput(prompt="a", seed=1, denoising=0.5),
                      end=PromptInput(prompt="b", seed=2, denoising=0.5))]
-    for pipe in (jp, tp):
-        with pytest.raises(ValueError, match="single denoising strength"):
-            pipe.riffuse_audio_batch(mixed, seed_image, params=PARAMS)
+    with pytest.raises(ValueError, match="single denoising strength"):
+        jp.riffuse_audio_batch([jax_twin(x) for x in mixed], seed_image, params=JAX_PARAMS)
+    with pytest.raises(ValueError, match="single denoising strength"):
+        tp.riffuse_audio_batch(mixed, seed_image, params=PARAMS)
     with pytest.raises(ValueError, match="single num_inference_steps"):
         tp.riffuse_audio_batch([_inputs(num_inference_steps=3), _inputs(num_inference_steps=4)],
                                seed_image, params=PARAMS)

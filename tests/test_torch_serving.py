@@ -1,6 +1,6 @@
 """
-The dynamic batcher (riffusion_tpu_torch/serving.py, the JAX package's
-DynamicBatcher re-exported) over the port's tiny pipeline on the CPU:
+The dynamic batcher (riffusion_tpu_torch/serving.py, the port's copy of
+the JAX package's DynamicBatcher) over the port's tiny pipeline on the CPU:
 concurrent submits coalesce into one padded launch, the FAST preset routes
 each strength to its sampler and step count, a batch of one takes the
 single path with the resolved scheduler, and the async finalize hands every
@@ -15,10 +15,10 @@ from PIL import Image
 
 from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu import serving as jax_serving
-from riffusion_tpu.datatypes import InferenceInput, PromptInput
-from riffusion_tpu.spectrogram_params import SpectrogramParams
 from riffusion_tpu_torch import serving
+from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
+from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 
 SIZE = 64
 PARAMS = SpectrogramParams(min_frequency=0, max_frequency=10000, num_frequencies=SIZE)
@@ -76,8 +76,11 @@ def _submit_all(batcher, requests, seed_image):
 
 
 def test_reexports_are_the_jax_packages_host_code():
-    for name in serving.__all__:
-        assert getattr(serving, name) is getattr(jax_serving, name)
+    """The port's copy carries the JAX package's presets and gate."""
+    for name in ("FAST_PRESET", "FAST_PRESET_GATED_STRENGTH", "FAST_PRESET_OFFGATE"):
+        assert getattr(serving, name) == getattr(jax_serving, name)
+    for strength in (0.75, 0.7504, 0.7496, 0.65, 1.0):
+        assert serving.preset_for_strength(strength) == jax_serving.preset_for_strength(strength)
     assert serving.preset_for_strength(0.75) == {"scheduler": "unipc_k:rho=2", "steps": 16}
     assert serving.preset_for_strength(0.65) == {"scheduler": "dpmpp", "steps": 24}
 

@@ -18,3 +18,20 @@ def torch_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(previous)
+
+
+def jax_twin(obj):
+    """The JAX package's dataclass holding the same fields as one of the
+    port's (InferenceInput, PromptInput, SpectrogramParams), for the JAX side
+    of a comparison: each package is called with its own types."""
+    import dataclasses
+
+    from riffusion_tpu import datatypes, spectrogram_params
+    from riffusion_tpu.util.dataclass_util import from_dict
+
+    cls = {
+        "InferenceInput": datatypes.InferenceInput,
+        "PromptInput": datatypes.PromptInput,
+        "SpectrogramParams": spectrogram_params.SpectrogramParams,
+    }[type(obj).__name__]
+    return from_dict(cls, dataclasses.asdict(obj))
