@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
 Phases, in order; any failure exits non-zero and prints no result:
 
-1. card: the card's name and power limit (nvidia-smi); no CUDA device fails.
+1. card: the card's name and power limit, and its maximum SM clock (the
+   clock of the exp2 bound; nvidia-smi); no CUDA device fails.
 2. build: nvcc builds csrc/attention.cu (K1), csrc/row_attention.cu (K2),
    csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward) from this
    checkout, all at once; prints each build's seconds and ptxas register
@@ -24,17 +25,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain and torch's scaled_dot_product_attention (the library yardstick,
    never called by the port) at the two single-path shapes, and K2, K1,
    plain and the library at (32, 4096, 8*40) bf16, before any model is
-   loaded (the plain version there needs about 45 GB).
+   loaded (the plain version there needs about 45 GB). Each kernel's bound
+   is the largest of its FLOPs over 989 TFLOP/s, its bytes over 3.35 TB/s
+   and its exp2 calls (one per logit) over 132 SMs x 16 per clock at the
+   maximum SM clock; the SM clock just after each timing is printed.
 4. kernel-grad: K1's backward kernels (dK/dV, dQ) through `attention`'s
    autograd against the plain backward (ops.attention.
    attention_backward_reference), each of dQ, dK and dV held to
    GRAD_TOLERANCE (bf16 max abs 1.25e-1 and rel RMS 1e-2; fp32 1e-3 and
    2e-5), at the fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80)
-   bf16, ragged lengths, large logits and the fp32 instances; the forward's
-   log-sum-exp against torch.logsumexp; times of the forward with LSE, each
-   backward kernel, the plain backward and the library's backward at the
-   path's shapes; `row_attention`'s backward (the plain recompute) at
-   (9, 2048, 8*40).
+   bf16, ragged lengths, the bf16 kernels' tile edges (s_q 129, s_kv
+   191), one streamed tile (s = 64), large logits and the fp32 instances;
+   the forward's log-sum-exp against torch.logsumexp; times of the forward
+   with LSE, each backward kernel, the plain backward and the library's
+   backward at the path's shapes; `row_attention`'s backward (the plain
+   recompute) at (9, 2048, 8*40).
 5. dsp: audio -> mel -> Griffin-Lim audio on the card keeps a 220 Hz tone
    far above the noise floor (bench.py's gate).
 6. tiny: the tiny model end to end on the card (fp32) against the same model
@@ -75,7 +80,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    RiffusionPipeline.load_checkpoint and one request riffused.
 
 `--mutants` instead builds each planted fault of MUTANTS into a copy of
-the kernel sources and shows that every kernel's check rejects it.
+the kernel sources and shows that the checks of every kernel it touches
+reject it (tests/test_torch_kernel_sources.py holds each fault's text to
+its source on the CPU).
 
 The last two lines are the kernel table and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -107,10 +114,13 @@ LAUNCHES_PER_REQUEST = 38 * 10
 LAUNCHES_PER_STEP = 10  # self-attention sites on K1 at UNet batch 4
 
 # The card's published peaks (H100 SXM, dense) for the bound of each kernel:
-# the larger of its FLOPs over the bf16 tensor-core rate and its bytes (each
-# input read once, each output written once) over the memory rate.
+# the largest of its FLOPs over the bf16 tensor-core rate, its bytes (each
+# input read once, each output written once) over the memory rate, and its
+# exp2 calls (one per logit) over the SFUs' rate, 16 per clock on each of
+# the 132 SMs at the card's maximum SM clock (nvidia-smi clocks.max.sm).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+SMS, EXP2_PER_SM_CLOCK = 132, 16
 
 # One full-width step's gradients with the kernels against the plain
 # attention's (PERF.md "Fine-tuning", written before the first run): the
@@ -149,31 +159,51 @@ K1_GRAD_CASES = (
     ("ragged d128 s_kv 777", 1, 1000, 777, 2, 128, "bf16", 1.0),
     ("ragged d16 s_q 333", 2, 333, 1000, 2, 16, "bf16", 1.0),
     ("large logits d40", 1, 1024, 1024, 2, 40, "bf16", 4.0),
+    # tile edges of the bf16 kernels (128 owned rows, 64-row streamed tiles)
+    ("tile edges d40 s_q 129 s_kv 191", 2, 129, 191, 2, 40, "bf16", 1.0),
+    # one streamed tile: its products follow its copies at once (a ring that
+    # does not wait for them reads shared memory before they land)
+    ("one tile d40 s 64", 16, 64, 64, 8, 40, "bf16", 1.0),
     ("fp32 d32", 2, 300, 300, 3, 32, "fp32", 1.0),
     ("fp32 ragged d128 s_kv 777", 1, 1000, 777, 2, 128, "fp32", 1.0),
 )
 
 # --mutants: faults planted in a copy of the kernel sources: (what, file,
-# text, replacement). The forward faults (in attention_common.cuh, the body
-# K1 and K2 share) must be rejected by both forward kernels' bf16 cases; the
-# backward faults (attention_bwd.cuh, the body both backward kernels share)
-# by both backward kernels' bf16 gradient cases.
+# text, replacement, the kernels whose checks must reject it). The text
+# occurs once in its file (tests/test_torch_kernel_sources.py holds it so).
+# A forward fault (attention_common.cuh, the body K1 and K2 share) must be
+# rejected by both forward kernels' bf16 cases, a backward fault
+# (attention_bwd.cuh) by the bf16 gradient cases of each backward kernel it
+# touches.
+FORWARD, BACKWARD = ("attention", "row_attention"), ("attention_dkv", "attention_dq")
 MUTANTS = (
     ("Q read from the next head's columns", "attention_common.cuh",
      "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + col0;",
      "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb +\n"
-     "      ((blockIdx.y + 1) % gridDim.y) * p.head_dim;"),
+     "      ((blockIdx.y + 1) % gridDim.y) * p.head_dim;", FORWARD),
     ("ragged K/V tail unmasked (the zero-padded keys get logit 0)", "attention_common.cuh",
-     "if (col >= p.s_kv) s[nt][e] = -INFINITY;", "(void)col;"),
+     "if (col >= p.s_kv) s[nt][e] = -INFINITY;", "(void)col;", FORWARD),
     ("the fourth K/V tile skipped", "attention_common.cuh",
      "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n",
-     "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n    if (n0 == 3 * kTileN) continue;\n"),
+     "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n    if (n0 == 3 * kTileN) continue;\n",
+     FORWARD),
     ("dS without its -delta term", "attention_bwd.cuh",
-     "  return prob * (dp - delta);", "  return prob * dp;"),
+     "  return prob * (dp - delta);", "  return prob * dp;", BACKWARD),
     ("the LSE of the next head", "attention_bwd.cuh",
      "  return p.lse + ((long long)blockIdx.z * gridDim.y + blockIdx.y) * p.s_q;",
      "  return p.lse + ((long long)blockIdx.z * gridDim.y + (blockIdx.y + 1) % gridDim.y) *\n"
-     "                     p.s_q;"),
+     "                     p.s_q;", BACKWARD),
+    # d = 40 pads to 48: the pad chunk copied (the next head's first 8
+    # columns, except at the last head, whose next columns are another row's)
+    ("the d-pad chunk copied from global memory instead of zero-filled", "attention_bwd.cuh",
+     "col[k] = c * 8 < head_dim ? c * 8 : -1;",
+     "col[k] = c * 8 < head_dim || blockIdx.y + 1 < gridDim.y ? c * 8 : -1;",
+     BACKWARD),
+    ("the transpose bit of the MN-major B dropped in dV += P^T dO", "attention_bwd.cuh",
+     "Wgmma<DN>::template rs<kMnMajor>(&acc1[0][0], pa,  // dV += P^T dO",
+     "Wgmma<DN>::template rs<0>(&acc1[0][0], pa,  // dV += P^T dO", ("attention_dkv",)),
+    ("the ring waiting one stage short (a tile read before its copy lands)", "attention_bwd.cuh",
+     "cp_async_wait<kBwdAhead - 1>();", "cp_async_wait<kBwdAhead>();", BACKWARD),
 )
 
 
@@ -181,17 +211,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def phase_card(torch) -> str:
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_card(torch) -> tuple:
+    """The card's name and power limit, and its maximum SM clock in Hz (the
+    clock of the SFU bound)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this check runs on the card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    clock_hz = float(_smi("clocks.max.sm")) * 1e6
     log(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}; devices {torch.cuda.device_count()}")
+        f"CUDA {torch.version.cuda}; devices {torch.cuda.device_count()}; maximum SM clock "
+        f"{clock_hz / 1e6:.0f} MHz (the exp2 bound's: {SMS * EXP2_PER_SM_CLOCK * clock_hz:.3e} "
+        "per second)")
     log(smi)
-    return smi
+    return smi, clock_hz
 
 
 def phase_build(attn) -> None:
@@ -253,10 +295,18 @@ def _check_cases(torch, attn, fn, cases, gen) -> dict:
     return {"max_abs_err": worst[0], "rel_rms_err": worst[1]}
 
 
-def _bound(flop: float, nbytes: float) -> tuple:
-    """(least time in ms the card could take, what bounds it)."""
-    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def _bound(flop: float, nbytes: float, exps: float, clock_hz: float) -> tuple:
+    """(least time in ms the card could take, what bounds it: "bytes" or
+    "operations", and which: "bytes", "tensor FLOPs" or "exp2")."""
+    times = {"tensor FLOPs": flop / PEAK_BF16_FLOPS * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+             "exp2": exps / (SMS * EXP2_PER_SM_CLOCK * clock_hz) * 1e3}
+    which = max(times, key=times.get)
+    return times[which], "bytes" if which == "bytes" else "operations", which
+
+
+def _sm_clock_note() -> str:
+    """The SM clock right after a timed run (the card holds it for a while)."""
+    return f"SM clock just after: {_smi('clocks.sm')} MHz"
 
 
 def _heads_first(torch, x, h):
@@ -265,7 +315,7 @@ def _heads_first(torch, x, h):
     return x.view(b, s, h, inner // h).transpose(1, 2).contiguous()
 
 
-def phase_kernel(torch, attn) -> dict:
+def phase_kernel(torch, attn, clock_hz: float) -> dict:
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -289,10 +339,11 @@ def phase_kernel(torch, attn) -> dict:
         qh, kh, vh = (_heads_first(torch, x, h) for x in (q, k, v))
         ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=d**-0.5))
         times[("library", b, s, d)] = ms
-        times[("bound", b, s, d)] = _bound(flop, 4 * b * s * h * d * 2)
+        bound = times[("bound", b, s, d)] = _bound(flop, 4 * b * s * h * d * 2, b * h * s * s,
+                                                   clock_hz)
         log(f"[kernel] time (b={b}, s={s}, h={h}, d={d}, bf16): library "
-            f"scaled_dot_product_attention {ms:.4f} ms; bound {times[('bound', b, s, d)][0]:.4f} "
-            f"ms ({times[('bound', b, s, d)][1]})")
+            f"scaled_dot_product_attention {ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[2]}); "
+            f"{_sm_clock_note()}")
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
     result["times"] = times
@@ -348,7 +399,7 @@ def _check_grad_cases(torch, attn, cases, gen) -> dict:
     return result
 
 
-def phase_kernel_grad(torch, attn) -> dict:
+def phase_kernel_grad(torch, attn, clock_hz: float) -> dict:
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -394,11 +445,13 @@ def phase_kernel_grad(torch, attn) -> dict:
         }
         for name, (fn, flop, nbytes) in fns.items():
             ms = _time_ms(torch, fn)
-            bound = _bound(flop, nbytes)
+            # every one of these recomputes or forms P: one exp2 per logit
+            bound = _bound(flop, nbytes, b * h * s * s, clock_hz)
             times[(name, b, s, d)] = ms
             times[("bound " + name, b, s, d)] = bound
             log(f"[kernel-grad] time (b={b}, s={s}, h={h}, d={d}, bf16): {name} {ms:.4f} ms "
-                f"({flop / ms / 1e9:.1f} TFLOP/s); bound {bound[0]:.4f} ms ({bound[1]})")
+                f"({flop / ms / 1e9:.1f} TFLOP/s); bound {bound[0]:.4f} ms ({bound[2]}); "
+                f"{_sm_clock_note()}")
         del fns, q, k, v, dout, lse, out, delta, qh, kh, vh, doh, lib_out
         torch.cuda.empty_cache()
     result["times"] = times
@@ -425,14 +478,13 @@ def phase_kernel_grad(torch, attn) -> dict:
 def phase_mutants(torch, attn) -> None:
     """Build each MUTANTS copy of the kernel sources (in csrc/build/, which
     git ignores) and show that every kernel its fault touches rejects it:
-    both forward kernels' bf16 cases for a forward fault, both backward
-    kernels' bf16 gradient cases for a backward fault. The real sources are
-    loaded again at the end."""
+    the forward kernels' bf16 cases, or the bf16 gradient cases of the
+    backward kernels it names. The real sources are loaded again at the end."""
     original = dict(attn.KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     passed = []
     try:
-        for i, (what, file, old, new) in enumerate(MUTANTS):
+        for i, (what, file, old, new, kernels) in enumerate(MUTANTS):
             src = attn.BUILD_DIR / "mutants" / str(i)
             shutil.rmtree(src, ignore_errors=True)
             shutil.copytree(attn._CSRC, src, ignore=shutil.ignore_patterns("build"))
@@ -444,7 +496,7 @@ def phase_mutants(torch, attn) -> None:
             attn.KERNELS.update({n: (src / path.name, entry) for n, (path, entry) in original.items()})
             attn._built.clear()
             attn.build_kernels()
-            if file == "attention_common.cuh":
+            if kernels == FORWARD:
                 for name, fn, cases in (("attention", attn.attention, K1_CASES),
                                         ("row_attention", attn.row_attention, K2_CASES)):
                     try:
@@ -456,9 +508,9 @@ def phase_mutants(torch, attn) -> None:
             else:
                 result = _check_grad_cases(
                     torch, attn, [c for c in K1_GRAD_CASES if c[6] == "bf16"], gen)
-                for name, entry in result.items():
-                    if entry["failed"]:
-                        log(f"[mutants] {what}: {name} rejected (cases {entry['failed']})")
+                for name in kernels:
+                    if result[name]["failed"]:
+                        log(f"[mutants] {what}: {name} rejected (cases {result[name]['failed']})")
                     else:
                         passed.append(f"{what} ({name})")
                         log(f"[mutants] {what}: {name} PASSED the check")
@@ -1004,7 +1056,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    smi = phase_card(torch)
+    smi, clock_hz = phase_card(torch)
     sys.path.insert(0, str(REPO))
     from riffusion_tpu_torch.ops import attention as attn
     from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
@@ -1017,8 +1069,8 @@ def main(argv=None) -> int:
         log(f"[mutants] every one of {len(MUTANTS)} mutants was rejected by the checks of every "
             "kernel it touches")
         return 0
-    kernel = phase_kernel(torch, attn)
-    grad = phase_kernel_grad(torch, attn)
+    kernel = phase_kernel(torch, attn, clock_hz)
+    grad = phase_kernel_grad(torch, attn, clock_hz)
     phase_dsp(torch)
     phase_tiny(torch, attn)
     phase_tiny_batch(torch, attn)

@@ -1,8 +1,12 @@
 // The backward of K1's attention, O = softmax(Q K^T * scale) V, over packed
 // (b, s, h*d) operands: the two kernel bodies (dK/dV and dQ) that
 // attention_dkv.cu and attention_dq.cu launch, their fp32 instances for
-// checks, and what both share. The helpers of attention_common.cuh (the
-// m16n8k16 product, the staging of packed rows) are reused.
+// checks, and what both share. The Hopper building blocks (cp.async,
+// wgmma and its descriptors) are in hopper.cuh.
+//
+// What they replace: the two Pallas kernels of the custom VJP of jax's TPU
+// flash_attention (jax/experimental/pallas/ops/tpu/flash_attention.py,
+// _flash_attention_bwd_dkv and _flash_attention_bwd_dq).
 //
 // Both kernels recompute the probabilities from the forward's log-sum-exp
 // (attention_common.cuh writes it: natural log, (b, h, s_q) fp32) and take
@@ -14,20 +18,72 @@
 // to bf16 for the products that take them (dV, dK, dQ); every product
 // accumulates in fp32.
 //
-// The split mirrors the TPU kernels' (jax's pallas flash_attention
-// _flash_attention_bwd_dkv and _flash_attention_bwd_dq): the dK/dV kernel owns
-// a K/V tile and loops over Q tiles, the dQ kernel owns a Q tile and loops
-// over K/V tiles, so each output row is written by one block and no atomics
-// are needed. A ragged s_q is masked by an infinite LSE (P = 0) and zero
-// rows; a ragged s_kv by zero rows (dQ) and by not writing past s_kv (dK/dV).
+// The split mirrors the TPU kernels': the dK/dV kernel owns a K/V tile and
+// loops over Q tiles, the dQ kernel owns a Q tile and loops over K/V tiles,
+// so each output row is written by one block, no atomics are needed and the
+// result does not depend on block order. A ragged s_q is masked by an
+// infinite LSE (P = 0) and zero rows; a ragged s_kv by P = 0 (dQ), zero
+// rows, and by not writing past s_kv (dK/dV).
+//
+// What bounds them on this card. dK/dV does four products (S^T, dP^T, dV,
+// dK) and dQ three (S, dP, dQ): 8 and 6 * b*h*s_q*s_kv*d FLOP, 172 and 129
+// GFLOP at the fine-tuning site (4, 4096, 8*40), against some 60 MB of
+// operands: far above the card's ~295 bf16 FLOP/byte ridge, so tensor-core
+// issue bounds them (0.174 and 0.130 ms at 989 TFLOP/s). Each also
+// recomputes P, one exp2 per logit, 537M at that site: at 16 exp2 per clock
+// per SM that is about 0.13 ms, as much as dQ's tensor-core time, so at
+// d = 40 the exponentials bound dQ as well.
+//
+// What the design does about it (attention_bwd_bf16_body):
+// - The products are wgmma m64nNk16 (bf16 in, fp32 accumulators), one
+//   warpgroup per 64 owned rows, two warpgroups per block (128 owned rows,
+//   which halves the re-reads of the streamed operands against 64).
+// - Every tile sits in shared memory once, in wgmma's no-swizzle layout.
+//   The products that reduce over d read the streamed tile K-major; those
+//   that reduce over its rows (dV = P^T dO, dK = dS^T Q, dQ = dS K) read
+//   the same tile MN-major through a second descriptor: no transposed copy.
+//   P and dS go from the accumulators to the next product's register A
+//   operand (the m64nN accumulator layout packed to bf16 pairs is the
+//   m64k16 A fragment).
+// - The streamed tiles (Q, dO and their LSE and delta rows for dK/dV; K, V
+//   for dQ) come through a 3-stage ring of cp.async copies, two tiles
+//   ahead of the one in the products; each tile costs one wait and one
+//   barrier. Which chunks a thread copies is worked out once. d = 40 is
+//   padded to 48 for the reduction by the copies' zero fill; the outputs
+//   stay 40 wide.
+// - S and dP are two wgmma groups: the exponentials of P start when S has
+//   landed, while dP is still in the tensor cores, and dK/dV issues
+//   dV += P^T dO before it forms dS. exp2 is the SFU's ex2.approx.
+// - dQ up to d = 48 fits in 128 registers, so two blocks share an SM and
+//   one block's exponentials overlap the other's products. dK/dV (162
+//   registers at d = 40) runs one block per SM: capped at 128 it spilled
+//   and lost.
+// - dK/dV at d = 128 streams 32-row tiles (its two 64 x 128 fp32
+//   accumulators leave too few registers for 64-wide S^T and dP^T).
+// Tried on the card and dropped: a one-phase skew between the two
+// warpgroups (slower: their exponentials still met), one warpgroup per
+// block (dK/dV slower), 2 or 4 ring stages for 3 (no difference), 32-row
+// streamed tiles with two blocks per SM (no gain). No warp
+// specialisation, TMA or clusters yet.
+//
+// Times on an H100 80GB HBM3 at 700 W (scripts/time_attention_kernels.py,
+// parent / change / change / parent in one call): at (4, 4096, 8*40)
+// dK/dV 0.687-0.733 ms (2.06-2.10 before), dQ 0.456-0.457 ms (1.62), the
+// whole backward with delta 1.18-1.28 ms against the library's 1.00-1.03;
+// at (4, 1024, 8*80) dK/dV 0.112-0.118 ms, dQ 0.090-0.091 ms. That is
+// 234-250 TFLOP/s for dK/dV and 282 for dQ, a quarter of the bf16 peak:
+// the copies' issue and the latency between each warpgroup's products and
+// its exponentials, not the tensor cores or the SFUs, set the pace
+// (PERF.md section 6).
 
 #pragma once
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace riff {
 
-constexpr int kBwdTile = 64;  // rows per block and per streamed tile (bf16)
+constexpr int kBwdTile = 64;  // rows per block and per staged tile (fp32)
 
 struct BwdParams {
   const void* q;
@@ -73,62 +129,14 @@ __device__ __forceinline__ void stage_row_stats(float* s_lse2, float* s_delta, c
   }
 }
 
-// One 16 x 64 fp32 tile of X Y^T for this warp: X is 16 rows of a
-// [rows][DP + 8] bf16 shared-memory array starting at `x`, Y the 64 rows of
-// another such array starting at `y`.
-template <int DP>
-__device__ __forceinline__ void tile_xyt(float (&acc)[kBwdTile / 8][4], const __nv_bfloat16* x,
-                                         const __nv_bfloat16* y, int g, int t) {
-  constexpr int kLd = DP + 8;
-#pragma unroll
-  for (int nt = 0; nt < kBwdTile / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* a = x + g * kLd + kk * 16 + t * 2;
-    const uint32_t af[4] = {
-        *reinterpret_cast<const uint32_t*>(a), *reinterpret_cast<const uint32_t*>(a + 8 * kLd),
-        *reinterpret_cast<const uint32_t*>(a + 8),
-        *reinterpret_cast<const uint32_t*>(a + 8 * kLd + 8)};
-#pragma unroll
-    for (int nt = 0; nt < kBwdTile / 8; ++nt) {
-      const __nv_bfloat16* b = y + (nt * 8 + g) * kLd + kk * 16 + t * 2;
-      mma_16816(acc[nt], af, *reinterpret_cast<const uint32_t*>(b),
-                *reinterpret_cast<const uint32_t*>(b + 8));
-    }
-  }
-}
-
-// acc (16 x DP) += W Z, with W this warp's 16 x 64 fp32 tile (rounded to
-// bf16 here; two adjacent accumulator tiles form one A fragment) and Z a
-// 64 x DP operand stored transposed in shared memory as [DP][64 + 8].
-template <int DP>
-__device__ __forceinline__ void tile_acc_wz(float (&acc)[DP / 8][4],
-                                            const float (&w)[kBwdTile / 8][4],
-                                            const __nv_bfloat16* zt, int g, int t) {
-  constexpr int kLdT = kBwdTile + 8;
-#pragma unroll
-  for (int j = 0; j < kBwdTile / 16; ++j) {
-    const uint32_t wa[4] = {pack_bf16x2(w[2 * j][0], w[2 * j][1]),
-                            pack_bf16x2(w[2 * j][2], w[2 * j][3]),
-                            pack_bf16x2(w[2 * j + 1][0], w[2 * j + 1][1]),
-                            pack_bf16x2(w[2 * j + 1][2], w[2 * j + 1][3])};
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      const __nv_bfloat16* b = zt + (dt * 8 + g) * kLdT + j * 16 + t * 2;
-      mma_16816(acc[dt], wa, *reinterpret_cast<const uint32_t*>(b),
-                *reinterpret_cast<const uint32_t*>(b + 8));
-    }
-  }
-}
-
-// Write this warp's 16 x DP fp32 accumulator (times `mult`) as bf16 rows
+// Write this warp's 16 x DN fp32 accumulator (times `mult`) as bf16 rows
 // r0 and r0 + 8 (this thread's), skipping rows past `nrows`.
-template <int DP>
+template <int DN>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ss,
-                                           const float (&acc)[DP / 8][4], float mult, int r0,
+                                           const float (&acc)[DN / 8][4], float mult, int r0,
                                            int nrows, int head_dim, int t) {
 #pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) {
+  for (int dt = 0; dt < DN / 8; ++dt) {
     if (dt * 8 >= head_dim) break;  // head_dim is a multiple of 8
     const int cc = dt * 8 + t * 2;
     if (r0 < nrows) {
@@ -142,198 +150,323 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ss,
   }
 }
 
-template <int DP>
-constexpr int dkv_smem_bytes() {
-  // K, V, Q, dO as [64][DP + 8]; Q^T and dO^T as [DP][64 + 8]; LSE, delta
-  return (4 * kBwdTile * (DP + 8) + 2 * DP * (kBwdTile + 8)) * 2 + 2 * kBwdTile * 4;
+// Copies of ROWS x DP tiles of one head into shared memory laid out as
+// wgmma's no-swizzle core matrices, column chunk-major: element (r, c) at
+// ((c / 8) * ROWS + r) * 8 + c % 8, so the core matrix of rows 8i.. and
+// columns 8j.. is 128 contiguous bytes at (j * ROWS + 8 * i) * 16. One
+// 16-byte cp.async per (row, 8-column chunk); rows past `nrows` and the
+// chunks past `head_dim` are zero-filled, never read (at d = 40 the pad
+// chunk would be the next head's first 8 columns). Eight consecutive
+// threads take eight consecutive rows of one chunk: one core matrix, no
+// bank conflict. Which chunks a thread copies is the same for every tile,
+// so it is worked out once, here.
+template <int DP, int ROWS, int THREADS>
+struct TileCopies {
+  static constexpr int kChunks = DP / 8;
+  static constexpr int kSlots = (ROWS * kChunks + THREADS - 1) / THREADS;
+  int dst[kSlots];  // element offset in the tile; -1: no chunk in this slot
+  int row[kSlots];
+  int col[kSlots];  // first column in the head; -1: zero-filled
+
+  __device__ __forceinline__ explicit TileCopies(int head_dim) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int idx = threadIdx.x + k * THREADS;
+      const int c = (idx / 8) % kChunks;
+      row[k] = (idx / (8 * kChunks)) * 8 + idx % 8;
+      dst[k] = idx < ROWS * kChunks ? (c * ROWS + row[k]) * 8 : -1;
+      col[k] = c * 8 < head_dim ? c * 8 : -1;
+    }
+  }
+
+  // Rows [r0, r0 + ROWS) of `src` (sequence stride `ss`) into `tile`.
+  __device__ __forceinline__ void copy(__nv_bfloat16* tile, const __nv_bfloat16* src,
+                                       long long ss, int r0, int nrows) const {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (dst[k] < 0) continue;
+      const bool in = col[k] >= 0 && r0 + row[k] < nrows;
+      cp_async_16(tile + dst[k], in ? src + (long long)(r0 + row[k]) * ss + col[k] : src, in);
+    }
+  }
+};
+
+// The LSE (natural log) and delta of query rows [r0, r0 + ROWS) into
+// s_stats[0, ROWS) and [ROWS, 2 * ROWS); zero past s_q.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_row_stats(float* s_stats, const float* lse,
+                                               const float* delta, int r0, int s_q) {
+  for (int i = threadIdx.x; i < 2 * ROWS; i += THREADS) {
+    const int r = i % ROWS;
+    const bool in = r0 + r < s_q;
+    cp_async_4(s_stats + i, (i < ROWS ? lse : delta) + (in ? r0 + r : 0), in);
+  }
 }
 
-// dK/dV, bf16: one block of 4 warps per (64-row K/V tile, head, batch row);
-// each warp owns 16 K/V rows. The block stages its K and V tile once, then
-// loops over 64-row Q tiles: for each it stages Q and dO (and both
-// transposed) with their LSE and delta rows, and each warp forms, for its
-// rows, S^T = K Q^T, P^T, dP^T = V dO^T and dS^T, and accumulates
-// dV += P^T dO and dK += dS^T Q in fp32 registers.
-template <int DP>
-__global__ void __launch_bounds__(128) attention_dkv_bf16_kernel(const BwdParams p) {
-  constexpr int kLd = DP + 8;
-  constexpr int kLdT = kBwdTile + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* s_k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_v = s_k + kBwdTile * kLd;
-  __nv_bfloat16* s_q = s_v + kBwdTile * kLd;
-  __nv_bfloat16* s_do = s_q + kBwdTile * kLd;
-  __nv_bfloat16* s_qt = s_do + kBwdTile * kLd;
-  __nv_bfloat16* s_dot = s_qt + DP * kLdT;
-  float* s_lse2 = reinterpret_cast<float*>(s_dot + DP * kLdT);
-  float* s_delta = s_lse2 + kBwdTile;
+// The bf16 bodies: each block owns kBwdRows rows (two warpgroups of 64) of
+// two operands X0, X1 and streams BN-row tiles of two others, Y0, Y1,
+// through a ring of kBwdStages shared-memory stages:
+//   dK/dV (DKV): X = K, V (the K/V rows it owns), Y = Q, dO;
+//     S^T = K Q^T, dP^T = V dO^T, P^T, dS^T; dV += P^T dO, dK += dS^T Q.
+//   dQ: X = Q, dO, Y = K, V;  S = Q K^T, dP = dO V^T, P, dS;  dQ += dS K.
+// Each warpgroup computes the first two products (64 x BN) with wgmma from
+// shared memory (A = its 64 rows of X, K-major; B = the Y tile, K-major:
+// the reduction runs over d), forms P and dS in the accumulator registers,
+// packs them to bf16 as the register A operand of the output products, and
+// takes the same Y tile again as B through an MN-major descriptor (the
+// reduction runs over Y's rows). Every tile sits in shared memory once.
+// The LSE and delta belong to the query rows: they come with the Q tile,
+// in each ring stage for dK/dV (S^T's columns), with the owned tiles for dQ
+// (S's rows, read into registers).
+constexpr int kBwdGroups = 2;                // warpgroups per block
+constexpr int kBwdRows = 64 * kBwdGroups;    // owned rows per block
+constexpr int kBwdThreads = 128 * kBwdGroups;
+constexpr int kBwdStages = 3;                // ring stages of streamed tiles
+constexpr int kBwdAhead = kBwdStages - 1;    // tiles in flight ahead of the one in use
 
-  const int warp = threadIdx.x / 32;
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// 2^x by the SFU (ex2.approx, relative error about 2^-22), results below
+// fp32's normal range flushed to 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Streamed rows per tile: 64, or 32 where dK/dV's two 64 x d fp32
+// accumulators (d = 128) leave too few registers for 64-wide S^T and dP^T.
+template <bool DKV, int DP>
+__host__ __device__ constexpr int bwd_stream_rows() {
+  return DKV && DP > 112 ? 32 : 64;
+}
+
+// Blocks per SM the registers are capped for: two for dQ up to d = 48
+// (it fits in 128 registers, and two blocks of two warpgroups interleave
+// one's exponentials with the other's products), one elsewhere.
+template <bool DKV, int DP>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return !DKV && DP <= 48 ? 2 : 1;
+}
+
+template <bool DKV, int DP>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  constexpr int kBn = bwd_stream_rows<DKV, DP>();
+  // X0, X1; the ring of Y0, Y1 tiles; the LSE and delta: per stage for
+  // dK/dV, of the owned rows for dQ
+  return 2 * kBwdRows * DP * 2 + kBwdStages * 2 * kBn * DP * 2 +
+         (DKV ? kBwdStages * 2 * kBn * 4 : 2 * kBwdRows * 4);
+}
+
+// DP: d padded to 16 (the reduction of S and dP); DN: d padded to 8 (the
+// width of the output products and their accumulators).
+template <bool DKV, int DP, int DN>
+__device__ __forceinline__ void attention_bwd_bf16_body(const BwdParams& p) {
+  constexpr int kBn = bwd_stream_rows<DKV, DP>();
+  constexpr int kStageElems = 2 * kBn * DP;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* s_x0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_x1 = s_x0 + kBwdRows * DP;
+  __nv_bfloat16* s_ring = s_x1 + kBwdRows * DP;
+  float* s_stats = reinterpret_cast<float*>(s_ring + kBwdStages * kStageElems);
+
+  const int group = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int n0 = blockIdx.x * kBwdTile;
+  const int own0 = blockIdx.x * kBwdRows;
   const long long col0 = (long long)blockIdx.y * p.head_dim;
   const int batch = blockIdx.z;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + col0;
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + batch * p.k_sb + col0;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + batch * p.v_sb + col0;
   const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + batch * p.do_sb + col0;
+  const __nv_bfloat16* x0 = DKV ? k : q;
+  const __nv_bfloat16* x1 = DKV ? v : dout;
+  const __nv_bfloat16* y0 = DKV ? q : k;
+  const __nv_bfloat16* y1 = DKV ? dout : v;
+  const long long x0_ss = DKV ? p.k_ss : p.q_ss, x1_ss = DKV ? p.v_ss : p.do_ss;
+  const long long y0_ss = DKV ? p.q_ss : p.k_ss, y1_ss = DKV ? p.do_ss : p.v_ss;
+  const int own_n = DKV ? p.s_kv : p.s_q;
+  const int stream_n = DKV ? p.s_q : p.s_kv;
+  const int ntiles = (stream_n + kBn - 1) / kBn;
   const float* lse = lse_rows(p);
   const float* delta = delta_rows(p);
   const float c = p.scale_log2;
 
-  stage_rows<DP, kBwdTile, 128>(s_k, k, p.k_ss, n0, p.s_kv, p.head_dim);
-  stage_rows<DP, kBwdTile, 128>(s_v, v, p.v_ss, n0, p.s_kv, p.head_dim);
-
-  float dk[DP / 8][4], dv[DP / 8][4];
-#pragma unroll
-  for (int i = 0; i < DP / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
+  const TileCopies<DP, kBn, kBwdThreads> stream_copies(p.head_dim);
+  auto load_stage = [&](int tile) {
+    __nv_bfloat16* y = s_ring + (tile % kBwdStages) * kStageElems;
+    stream_copies.copy(y, y0, y0_ss, tile * kBn, stream_n);
+    stream_copies.copy(y + kBn * DP, y1, y1_ss, tile * kBn, stream_n);
+    if constexpr (DKV) {
+      load_row_stats<kBn, kBwdThreads>(s_stats + (tile % kBwdStages) * 2 * kBn, lse, delta,
+                                       tile * kBn, stream_n);
+    }
+  };
+  // The owned tiles (and for dQ their rows' LSE and delta) land with the
+  // first streamed tile (copy group 0).
+  {
+    const TileCopies<DP, kBwdRows, kBwdThreads> own_copies(p.head_dim);
+    own_copies.copy(s_x0, x0, x0_ss, own0, own_n);
+    own_copies.copy(s_x1, x1, x1_ss, own0, own_n);
+    if constexpr (!DKV) load_row_stats<kBwdRows, kBwdThreads>(s_stats, lse, delta, own0, p.s_q);
   }
-  const __nv_bfloat16* k_rows = s_k + warp * 16 * kLd;
-  const __nv_bfloat16* v_rows = s_v + warp * 16 * kLd;
-
-  for (int m0 = 0; m0 < p.s_q; m0 += kBwdTile) {
-    stage_rows<DP, kBwdTile, 128>(s_q, q, p.q_ss, m0, p.s_q, p.head_dim);
-    stage_rows<DP, kBwdTile, 128>(s_do, dout, p.do_ss, m0, p.s_q, p.head_dim);
-    stage_rows_transposed<DP, kBwdTile, 128>(s_qt, q, p.q_ss, m0, p.s_q, p.head_dim);
-    stage_rows_transposed<DP, kBwdTile, 128>(s_dot, dout, p.do_ss, m0, p.s_q, p.head_dim);
-    stage_row_stats<kBwdTile>(s_lse2, s_delta, lse, delta, m0, p.s_q);
-    __syncthreads();
-
-    // Rows are this warp's K/V rows, columns the tile's 64 query rows.
-    float pt[kBwdTile / 8][4], dst[kBwdTile / 8][4];
-    tile_xyt<DP>(pt, k_rows, s_q, g, t);    // S^T
-    tile_xyt<DP>(dst, v_rows, s_do, g, t);  // dP^T
 #pragma unroll
-    for (int nt = 0; nt < kBwdTile / 8; ++nt) {
+  for (int s = 0; s < kBwdAhead; ++s) {
+    if (s < ntiles) load_stage(s);
+    cp_async_commit();
+  }
+
+  float acc0[DN / 8][4], acc1[DN / 8][4];  // dK and dV, or dQ
+#pragma unroll
+  for (int i = 0; i < DN / 8; ++i) {
+    acc0[i][0] = acc0[i][1] = acc0[i][2] = acc0[i][3] = 0.f;
+    acc1[i][0] = acc1[i][1] = acc1[i][2] = acc1[i][3] = 0.f;
+  }
+  // This warpgroup's 64 rows of X0 and X1, K-major.
+  const uint64_t a0 = smem_desc(s_x0 + group * 64 * 8, kBwdRows * 16, 128);
+  const uint64_t a1 = smem_desc(s_x1 + group * 64 * 8, kBwdRows * 16, 128);
+  float s[kBn / 8][4], dp[kBn / 8][4];  // S (S^T) and dP (dP^T), 64 x kBn
+  // dQ: LSE * log2(e) and delta of this thread's two query rows.
+  float row_lse2[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+
+  // P into s. Element e of n-tile j is row g (+ 8 for e >= 2) of the
+  // warp's 16 and column j * 8 + 2t (+ 1 for odd e). Only the last tile
+  // can be ragged.
+  auto probabilities = [&](auto ragged, int n0, const float* st) {
+#pragma unroll
+    for (int j = 0; j < kBn / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t * 2 + (e & 1);
-        pt[nt][e] = exp2f(fmaf(pt[nt][e], c, -s_lse2[col]));
-        dst[nt][e] = grad_logit(pt[nt][e], dst[nt][e], s_delta[col]);
+        const int col = j * 8 + t * 2 + (e & 1);
+        const bool in = !decltype(ragged)::value || n0 + col < stream_n;
+        if constexpr (DKV) {  // the column is a query row
+          const float lse2 = in ? st[col] * kLog2e : INFINITY;
+          s[j][e] = exp2_approx(fmaf(s[j][e], c, -lse2));
+        } else {  // the column is a K/V row
+          s[j][e] = in ? exp2_approx(fmaf(s[j][e], c, -row_lse2[e >> 1])) : 0.f;
+        }
       }
     }
-    tile_acc_wz<DP>(dv, pt, s_dot, g, t);   // dV += P^T dO
-    tile_acc_wz<DP>(dk, dst, s_qt, g, t);   // dK += dS^T Q
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    // Tile it has landed (the owned tiles with the first); every thread is
+    // done with tile it - 1, whose stage takes tile it + kBwdAhead.
+    cp_async_wait<kBwdAhead - 1>();
+    fence_proxy_async();
     __syncthreads();
+    if (it + kBwdAhead < ntiles) load_stage(it + kBwdAhead);
+    cp_async_commit();
+
+    const int stage = it % kBwdStages;
+    const __nv_bfloat16* s_y0 = s_ring + stage * kStageElems;
+    const __nv_bfloat16* s_y1 = s_y0 + kBn * DP;
+    const float* st = s_stats + stage * 2 * kBn;
+    const int n0 = it * kBn;
+    if constexpr (!DKV) {  // the owned rows' statistics have landed
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = group * 64 + warp * 16 + g + 8 * r;
+        row_lse2[r] = own0 + row < p.s_q ? s_stats[row] * kLog2e : INFINITY;
+        row_delta[r] = s_stats[kBwdRows + row];
+      }
+    }
+    // S and dP, as two wgmma groups: the exponentials of P start when S
+    // has landed, while dP is in the tensor cores.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      Wgmma<kBn>::ss(&s[0][0], desc_advance(a0, kk * 2 * kBwdRows * 16),
+                     smem_desc(s_y0 + kk * 2 * kBn * 8, kBn * 16, 128), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      Wgmma<kBn>::ss(&dp[0][0], desc_advance(a1, kk * 2 * kBwdRows * 16),
+                     smem_desc(s_y1 + kk * 2 * kBn * 8, kBn * 16, 128), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    if (n0 + kBn <= stream_n) {
+      probabilities(Flag<false>(), n0, st);
+    } else {
+      probabilities(Flag<true>(), n0, st);
+    }
+
+    // The output products take P or dS in bf16 as their register A operand
+    // (two adjacent accumulator n-tiles are one k16 fragment) and the
+    // stage's Y1 or Y0 rows kk * 16.. as B, read MN-major. dK/dV issues
+    // dV += P^T dO before it forms dS.
+    if constexpr (DKV) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBn / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        Wgmma<DN>::template rs<kMnMajor>(&acc1[0][0], pa,  // dV += P^T dO
+                                         smem_desc(s_y1 + kk * 16 * 8, 128, kBn * 16));
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<DKV ? 1 : 0>();  // dP has landed
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < kBn / 8; ++j) {  // dS into dp
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dl = DKV ? st[kBn + j * 8 + t * 2 + (e & 1)] : row_delta[e >> 1];
+        dp[j][e] = grad_logit(s[j][e], dp[j][e], dl);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBn / 16; ++kk) {  // dK += dS^T Q, or dQ += dS K
+      const uint32_t dsa[4] = {
+          pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]),
+          pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+          pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      Wgmma<DN>::template rs<kMnMajor>(&acc0[0][0], dsa,
+                                       smem_desc(s_y0 + kk * 16 * 8, 128, kBn * 16));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage is done with
+    fence_regs(acc0);
+    fence_regs(acc1);
   }
 
-  const int row = n0 + warp * 16 + g;
+  const int row = own0 + group * 64 + warp * 16 + g;
   const long long out_off = batch * p.g_sb + col0;
-  store_rows<DP>(static_cast<__nv_bfloat16*>(p.g0) + out_off, p.g_ss, dk, p.scale, row, p.s_kv,
+  store_rows<DN>(static_cast<__nv_bfloat16*>(p.g0) + out_off, p.g_ss, acc0, p.scale, row, own_n,
                  p.head_dim, t);
-  store_rows<DP>(static_cast<__nv_bfloat16*>(p.g1) + out_off, p.g_ss, dv, 1.f, row, p.s_kv,
-                 p.head_dim, t);
+  if constexpr (DKV) {
+    store_rows<DN>(static_cast<__nv_bfloat16*>(p.g1) + out_off, p.g_ss, acc1, 1.f, row, own_n,
+                   p.head_dim, t);
+  }
 }
 
-template <int DP>
-constexpr int dq_smem_bytes() {
-  // K, V as [64][DP + 8] (Q and dO pass through them first); K^T as
-  // [DP][64 + 8]
-  return (2 * kBwdTile * (DP + 8) + DP * (kBwdTile + 8)) * 2;
+// dK/dV, bf16: one block of two warpgroups per (128-row K/V tile, head,
+// batch row), looping over Q tiles; writes dK (times the scale) and dV.
+template <int DP, int DN>
+__global__ void __launch_bounds__(kBwdThreads, bwd_min_blocks<true, DP>())
+    attention_dkv_bf16_kernel(const BwdParams p) {
+  attention_bwd_bf16_body<true, DP, DN>(p);
 }
 
-// dQ, bf16: one block of 4 warps per (64-row Q tile, head, batch row); each
-// warp owns 16 query rows and keeps their Q and dO as mma A fragments in
-// registers, with their LSE and delta. The block loops over 64-row K/V
-// tiles: S = Q K^T, P, dP = dO V^T, dS, and dQ += dS K.
-template <int DP>
-__global__ void __launch_bounds__(128) attention_dq_bf16_kernel(const BwdParams p) {
-  constexpr int kLd = DP + 8;
-  constexpr int kLdT = kBwdTile + 8;
-  constexpr int kKSteps = DP / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* s_k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_v = s_k + kBwdTile * kLd;
-  __nv_bfloat16* s_kt = s_v + kBwdTile * kLd;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.x * kBwdTile;
-  const long long col0 = (long long)blockIdx.y * p.head_dim;
-  const int batch = blockIdx.z;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + col0;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + batch * p.k_sb + col0;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + batch * p.v_sb + col0;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + batch * p.do_sb + col0;
-  const float c = p.scale_log2;
-
-  // Q and dO rows -> shared memory (the K and V buffers) -> A fragments.
-  stage_rows<DP, kBwdTile, 128>(s_k, q, p.q_ss, m0, p.s_q, p.head_dim);
-  stage_rows<DP, kBwdTile, 128>(s_v, dout, p.do_ss, m0, p.s_q, p.head_dim);
-  __syncthreads();
-  uint32_t qa[kKSteps][4], da[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    const int off = (warp * 16 + g) * kLd + kk * 16 + t * 2;
-    const __nv_bfloat16* a = s_k + off;
-    const __nv_bfloat16* b = s_v + off;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(a);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(a + 8 * kLd);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(a + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(a + 8 * kLd + 8);
-    da[kk][0] = *reinterpret_cast<const uint32_t*>(b);
-    da[kk][1] = *reinterpret_cast<const uint32_t*>(b + 8 * kLd);
-    da[kk][2] = *reinterpret_cast<const uint32_t*>(b + 8);
-    da[kk][3] = *reinterpret_cast<const uint32_t*>(b + 8 * kLd + 8);
-  }
-  __syncthreads();
-
-  // This thread's two query rows: g and g + 8 of the warp's 16.
-  const int row = m0 + warp * 16 + g;
-  const float* lse = lse_rows(p);
-  const float* delta = delta_rows(p);
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = row + 8 * r < p.s_q;
-    lse2[r] = in ? lse[row + 8 * r] * kLog2e : INFINITY;
-    dl[r] = in ? delta[row + 8 * r] : 0.f;
-  }
-
-  float dq[DP / 8][4];
-#pragma unroll
-  for (int i = 0; i < DP / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int n0 = 0; n0 < p.s_kv; n0 += kBwdTile) {
-    stage_rows<DP, kBwdTile, 128>(s_k, k, p.k_ss, n0, p.s_kv, p.head_dim);
-    stage_rows<DP, kBwdTile, 128>(s_v, v, p.v_ss, n0, p.s_kv, p.head_dim);
-    stage_rows_transposed<DP, kBwdTile, 128>(s_kt, k, p.k_ss, n0, p.s_kv, p.head_dim);
-    __syncthreads();
-
-    float s[kBwdTile / 8][4], ds[kBwdTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBwdTile / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      ds[nt][0] = ds[nt][1] = ds[nt][2] = ds[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const __nv_bfloat16* kb = s_k + (nt * 8 + g) * kLd + kk * 16 + t * 2;
-        const __nv_bfloat16* vb = s_v + (nt * 8 + g) * kLd + kk * 16 + t * 2;
-        mma_16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kb),
-                  *reinterpret_cast<const uint32_t*>(kb + 8));
-        mma_16816(ds[nt], da[kk], *reinterpret_cast<const uint32_t*>(vb),
-                  *reinterpret_cast<const uint32_t*>(vb + 8));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool in = n0 + nt * 8 + t * 2 + (e & 1) < p.s_kv;
-        const float prob = in ? exp2f(fmaf(s[nt][e], c, -lse2[r])) : 0.f;
-        ds[nt][e] = grad_logit(prob, ds[nt][e], dl[r]);
-      }
-    }
-    tile_acc_wz<DP>(dq, ds, s_kt, g, t);  // dQ += dS K
-    __syncthreads();
-  }
-
-  store_rows<DP>(static_cast<__nv_bfloat16*>(p.g0) + batch * p.g_sb + col0, p.g_ss, dq, p.scale,
-                 row, p.s_q, p.head_dim, t);
+// dQ, bf16: one block of two warpgroups per (128-row Q tile, head, batch
+// row), looping over K/V tiles; writes dQ (times the scale).
+template <int DP, int DN>
+__global__ void __launch_bounds__(kBwdThreads, bwd_min_blocks<false, DP>())
+    attention_dq_bf16_kernel(const BwdParams p) {
+  attention_bwd_bf16_body<false, DP, DN>(p);
 }
 
 // fp32 dK/dV: one thread per K/V row (ROWS per block), 32-row Q tiles
@@ -467,13 +600,13 @@ __global__ void __launch_bounds__(ROWS) attention_dq_f32_kernel(const BwdParams 
 
 enum class BwdKernel { kDkv, kDq };
 
-template <BwdKernel KIND, int DP>
+template <BwdKernel KIND, int DP, int DN>
 cudaError_t launch_bwd(const BwdParams& p, int dtype, int batch, int num_heads,
                        cudaStream_t stream) {
   constexpr bool kDkv = KIND == BwdKernel::kDkv;
   const int rows = kDkv ? p.s_kv : p.s_q;
-  const dim3 grid((rows + kBwdTile - 1) / kBwdTile, num_heads, batch);
   if (dtype == 1) {
+    const dim3 grid((rows + kBwdTile - 1) / kBwdTile, num_heads, batch);
     if constexpr (kDkv) {
       attention_dkv_f32_kernel<DP, kBwdTile><<<grid, kBwdTile, 0, stream>>>(p);
     } else {
@@ -482,19 +615,18 @@ cudaError_t launch_bwd(const BwdParams& p, int dtype, int batch, int num_heads,
     return cudaGetLastError();
   }
   // above 48 KB a block's dynamic shared memory must be asked for
+  constexpr int smem = bwd_smem_bytes<kDkv, DP>();
+  void (*kernel)(const BwdParams);
   if constexpr (kDkv) {
-    constexpr int smem = dkv_smem_bytes<DP>();
-    const cudaError_t set = cudaFuncSetAttribute(
-        attention_dkv_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (set != cudaSuccess) return set;
-    attention_dkv_bf16_kernel<DP><<<grid, 128, smem, stream>>>(p);
+    kernel = attention_dkv_bf16_kernel<DP, DN>;
   } else {
-    constexpr int smem = dq_smem_bytes<DP>();
-    const cudaError_t set = cudaFuncSetAttribute(
-        attention_dq_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (set != cudaSuccess) return set;
-    attention_dq_bf16_kernel<DP><<<grid, 128, smem, stream>>>(p);
+    kernel = attention_dq_bf16_kernel<DP, DN>;
   }
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return set;
+  const dim3 grid((rows + kBwdRows - 1) / kBwdRows, num_heads, batch);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -523,14 +655,16 @@ int attention_backward(const void* q, const void* k, const void* v, const void* 
   if (set != cudaSuccess) return (int)set;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((head_dim + 15) / 16 * 16) {
-    case 16: return (int)launch_bwd<KIND, 16>(p, dtype, batch, num_heads, st);
-    case 32: return (int)launch_bwd<KIND, 32>(p, dtype, batch, num_heads, st);
-    case 48: return (int)launch_bwd<KIND, 48>(p, dtype, batch, num_heads, st);
-    case 64: return (int)launch_bwd<KIND, 64>(p, dtype, batch, num_heads, st);
-    case 80: return (int)launch_bwd<KIND, 80>(p, dtype, batch, num_heads, st);
-    case 96: return (int)launch_bwd<KIND, 96>(p, dtype, batch, num_heads, st);
-    case 112: return (int)launch_bwd<KIND, 112>(p, dtype, batch, num_heads, st);
-    case 128: return (int)launch_bwd<KIND, 128>(p, dtype, batch, num_heads, st);
+    case 16: return (int)launch_bwd<KIND, 16, 16>(p, dtype, batch, num_heads, st);
+    case 32: return (int)launch_bwd<KIND, 32, 32>(p, dtype, batch, num_heads, st);
+    case 48:  // d = 40 (the fine-tuning path's seq-4096 sites) keeps 40-wide outputs
+      return head_dim == 40 ? (int)launch_bwd<KIND, 48, 40>(p, dtype, batch, num_heads, st)
+                            : (int)launch_bwd<KIND, 48, 48>(p, dtype, batch, num_heads, st);
+    case 64: return (int)launch_bwd<KIND, 64, 64>(p, dtype, batch, num_heads, st);
+    case 80: return (int)launch_bwd<KIND, 80, 80>(p, dtype, batch, num_heads, st);
+    case 96: return (int)launch_bwd<KIND, 96, 96>(p, dtype, batch, num_heads, st);
+    case 112: return (int)launch_bwd<KIND, 112, 112>(p, dtype, batch, num_heads, st);
+    case 128: return (int)launch_bwd<KIND, 128, 128>(p, dtype, batch, num_heads, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,21 +14,20 @@
 // What bounds it on this card. It recomputes S = Q K^T and forms dP = dO V^T
 // (the forward's work twice over) and adds dV = P^T dO and dK = dS^T Q: four
 // products, 8*b*h*s*s*d FLOP, 172 GFLOP at the fine-tuning site
-// (4, 4096, 8*40), against about 64 MB of operands and outputs: about 2700
-// FLOP per byte, far above the card's ~295 bf16 FLOP/byte ridge. Like the
-// forward, it is bound by tensor-core issue, not by memory.
+// (4, 4096, 8*40), against about 64 MB of operands and outputs: far above
+// the card's ~295 bf16 FLOP/byte ridge, so tensor-core issue bounds it, and
+// beside it the one exp2 per logit (537M there, about 0.13 ms of the SFUs).
 //
-// What the design does about it (attention_bwd.cuh holds the body). One
-// block of 4 warps per (64-row K/V tile, head, batch row): the K and V tile
-// is staged once in shared memory and each warp owns 16 of its rows; 64-row
-// Q and dO tiles stream through shared memory (each also transposed, so that
-// the products that reduce over query rows read their B fragments as one
-// 32-bit load), with the rows' LSE and delta. All four products are
-// mma.sync m16n8k16 bf16 with fp32 accumulation, P and dS rounded to bf16
-// for theirs; dK and dV stay in registers until the end, so each output row
-// is written once, by one block, and no atomics are needed. The scale is
-// applied once, on dK. wgmma, TMA and a pipelined ring are later work: this
-// version stages a tile, synchronizes, and computes.
+// What the design does about it (attention_bwd.cuh holds the body and says
+// more). One block of two warpgroups per (128-row K/V tile, head, batch
+// row): the K and V tile is copied once into shared memory, and 64-row Q and
+// dO tiles with their LSE and delta rows stream through a 4-stage cp.async
+// ring. S^T and dP^T are wgmma products from shared memory; P^T and dS^T go
+// from the accumulators, rounded to bf16, into the register A operand of
+// dV += P^T dO and dK += dS^T Q, which read the same Q and dO tiles MN-major
+// (no transposed copy). dK and dV stay in registers until the end, so each
+// output row is written once, by one block, and no atomics are needed. The
+// scale is applied once, on dK.
 //
 // An fp32 instance (one thread per K/V row, plain FMAs) exists so the kernel
 // can be held against its plain version at fp32 tolerance.

@@ -13,16 +13,19 @@
 // What bounds it on this card. It recomputes S = Q K^T, forms dP = dO V^T
 // and adds dQ = dS K: three products, 6*b*h*s*s*d FLOP, 129 GFLOP at the
 // fine-tuning site (4, 4096, 8*40), against about 53 MB of operands and
-// output: bound by tensor-core issue, not by memory.
+// output: bound by tensor-core issue and, as much, by the one exp2 per logit
+// (537M there, about 0.13 ms of the SFUs).
 //
-// What the design does about it (attention_bwd.cuh holds the body). One
-// block of 4 warps per (64-row Q tile, head, batch row); each warp keeps its
-// 16 rows of Q and dO as mma A fragments in registers with their LSE and
-// delta, and 64-row K and V tiles (K also transposed) stream through shared
-// memory. The products are mma.sync m16n8k16 bf16 with fp32 accumulation,
-// dS rounded to bf16 for dS K; dQ stays in registers and is written once,
-// scaled, by its block: recomputing S here instead of sharing dS with the
-// dK/dV kernel is what keeps both free of atomics, as the TPU's split does.
+// What the design does about it (attention_bwd.cuh holds the body and says
+// more). One block of two warpgroups per (128-row Q tile, head, batch row):
+// Q and dO are copied once into shared memory with the rows' LSE and delta
+// in registers, and 64-row K and V tiles stream through a 4-stage cp.async
+// ring. S and dP are wgmma products from shared memory; dS goes from the
+// accumulators, rounded to bf16, into the register A operand of dQ += dS K,
+// which reads the same K tile MN-major (no transposed copy). dQ stays in
+// registers and is written once, scaled, by its block: recomputing S here
+// instead of sharing dS with the dK/dV kernel is what keeps both free of
+// atomics, as the TPU's split does.
 //
 // An fp32 instance (one thread per query row, plain FMAs) exists so the
 // kernel can be held against its plain version at fp32 tolerance.

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """
-Time the port's forward attention kernels at the serving paths' shapes on a
-CUDA card, for one checkout of the repository:
+Time the port's attention kernels at the paths' shapes on a CUDA card, for
+one checkout of the repository:
 
     python3 scripts/time_attention_kernels.py [--repo DIR] [--label NAME]
 
-K1 (`ops.attention.attention`) at (2, 4096, 8*40) and (2, 1024, 8*80) bf16,
-the single-clip path's sites, and K2 (`row_attention`) and K1 at
-(32, 4096, 8*40), the batched path's: the median of 20 single calls each
+The forward: K1 (`ops.attention.attention`) at (2, 4096, 8*40) and
+(2, 1024, 8*80) bf16, the single-clip path's sites, and K2
+(`row_attention`) and K1 at (32, 4096, 8*40), the batched path's. The
+backward, at the fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80):
+the dK/dV and dQ kernels alone, the port's whole `attention_backward`
+(delta, then both kernels: the row to hold against the library), and the
+library's backward (torch's scaled_dot_product_attention through autograd,
+a yardstick the port never calls). Each is the median of 20 single calls
 (CUDA events, after 3 warm-up calls), the kernels built from DIR's sources.
 `--repo` names the checkout whose riffusion_tpu_torch is imported (default:
 this one), so that two versions are compared in one process each on the
 same card: unpack the other into a directory .gitignore lists and run
 parent, change, change, parent. Prints one JSON line with the card's name
-and power limit.
+and power limit, each time in ms and each backward time's TFLOP/s (8, 6,
+14 and 10 * b*h*s*s*d FLOP: the kernels' products, and the library's five).
 """
 
 from __future__ import annotations
@@ -31,6 +37,23 @@ SHAPES = (  # (kernel, batch, seq, heads, head_dim)
     ("attention", 32, 4096, 8, 40),
     ("row_attention", 32, 4096, 8, 40),
 )
+TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # (batch, seq, heads, head_dim)
+BACKWARD_FLOP = {"attention_dkv": 8, "attention_dq": 6, "attention_backward": 14,
+                 "library backward": 10}  # times b*h*s*s*d
+
+
+def _median_ms(torch, fn) -> float:
+    for _ in range(3):
+        fn()
+    samples = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
 
 
 def main() -> int:
@@ -47,28 +70,46 @@ def main() -> int:
     from riffusion_tpu_torch.ops import attention as attn
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    attn.build_kernels(("attention", "row_attention"))
+    attn.build_kernels()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    times = {}
+    times, tflops = {}, {}
     for name, b, s, h, d in SHAPES:
         q, k, v = (torch.randn(b, s, h * d, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         fn = getattr(attn, name)
-        for _ in range(3):
-            fn(q, k, v, num_heads=h, scale=d**-0.5)
-        samples = []
-        for _ in range(20):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(q, k, v, num_heads=h, scale=d**-0.5)
-            end.record()
-            end.synchronize()
-            samples.append(start.elapsed_time(end))
-        times[f"{name} ({b}, {s}, {h}*{d})"] = statistics.median(samples)
+        times[f"{name} ({b}, {s}, {h}*{d})"] = _median_ms(
+            torch, lambda: fn(q, k, v, num_heads=h, scale=d**-0.5))
+    for b, s, h, d in TRAIN_SHAPES:
+        scale = d**-0.5
+        q, k, v, dout = (torch.randn(b, s, h * d, generator=gen, device=dev).to(torch.bfloat16)
+                         for _ in range(4))
+        lse = torch.empty(b, h, s, device=dev)
+        out = attn._launch("attention", q, k, v, h, scale, lse=lse)
+        delta = attn.backward_delta(out, dout, h)
+        qh, kh, vh, doh = (x.view(b, s, h, d).transpose(1, 2).contiguous().requires_grad_()
+                           for x in (q, k, v, dout))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        fns = {
+            "attention_dkv": lambda: attn._launch_backward("attention_dkv", q, k, v, dout, lse,
+                                                           delta, h, scale),
+            "attention_dq": lambda: attn._launch_backward("attention_dq", q, k, v, dout, lse,
+                                                          delta, h, scale),
+            "attention_backward": lambda: attn.attention_backward(q, k, v, out, dout, lse,
+                                                                  num_heads=h, scale=scale),
+            "library backward": lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                                            retain_graph=True),
+        }
+        for name, fn in fns.items():
+            key = f"{name} ({b}, {s}, {h}*{d})"
+            times[key] = _median_ms(torch, fn)
+            tflops[key] = BACKWARD_FLOP[name] * b * h * s * s * d / times[key] / 1e9
+        del q, k, v, dout, lse, out, delta, qh, kh, vh, doh, lib_out, fns
+        torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"label": args.label, "repo": args.repo, "card": card, "ms": times}))
+    print(json.dumps({"label": args.label, "repo": args.repo, "card": card, "ms": times,
+                      "tflops": tflops}))
     return 0
 
 

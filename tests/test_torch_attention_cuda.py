@@ -182,7 +182,12 @@ def _grad_case(dev, b, s_q, s_kv, h, d, dtype, mult=1.0, seed=4):
 
 
 # Each case is held to ops.attention.GRAD_TOLERANCE for each of dQ, dK, dV
-# (tests/test_torch_attention_grad.py derives it and plants faults).
+# (tests/test_torch_attention_grad.py derives it and plants faults). The
+# bf16 kernels own 128 rows per block and stream 64-row tiles (32 for dK/dV
+# at d = 128): s_q and s_kv of 129, 191 and 65 leave a ragged owned tile
+# and a ragged streamed tile; s = 64 is one streamed tile, read as soon as
+# its copies land. One bf16 case per head-dim instance (16, 32, 40 and 48 in
+# the 48 bucket, 64, 80, 96, 112, 128).
 @pytest.mark.parametrize(
     "b,s_q,s_kv,h,d,dtype,mult",
     [
@@ -193,9 +198,20 @@ def _grad_case(dev, b, s_q, s_kv, h, d, dtype, mult=1.0, seed=4):
         (1, 1024, 1024, 2, 40, torch.bfloat16, 4.0),
         (2, 300, 300, 3, 32, torch.float32, 1.0),
         (1, 1000, 777, 2, 128, torch.float32, 1.0),
+        (2, 129, 191, 2, 40, torch.bfloat16, 1.0),
+        (2, 191, 129, 2, 80, torch.bfloat16, 1.0),
+        (1, 191, 129, 2, 128, torch.bfloat16, 1.0),
+        (2, 129, 65, 3, 8, torch.bfloat16, 1.0),
+        (1, 300, 257, 2, 32, torch.bfloat16, 1.0),
+        (1, 257, 300, 2, 48, torch.bfloat16, 1.0),
+        (1, 333, 200, 2, 64, torch.bfloat16, 1.0),
+        (1, 200, 333, 2, 96, torch.bfloat16, 1.0),
+        (1, 129, 191, 2, 112, torch.bfloat16, 1.0),
+        (16, 64, 64, 8, 40, torch.bfloat16, 1.0),
     ],
     ids=["train-d40", "train-d80", "ragged-d128", "ragged-d16", "large-logits", "f32-d32",
-         "f32-ragged-d128"],
+         "f32-ragged-d128", "edges-d40", "edges-d80", "edges-d128", "edges-d8", "d32", "d48",
+         "d64", "d96", "d112", "one-tile"],
 )
 def test_backward_kernels_match_plain(cuda_device, b, s_q, s_kv, h, d, dtype, mult):
     q, k, v, dout = _grad_case(cuda_device, b, s_q, s_kv, h, d, dtype, mult)
