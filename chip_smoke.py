@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    clock of the exp2 bound; nvidia-smi); no CUDA device fails.
 2. build: nvcc builds csrc/attention.cu (K1), csrc/row_attention.cu (K2),
    csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward) from this
-   checkout, all at once; prints each build's seconds and ptxas register
-   lines.
+   checkout, all at once; prints each build's seconds and each instance's
+   ptxas registers and spills.
 3. kernel: each forward kernel against its plain PyTorch version on the
    card, held to ops.attention.TOLERANCE: max abs error (bf16 2e-2, fp32
    with TF32 off 1e-4) and error RMS over output RMS (bf16 6e-3, fp32
@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (32, 1024, 8*80), (16, 1024, 8*80) and (8, 4096, 8*40), ragged lengths,
    other head dims and large logits; K2 at the batched path's
    (32, 4096, 8*40), (9, 2048, 8*40), a ragged (10, 1000, 2*16), large
-   logits and fp32 (10, 2048, 2*16). Times (CUDA events, median of 20) K1,
+   logits, its bf16 body's tile edges (s_q 129, s_kv 191), one K/V tile
+   (s = 64), d = 24 and fp32 (10, 2048, 2*16). Times (CUDA events, median of 20) K1,
    plain and torch's scaled_dot_product_attention (the library yardstick,
    never called by the port) at the two single-path shapes, and K2, K1,
    plain and the library at (32, 4096, 8*40) bf16, before any model is
@@ -150,6 +151,13 @@ K2_CASES = (
     ("b9 s2048 d40", 9, 2048, 2048, 8, 40, "bf16", 1.0),
     ("ragged d16", 10, 1000, 1000, 2, 16, "bf16", 1.0),
     ("large logits d40", 9, 1024, 1024, 2, 40, "bf16", 8.0),
+    # tile edges of the bf16 body (128 query rows a block, 64-row K/V tiles)
+    ("tile edges d40 s_q 129 s_kv 191", 2, 129, 191, 2, 40, "bf16", 1.0),
+    # one K/V tile: its products follow its copies at once (a ring that does
+    # not wait for them reads shared memory before they land)
+    ("one tile d40 s 64", 16, 64, 64, 8, 40, "bf16", 1.0),
+    # d = 24 pads to 32 for both products; the output's pad is not written
+    ("d24 s_q 300 s_kv 257", 3, 300, 257, 2, 24, "bf16", 1.0),
     ("fp32 d16", 10, 2048, 2048, 2, 16, "fp32", 1.0),
 )
 
@@ -171,22 +179,22 @@ K1_GRAD_CASES = (
 # --mutants: faults planted in a copy of the kernel sources: (what, file,
 # text, replacement, the kernels whose checks must reject it). The text
 # occurs once in its file (tests/test_torch_kernel_sources.py holds it so).
-# A forward fault (attention_common.cuh, the body K1 and K2 share) must be
-# rejected by both forward kernels' bf16 cases, a backward fault
-# (attention_bwd.cuh) by the bf16 gradient cases of each backward kernel it
-# touches.
-FORWARD, BACKWARD = ("attention", "row_attention"), ("attention_dkv", "attention_dq")
+# Each named kernel must reject the fault by its own checks: a forward
+# kernel's bf16 cases (K1's body is attention_common.cuh, K2's
+# attention_fwd.cuh), or a backward kernel's bf16 gradient cases
+# (attention_bwd.cuh). hopper.cuh's tile copies serve K2 and the backward.
+BACKWARD = ("attention_dkv", "attention_dq")
 MUTANTS = (
     ("Q read from the next head's columns", "attention_common.cuh",
      "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + col0;",
      "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb +\n"
-     "      ((blockIdx.y + 1) % gridDim.y) * p.head_dim;", FORWARD),
+     "      ((blockIdx.y + 1) % gridDim.y) * p.head_dim;", ("attention",)),
     ("ragged K/V tail unmasked (the zero-padded keys get logit 0)", "attention_common.cuh",
-     "if (col >= p.s_kv) s[nt][e] = -INFINITY;", "(void)col;", FORWARD),
+     "if (col >= p.s_kv) s[nt][e] = -INFINITY;", "(void)col;", ("attention",)),
     ("the fourth K/V tile skipped", "attention_common.cuh",
      "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n",
      "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n    if (n0 == 3 * kTileN) continue;\n",
-     FORWARD),
+     ("attention",)),
     ("dS without its -delta term", "attention_bwd.cuh",
      "  return prob * (dp - delta);", "  return prob * dp;", BACKWARD),
     ("the LSE of the next head", "attention_bwd.cuh",
@@ -195,16 +203,38 @@ MUTANTS = (
      "                     p.s_q;", BACKWARD),
     # d = 40 pads to 48: the pad chunk copied (the next head's first 8
     # columns, except at the last head, whose next columns are another row's)
-    ("the d-pad chunk copied from global memory instead of zero-filled", "attention_bwd.cuh",
+    ("the d-pad chunk copied from global memory instead of zero-filled", "hopper.cuh",
      "col[k] = c * 8 < head_dim ? c * 8 : -1;",
      "col[k] = c * 8 < head_dim || blockIdx.y + 1 < gridDim.y ? c * 8 : -1;",
-     BACKWARD),
+     ("row_attention",) + BACKWARD),
     ("the transpose bit of the MN-major B dropped in dV += P^T dO", "attention_bwd.cuh",
      "Wgmma<DN>::template rs<kMnMajor>(&acc1[0][0], pa,  // dV += P^T dO",
      "Wgmma<DN>::template rs<0>(&acc1[0][0], pa,  // dV += P^T dO", ("attention_dkv",)),
     ("the ring waiting one stage short (a tile read before its copy lands)", "attention_bwd.cuh",
      "cp_async_wait<kBwdAhead - 1>();", "cp_async_wait<kBwdAhead>();", BACKWARD),
+    # K2's body: each fault below is one its bf16 cases must reject
+    ("K2: the transpose bit of V dropped in O += P V", "attention_fwd.cuh",
+     "Wgmma<DN>::template rs<kMnMajor>(&acc[0][0], pa[kk],",
+     "Wgmma<DN>::template rs<0>(&acc[0][0], pa[kk],", ("row_attention",)),
+    ("K2: the ring waiting one stage short (a tile read before its copy lands)",
+     "attention_fwd.cuh", "cp_async_wait<kFwdAhead - 1>();", "cp_async_wait<kFwdAhead>();",
+     ("row_attention",)),
+    # d = 40 pads to 48 and d = 24 to 32: Q's and K's pad chunks copied (the
+    # next head's first columns, except at the last head)
+    ("K2: the d-pad chunks of Q and K copied instead of zero-filled", "attention_fwd.cuh",
+     "  const TileCopies<DP, kFwdTileN, kFwdThreads> kv_copies(p.head_dim);\n"
+     "  const TileCopies<DP, kFwdRows, kFwdThreads> q_copies(p.head_dim);\n",
+     "  const int copied = p.head_dim + (blockIdx.y + 1 < gridDim.y ? 8 : 0);\n"
+     "  const TileCopies<DP, kFwdTileN, kFwdThreads> kv_copies(copied);\n"
+     "  const TileCopies<DP, kFwdRows, kFwdThreads> q_copies(copied);\n", ("row_attention",)),
+    ("K2: O not rescaled when the running max moves", "attention_fwd.cuh",
+     "for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];",
+     "for (int e = 0; e < 4; ++e) (void)alpha[e >> 1];", ("row_attention",)),
+    ("K2: the ragged K/V tail unmasked (the zero-filled keys get logit 0)", "attention_fwd.cuh",
+     "if (n0 + j * 8 + t * 2 + (e & 1) >= p.s_kv) s[j][e] = -INFINITY;",
+     "(void)n0;", ("row_attention",)),
 )
+FORWARD_CASES = {"attention": K1_CASES, "row_attention": K2_CASES}
 
 
 def log(msg: str) -> None:
@@ -243,15 +273,17 @@ def phase_build(attn) -> None:
         "in parallel)")
     for name, kernel in built.items():
         log(f"[build] nvcc built {kernel.path.name} in {kernel.build_seconds:.1f} s")
-        instance = "?"
+        instance, spills = "?", ""
         for line in kernel.compiler_log.splitlines():
             entry = re.search(r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E)+)E", line)
             if entry:  # the name after the mangling's last length prefix, and its arguments
                 name_part = re.split(r"\d+(?=[a-z])", entry.group(1))[-1]
                 args = re.findall(r"L[ib](\d+)E", entry.group(2))
                 instance = f"{name_part}<{', '.join(args)}>"
-            elif "registers" in line:
-                log(f"[build]   {instance}: {line.split(':', 1)[-1].strip()}")
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line and "registers" in line:
+                log(f"[build]   {instance}: {line.split(':', 1)[-1].strip()}; {spills}")
 
 
 def _time_ms(torch, fn, reps: int = 20) -> float:
@@ -478,7 +510,7 @@ def phase_kernel_grad(torch, attn, clock_hz: float) -> dict:
 def phase_mutants(torch, attn) -> None:
     """Build each MUTANTS copy of the kernel sources (in csrc/build/, which
     git ignores) and show that every kernel its fault touches rejects it:
-    the forward kernels' bf16 cases, or the bf16 gradient cases of the
+    a forward kernel's bf16 cases, or the bf16 gradient cases of the
     backward kernels it names. The real sources are loaded again at the end."""
     original = dict(attn.KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -496,19 +528,18 @@ def phase_mutants(torch, attn) -> None:
             attn.KERNELS.update({n: (src / path.name, entry) for n, (path, entry) in original.items()})
             attn._built.clear()
             attn.build_kernels()
-            if kernels == FORWARD:
-                for name, fn, cases in (("attention", attn.attention, K1_CASES),
-                                        ("row_attention", attn.row_attention, K2_CASES)):
-                    try:
-                        _check_cases(torch, attn, fn, [c for c in cases if c[6] == "bf16"], gen)
-                        passed.append(f"{what} ({name})")
-                        log(f"[mutants] {what}: {name} PASSED the check")
-                    except AssertionError as e:
-                        log(f"[mutants] {what}: {name} rejected ({e})")
-            else:
+            for name in (n for n in kernels if n in FORWARD_CASES):
+                cases = [c for c in FORWARD_CASES[name] if c[6] == "bf16"]
+                try:
+                    _check_cases(torch, attn, getattr(attn, name), cases, gen)
+                    passed.append(f"{what} ({name})")
+                    log(f"[mutants] {what}: {name} PASSED the check")
+                except AssertionError as e:
+                    log(f"[mutants] {what}: {name} rejected ({e})")
+            if set(kernels) & set(BACKWARD):
                 result = _check_grad_cases(
                     torch, attn, [c for c in K1_GRAD_CASES if c[6] == "bf16"], gen)
-                for name in kernels:
+                for name in (n for n in kernels if n in BACKWARD):
                     if result[name]["failed"]:
                         log(f"[mutants] {what}: {name} rejected (cases {result[name]['failed']})")
                     else:

@@ -1,8 +1,8 @@
 // The backward of K1's attention, O = softmax(Q K^T * scale) V, over packed
 // (b, s, h*d) operands: the two kernel bodies (dK/dV and dQ) that
 // attention_dkv.cu and attention_dq.cu launch, their fp32 instances for
-// checks, and what both share. The Hopper building blocks (cp.async,
-// wgmma and its descriptors) are in hopper.cuh.
+// checks, and what both share. The Hopper building blocks (cp.async tile
+// copies, wgmma and its descriptors, ex2) are in hopper.cuh.
 //
 // What they replace: the two Pallas kernels of the custom VJP of jax's TPU
 // flash_attention (jax/experimental/pallas/ops/tpu/flash_attention.py,
@@ -150,47 +150,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ss,
   }
 }
 
-// Copies of ROWS x DP tiles of one head into shared memory laid out as
-// wgmma's no-swizzle core matrices, column chunk-major: element (r, c) at
-// ((c / 8) * ROWS + r) * 8 + c % 8, so the core matrix of rows 8i.. and
-// columns 8j.. is 128 contiguous bytes at (j * ROWS + 8 * i) * 16. One
-// 16-byte cp.async per (row, 8-column chunk); rows past `nrows` and the
-// chunks past `head_dim` are zero-filled, never read (at d = 40 the pad
-// chunk would be the next head's first 8 columns). Eight consecutive
-// threads take eight consecutive rows of one chunk: one core matrix, no
-// bank conflict. Which chunks a thread copies is the same for every tile,
-// so it is worked out once, here.
-template <int DP, int ROWS, int THREADS>
-struct TileCopies {
-  static constexpr int kChunks = DP / 8;
-  static constexpr int kSlots = (ROWS * kChunks + THREADS - 1) / THREADS;
-  int dst[kSlots];  // element offset in the tile; -1: no chunk in this slot
-  int row[kSlots];
-  int col[kSlots];  // first column in the head; -1: zero-filled
-
-  __device__ __forceinline__ explicit TileCopies(int head_dim) {
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int idx = threadIdx.x + k * THREADS;
-      const int c = (idx / 8) % kChunks;
-      row[k] = (idx / (8 * kChunks)) * 8 + idx % 8;
-      dst[k] = idx < ROWS * kChunks ? (c * ROWS + row[k]) * 8 : -1;
-      col[k] = c * 8 < head_dim ? c * 8 : -1;
-    }
-  }
-
-  // Rows [r0, r0 + ROWS) of `src` (sequence stride `ss`) into `tile`.
-  __device__ __forceinline__ void copy(__nv_bfloat16* tile, const __nv_bfloat16* src,
-                                       long long ss, int r0, int nrows) const {
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      if (dst[k] < 0) continue;
-      const bool in = col[k] >= 0 && r0 + row[k] < nrows;
-      cp_async_16(tile + dst[k], in ? src + (long long)(r0 + row[k]) * ss + col[k] : src, in);
-    }
-  }
-};
-
 // The LSE (natural log) and delta of query rows [r0, r0 + ROWS) into
 // s_stats[0, ROWS) and [ROWS, 2 * ROWS); zero past s_q.
 template <int ROWS, int THREADS>
@@ -223,19 +182,6 @@ constexpr int kBwdRows = 64 * kBwdGroups;    // owned rows per block
 constexpr int kBwdThreads = 128 * kBwdGroups;
 constexpr int kBwdStages = 3;                // ring stages of streamed tiles
 constexpr int kBwdAhead = kBwdStages - 1;    // tiles in flight ahead of the one in use
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
-
-// 2^x by the SFU (ex2.approx, relative error about 2^-22), results below
-// fp32's normal range flushed to 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Streamed rows per tile: 64, or 32 where dK/dV's two 64 x d fp32
 // accumulators (d = 128) leave too few registers for 64-wide S^T and dP^T.

@@ -1,11 +1,11 @@
-// The attention kernel body shared by the port's two kernels, attention.cu
-// (K1) and row_attention.cu (K2), and its helpers: the launch parameters,
-// the bf16 m16n8k16 tensor-core product, the staging of packed (b, s, h*d)
-// rows into shared memory, the bf16 kernel (templated on the padded head
-// width and the warps per block, the one thing the two kernels set apart),
-// and the fp32 instance both keep for checks against their plain version.
-// Each .cu file includes this header and is built into a shared library of
-// its own, with its own C entry point; the build hash covers this header.
+// K1's attention kernel body (attention.cu) and what the forward kernels
+// share: the launch parameters, the bf16 m16n8k16 tensor-core product, the
+// staging of packed (b, s, h*d) rows into shared memory, the bf16 kernel
+// (templated on the padded head width and the warps per block), and the
+// fp32 instance that K1 and K2 (row_attention.cu) keep for checks against
+// their plain version. K2's bf16 body is attention_fwd.cuh's. Each .cu file
+// is built into a shared library of its own, with its own C entry point;
+// the build hash covers every header beside it.
 //
 // The forward writes each query row's log-sum-exp when it is given an LSE
 // buffer (training keeps it for the backward kernels of attention_bwd.cuh):
@@ -397,7 +397,7 @@ void launch(const Params& p, int dtype, dim3 grid, cudaStream_t stream) {
   }
 }
 
-// The body of both C entry points: checks the arguments, selects the
+// The body of K1's C entry point: checks the arguments, selects the
 // operands' device, and launches the instance for the padded head width on
 // a grid of (query tiles of WARPS * 16 rows, heads, batch rows). The query
 // tile varies fastest, then the head, then the batch row, so the blocks in

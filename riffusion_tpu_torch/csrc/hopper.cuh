@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the backward kernels' bf16 bodies
-// (attention_bwd.cuh): cp.async copies into shared memory, the shared-memory
-// matrix descriptor, and warpgroup matrix multiply (wgmma.mma_async) with
-// its fences. PTX only; no library.
+// Hopper (sm_90a) building blocks of the bf16 kernel bodies, the backward's
+// (attention_bwd.cuh) and K2's forward (attention_fwd.cuh): cp.async copies
+// into shared memory and the tile copies built on them, the shared-memory
+// matrix descriptor, warpgroup matrix multiply (wgmma.mma_async) with its
+// fences, and the SFU's exp2. PTX only; no library.
 //
 // A shared-memory operand of wgmma is described by a 64-bit descriptor:
 // the start address, the leading and the stride byte offsets (each >> 4),
@@ -18,6 +19,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +94,60 @@ __device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
   }
+}
+
+// Copies of ROWS x DP tiles of one head into shared memory laid out as
+// wgmma's no-swizzle core matrices, column chunk-major: element (r, c) at
+// ((c / 8) * ROWS + r) * 8 + c % 8, so the core matrix of rows 8i.. and
+// columns 8j.. is 128 contiguous bytes at (j * ROWS + 8 * i) * 16. One
+// 16-byte cp.async per (row, 8-column chunk); rows past `nrows` and the
+// chunks past `head_dim` are zero-filled, never read (at d = 40 the pad
+// chunk would be the next head's first 8 columns). Eight consecutive
+// threads take eight consecutive rows of one chunk: one core matrix, no
+// bank conflict. Which chunks a thread copies is the same for every tile,
+// so it is worked out once, here.
+template <int DP, int ROWS, int THREADS>
+struct TileCopies {
+  static constexpr int kChunks = DP / 8;
+  static constexpr int kSlots = (ROWS * kChunks + THREADS - 1) / THREADS;
+  int dst[kSlots];  // element offset in the tile; -1: no chunk in this slot
+  int row[kSlots];
+  int col[kSlots];  // first column in the head; -1: zero-filled
+
+  __device__ __forceinline__ explicit TileCopies(int head_dim) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int idx = threadIdx.x + k * THREADS;
+      const int c = (idx / 8) % kChunks;
+      row[k] = (idx / (8 * kChunks)) * 8 + idx % 8;
+      dst[k] = idx < ROWS * kChunks ? (c * ROWS + row[k]) * 8 : -1;
+      col[k] = c * 8 < head_dim ? c * 8 : -1;
+    }
+  }
+
+  // Rows [r0, r0 + ROWS) of `src` (sequence stride `ss`) into `tile`.
+  __device__ __forceinline__ void copy(__nv_bfloat16* tile, const __nv_bfloat16* src,
+                                       long long ss, int r0, int nrows) const {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (dst[k] < 0) continue;
+      const bool in = col[k] >= 0 && r0 + row[k] < nrows;
+      cp_async_16(tile + dst[k], in ? src + (long long)(r0 + row[k]) * ss + col[k] : src, in);
+    }
+  }
+};
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// 2^x by the SFU (ex2.approx, relative error about 2^-22), results below
+// fp32's normal range flushed to 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 constexpr int kMnMajor = 1;  // the transpose bit of an MN-major B operand (0: K-major)

@@ -14,50 +14,46 @@
 // in VMEM once, reuses it for all eight 512-row q blocks, and takes a
 // one-pass softmax over a 512 x 4096 fp32 logits block (8 MB).
 //
-// What bounds it on this card. Neither fits: an SM has 227 KB of shared
-// memory and 64K registers. The arithmetic is 4*b*h*s*s*d = 687 GFLOP per
-// call at (32, 4096, 8*40) against 2 * 84 MB of operands and output; with
-// K/V re-read from L2 by every query tile, what limits this kernel is
-// tensor-core issue and the shared-memory traffic of staging K/V tiles,
-// not device memory.
+// What bounds it on this card. Neither fits an SM (227 KB of shared memory,
+// 64K registers), so the softmax is online, over 64-row K/V tiles. At
+// (32, 4096, 8*40) one call does 4*b*h*s*s*d = 687 GFLOP of products
+// (0.69 ms at 989 TFLOP/s; 0.76 ms with Q K^T's reduction padded to 48)
+// against 335 MB of operands and output (0.10 ms at 3.35 TB/s), and one
+// exp2 per logit, 4.3e9 of them: 1.03 ms at the SFUs' 16 a clock on each
+// of 132 SMs at 1980 MHz. At d = 40 the exponentials set the bound, so
+// every instruction per logit besides the exp2 counts.
 //
-// What the design does about it. The kernel body is attention_common.cuh's
-// attention_bf16_kernel, which K1 (attention.cu) shares; what this file
-// sets is its shape:
-//   - Softmax: online, over 64-row K/V tiles, with the running max and sum
-//     in fp32 in the log2 domain, in place of the one-pass row.
-//   - K/V reuse: 8 warps per block, a 128-row query tile (8 x 16 rows), so
-//     each staged K/V tile serves 128 query rows (K1's kernel: 64), halving
-//     the K/V reads from L2; and the block order q tile fastest, then head,
-//     then batch row, so one batch row's 5.2 MB of K/V stays in the 50 MB L2
-//     while its 8 x 32 tiles run. (32, 4096, 8*40) is 32 x 8 x 32 = 8,192
-//     blocks.
-//   - K2's arithmetic: the scale*log2(e) fold, exp2, unnormalized P cast to
-//     bf16 for P V, and the division by the row sum once, on the (128, d)
-//     output after P V. The fold is one fp32 FFMA that forms the exp2
-//     argument (s * c - m * c) from the fp32 logits accumulator. K2 folds
-//     it into q in bf16 instead; on this card that buys nothing (the FFMA
-//     forms the argument either way) and rounds the scaled q to bf16, which
+// What the design does about it (attention_fwd.cuh holds the body and says
+// more):
+//   - Tensor cores: wgmma, S = Q K^T from shared memory and O += P V with P
+//     fed from the S accumulators as the register A operand, so the logits
+//     never leave registers. V is read MN-major from the tile as it was
+//     copied (no transposed copy) and P V runs 40 wide at d = 40.
+//   - Copies: K and V stream through a 3-stage cp.async ring, two tiles
+//     ahead of the products, one barrier per tile; d = 40 is zero-filled to
+//     48 by the copies.
+//   - Per logit: one FFMA (the scale*log2(e) fold), one ex2.approx, a max
+//     and an add; the ragged-tail mask only on the last tile; the division
+//     by the row sum once, on the (128, d) output after P V. The TPU kernel
+//     folds the scale into q in bf16 instead; that rounds the scaled q and
 //     costs up to 0.18 max abs error at large logits against the plain
 //     version (tests/test_torch_attention.py emulates both).
-//   - Tensor cores: mma.sync m16n8k16 bf16 with fp32 accumulation for Q K^T
-//     and P V; d is zero-padded to a multiple of 16 in shared memory
-//     (40 -> 48), which is exact. One instance per padded width, 16 to 128.
+//   - K/V reuse: a 128-row query tile (two warpgroups of 64 rows), so each
+//     K/V tile serves 128 query rows; the query tile varies fastest, then
+//     the head, then the batch row, so one batch row's 5.2 MB of K/V stays
+//     in the 50 MB L2 while its 8 x 32 tiles run. (32, 4096, 8*40) is
+//     32 x 8 x 32 = 8,192 blocks, two on each SM at once.
 //   - Layout and bounds: Q, K, V and O are read through their (batch, seq)
 //     strides with the head picked by a column offset; a ragged s_q and
-//     s_kv are masked.
-// wgmma, TMA and a K/V ring are later work: this version loads a tile,
-// synchronizes, and computes.
+//     s_kv are masked. One instance per padded width, 16 to 128.
 //
-// An fp32 instance (attention_common.cuh, 128 rows per block) exists so the
-// kernel can be held against its plain version at fp32 tolerance; the
-// serving path runs the bf16 instance.
+// Times on an H100 80GB HBM3 at 700 W: not measured yet.
+//
+// The fp32 instance (attention_common.cuh's attention_f32_kernel, 128 rows
+// per block) exists so the kernel can be held against its plain version at
+// fp32 tolerance; the serving path runs the bf16 instance.
 
-#include "attention_common.cuh"
-
-namespace {
-constexpr int kWarps = 8;  // 16 query rows per warp: a 128-row query tile
-}  // namespace
+#include "attention_fwd.cuh"
 
 extern "C" int riff_row_attention_forward(const void* q, const void* k, const void* v, void* o,
                                           float* lse, long long q_sb, long long q_ss, long long k_sb,
@@ -65,7 +61,7 @@ extern "C" int riff_row_attention_forward(const void* q, const void* k, const vo
                                           long long o_sb, long long o_ss, int batch, int s_q,
                                           int s_kv, int num_heads, int head_dim, float scale,
                                           int dtype, int device, void* stream) {
-  return riff::attention_forward<kWarps>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                                         o_sb, o_ss, batch, s_q, s_kv, num_heads, head_dim,
-                                         scale, dtype, device, stream);
+  return riff::row_attention_forward(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+                                     o_ss, batch, s_q, s_kv, num_heads, head_dim, scale, dtype,
+                                     device, stream);
 }

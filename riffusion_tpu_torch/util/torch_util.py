@@ -33,10 +33,17 @@ def check_device(device: str) -> torch.device:
 def configure_numerics() -> None:
     """The port's one place for the float32 matmul policy on the card.
 
-    Both TF32 switches are off: the VAE and the DSP (STFT, mel, Griffin-Lim)
-    run in full float32, as the JAX package runs them at HIGHEST precision.
-    cuDNN would otherwise run float32 convolutions in TF32 by default. The
-    UNet and CLIP run in bfloat16 and are not affected.
+    Both TF32 switches are off, so every float32 product on the card, the
+    VAE's convolutions and the DSP's matmuls, runs in full float32. That is
+    stricter than the JAX package on its TPU. There only the mel and
+    inverse-mel einsums (riffusion_tpu/spectrogram_converter.py:124, :137)
+    and Griffin-Lim's final synthesis (ops/griffin_lim.py:98) run at HIGHEST
+    precision. The VAE's convolutions set no precision, and Griffin-Lim's
+    loop takes gl_precision="default": both run at DEFAULT, bf16 passes on
+    the TPU. Whether the VAE holds its band in TF32 on the card is not yet
+    measured (ROADMAP Queue 3), so the switches stay off. cuDNN would
+    otherwise run float32 convolutions in TF32 by default. The UNet and
+    CLIP run in bfloat16 and are not affected.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

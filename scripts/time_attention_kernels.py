@@ -7,8 +7,10 @@ one checkout of the repository:
 
 The forward: K1 (`ops.attention.attention`) at (2, 4096, 8*40) and
 (2, 1024, 8*80) bf16, the single-clip path's sites, and K2
-(`row_attention`) and K1 at (32, 4096, 8*40), the batched path's. The
-backward, at the fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80):
+(`row_attention`) and K1 at (32, 4096, 8*40), the batched path's; the
+library's forward (torch's scaled_dot_product_attention on heads-first
+copies, a yardstick the port never calls) at (2, 4096, 8*40) and
+(32, 4096, 8*40). The backward, at the fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80):
 the dK/dV and dQ kernels alone, the port's whole `attention_backward`
 (delta, then both kernels: the row to hold against the library), and the
 library's backward (torch's scaled_dot_product_attention through autograd,
@@ -18,8 +20,9 @@ a yardstick the port never calls). Each is the median of 20 single calls
 this one), so that two versions are compared in one process each on the
 same card: unpack the other into a directory .gitignore lists and run
 parent, change, change, parent. Prints one JSON line with the card's name
-and power limit, each time in ms and each backward time's TFLOP/s (8, 6,
-14 and 10 * b*h*s*s*d FLOP: the kernels' products, and the library's five).
+and power limit, each time in ms, and TFLOP/s: each forward's
+(4 * b*h*s*s*d FLOP) and each backward's (8, 6, 14 and 10 * b*h*s*s*d: the
+kernels' products, and the library's five).
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ SHAPES = (  # (kernel, batch, seq, heads, head_dim)
     ("attention", 2, 1024, 8, 80),
     ("attention", 32, 4096, 8, 40),
     ("row_attention", 32, 4096, 8, 40),
+    ("library forward", 2, 4096, 8, 40),
+    ("library forward", 32, 4096, 8, 40),
 )
 TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # (batch, seq, heads, head_dim)
 BACKWARD_FLOP = {"attention_dkv": 8, "attention_dq": 6, "attention_backward": 14,
@@ -54,6 +59,18 @@ def _median_ms(torch, fn) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end))
     return statistics.median(samples)
+
+
+def _forward(torch, attn, name, q, k, v, h):
+    """One call of a forward kernel's wrapper, or of the library's forward
+    on heads-first copies of q, k, v."""
+    b, s, inner = q.shape
+    d = inner // h
+    if name != "library forward":
+        kernel = getattr(attn, name)
+        return lambda: kernel(q, k, v, num_heads=h, scale=d**-0.5)
+    qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2).contiguous() for x in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=d**-0.5)
 
 
 def main() -> int:
@@ -77,9 +94,11 @@ def main() -> int:
     for name, b, s, h, d in SHAPES:
         q, k, v = (torch.randn(b, s, h * d, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
-        fn = getattr(attn, name)
-        times[f"{name} ({b}, {s}, {h}*{d})"] = _median_ms(
-            torch, lambda: fn(q, k, v, num_heads=h, scale=d**-0.5))
+        key = f"{name} ({b}, {s}, {h}*{d})"
+        times[key] = _median_ms(torch, _forward(torch, attn, name, q, k, v, h))
+        tflops[key] = 4 * b * h * s * s * d / times[key] / 1e9
+        del q, k, v
+        torch.cuda.empty_cache()
     for b, s, h, d in TRAIN_SHAPES:
         scale = d**-0.5
         q, k, v, dout = (torch.randn(b, s, h * d, generator=gen, device=dev).to(torch.bfloat16)

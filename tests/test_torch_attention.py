@@ -148,24 +148,29 @@ def test_kernel_source_is_shipped():
     for source, entry in attn_mod.KERNELS.values():
         assert source.is_file()
         assert entry in source.read_text()
-        # the forward body, or the backward body (which includes it)
-        assert ('#include "attention_common.cuh"' in source.read_text()
-                or '#include "attention_bwd.cuh"' in source.read_text())
+        # K1's forward body, K2's (attention_fwd.cuh) or the backward's; the
+        # last two include the first and hopper.cuh
+        assert any(f'#include "{body}"' in source.read_text()
+                   for body in ("attention_common.cuh", "attention_fwd.cuh", "attention_bwd.cuh"))
     assert (attn_mod._CSRC / "attention_common.cuh").is_file()
-    assert '#include "attention_common.cuh"' in (attn_mod._CSRC / "attention_bwd.cuh").read_text()
+    for body in ("attention_fwd.cuh", "attention_bwd.cuh"):
+        text = (attn_mod._CSRC / body).read_text()
+        assert '#include "attention_common.cuh"' in text and '#include "hopper.cuh"' in text
 
 
 def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_tile=None,
-                     fold_q_bf16=False, wrong_head=False):
+                     fold_q_bf16=False, wrong_head=False, no_rescale=False):
     """The bf16 arithmetic of csrc/attention.cu and csrc/row_attention.cu in
     PyTorch: fp32 logits, an online softmax over 64-row K/V tiles in the
     log2 domain with the scale*log2(e) fold in fp32, unnormalized weights
     rounded to bf16 for P V, fp32 accumulation, the division after P V, a
-    bf16 output. (The two kernels differ in query rows per block, which
+    bf16 output. (K1's mma.sync body and K2's wgmma body, attention_fwd.cuh,
+    round at these same points and differ in query rows per block, which
     does not change a row's arithmetic.) Flags plant faults: the
     zero-padded keys of the ragged last tile get logit 0 instead of -inf,
-    one K/V tile is skipped, Q is read from the next head's columns, or the
-    fold is made into Q in bf16 as the TPU kernel makes it."""
+    one K/V tile is skipped, Q is read from the next head's columns, the
+    fold is made into Q in bf16 as the TPU kernel makes it, or O is not
+    rescaled when the running max moves (the row sum still is)."""
     b, s_q, inner = q.shape
     d = inner // num_heads
 
@@ -191,7 +196,9 @@ def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_t
         new_max = torch.maximum(row_max, logits.amax(-1, keepdim=True))
         alpha, p = torch.exp2(row_max - new_max), torch.exp2(logits - new_max)
         row_sum = row_sum * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p.to(torch.bfloat16).float() @ vh[:, :, n0:n0 + 64]
+        if not no_rescale:
+            acc = acc * alpha
+        acc = acc + p.to(torch.bfloat16).float() @ vh[:, :, n0:n0 + 64]
         row_max = new_max
     return (acc / row_sum).transpose(1, 2).reshape(b, s_q, inner).to(torch.bfloat16)
 
@@ -206,10 +213,13 @@ def _bf16_case(s_q, s_kv, h, d, seed=4, mult=1.0):
     return q, k, v
 
 
-BF16_CASES = [(1024, 1024, 2, 40), (1000, 1000, 2, 16), (1000, 777, 2, 128)]
+# (256, 4096, 2, 40) is K2's path row: its K/V length and head width, with
+# fewer query rows.
+BF16_CASES = [(1024, 1024, 2, 40), (1000, 1000, 2, 16), (1000, 777, 2, 128), (256, 4096, 2, 40)]
 
 
-@pytest.mark.parametrize("s_q,s_kv,h,d", BF16_CASES, ids=["d40", "ragged-d16", "ragged-d128"])
+@pytest.mark.parametrize("s_q,s_kv,h,d", BF16_CASES,
+                         ids=["d40", "ragged-d16", "ragged-d128", "path-row-d40"])
 def test_bf16_tolerance_admits_the_kernels_rounding(s_q, s_kv, h, d):
     q, k, v = _bf16_case(s_q, s_kv, h, d)
     ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
@@ -220,14 +230,17 @@ def test_bf16_tolerance_admits_the_kernels_rounding(s_q, s_kv, h, d):
 @pytest.mark.parametrize(
     "s_q,s_kv,h,d,fault",
     [(1000, 1000, 2, 16, "tail"), (1000, 777, 2, 128, "tail"),
-     (1000, 1000, 2, 16, "skip"), (1024, 1024, 2, 40, "skip")],
-    ids=["tail-logit-0-d16", "tail-logit-0-d128", "skipped-tile-d16", "skipped-tile-d40"],
+     (1000, 1000, 2, 16, "skip"), (1024, 1024, 2, 40, "skip"),
+     (256, 4096, 2, 40, "rescale"), (1000, 777, 2, 128, "rescale")],
+    ids=["tail-logit-0-d16", "tail-logit-0-d128", "skipped-tile-d16", "skipped-tile-d40",
+         "o-not-rescaled-path-row-d40", "o-not-rescaled-ragged-d128"],
 )
 def test_bf16_tolerance_rejects_a_planted_fault(s_q, s_kv, h, d, fault):
     q, k, v = _bf16_case(s_q, s_kv, h, d)
     ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
     out = _kernel_numerics(q, k, v, h, d**-0.5, tail_logit_zero=fault == "tail",
-                           skip_tile=3 if fault == "skip" else None)
+                           skip_tile=3 if fault == "skip" else None,
+                           no_rescale=fault == "rescale")
     max_abs, rel_rms, ok = compare_to_plain(out, ref)
     assert not ok, (max_abs, rel_rms)
     if fault == "tail":  # max abs alone passes it: the relative RMS bound is what fails it

@@ -119,6 +119,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         attention(q, q, q, num_heads=2, scale=1.0)
 
 
+# K2's bf16 body (csrc/attention_fwd.cuh) owns 128 query rows per block and
+# streams 64-row K/V tiles: s_q 129 and s_kv 191 leave a ragged query tile
+# and a ragged last K/V tile; s = 64 is one K/V tile, read as soon as its
+# copies land (a ring that does not wait for them reads shared memory
+# first); d = 24 pads to 32 for both products, and the output's pad columns
+# are not written. One bf16 case per head-dim instance besides (8 and 16 in
+# the 16 bucket, 24 and 32, 40 and 48, 64, 80, 96, 112, 128).
 @pytest.mark.parametrize(
     "b,s_q,s_kv,h,d,dtype,mult",
     [
@@ -129,9 +136,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         (9, 1024, 1024, 2, 40, torch.bfloat16, 8.0),
         (10, 2048, 2048, 2, 16, torch.float32, 1.0),
         (1, 1000, 777, 2, 128, torch.float32, 1.0),
+        (2, 129, 191, 2, 40, torch.bfloat16, 1.0),
+        (16, 64, 64, 8, 40, torch.bfloat16, 1.0),
+        (3, 300, 257, 2, 24, torch.bfloat16, 1.0),
+        (2, 129, 65, 3, 8, torch.bfloat16, 1.0),
+        (1, 300, 257, 2, 32, torch.bfloat16, 1.0),
+        (1, 257, 300, 2, 48, torch.bfloat16, 1.0),
+        (1, 333, 200, 2, 64, torch.bfloat16, 1.0),
+        (1, 191, 129, 2, 80, torch.bfloat16, 1.0),
+        (1, 200, 333, 2, 96, torch.bfloat16, 1.0),
+        (1, 129, 191, 2, 112, torch.bfloat16, 1.0),
     ],
     ids=["batch16-site", "b9", "ragged-d16", "ragged-d128", "large-logits", "f32-d16",
-         "f32-ragged-d128"],
+         "f32-ragged-d128", "edges-d40", "one-tile", "d24", "edges-d8", "d32", "d48", "d64",
+         "d80", "d96", "d112"],
 )
 def test_row_kernel_matches_plain(cuda_device, b, s_q, s_kv, h, d, dtype, mult):
     q, k, v = _qkv(cuda_device, b, s_q, s_kv, h, d, dtype, mult, seed=2)
@@ -154,6 +172,15 @@ def test_row_kernel_strided_operands(cuda_device):
     ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
     max_abs, rel_rms, ok = compare_to_plain(out, ref)
     assert ok, (max_abs, rel_rms)
+
+
+def test_row_kernel_refusal_raises(cuda_device):
+    """K2 writes no log-sum-exp: its entry point refuses a buffer for one
+    with a CUDA error, and the wrapper raises instead of falling back."""
+    q, k, v = _qkv(cuda_device, 1, 128, 128, 2, 40, torch.bfloat16)
+    lse = torch.empty(1, 2, 128, device=cuda_device)
+    with pytest.raises(RuntimeError, match="row_attention kernel launch failed with CUDA error"):
+        attn._launch("row_attention", q, k, v, 2, 40**-0.5, lse=lse)
 
 
 def test_attention_module_takes_the_row_kernel(cuda_device):
