@@ -22,11 +22,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    other head dims and large logits; K2 at the batched path's
    (32, 4096, 8*40), (9, 2048, 8*40), a ragged (10, 1000, 2*16), large
    logits, its bf16 body's tile edges (s_q 129, s_kv 191), one K/V tile
-   (s = 64), d = 24 and fp32 (10, 2048, 2*16). Times (CUDA events, median of 20) K1,
-   plain and torch's scaled_dot_product_attention (the library yardstick,
-   never called by the port) at the two single-path shapes, and K2, K1,
-   plain and the library at (32, 4096, 8*40) bf16, before any model is
-   loaded (the plain version there needs about 45 GB). Each kernel's bound
+   (s = 64), d = 24 and fp32 (10, 2048, 2*16). Times (CUDA events, median
+   of 20) K1, plain and torch's scaled_dot_product_attention (the library
+   yardstick, never called by the port) at the two single-path shapes, and
+   K2, K1, plain and the library at (32, 4096, 8*40) bf16, before any model
+   is loaded (the plain version there needs about 45 GB). Each kernel's bound
    is the largest of its FLOPs over 989 TFLOP/s, its bytes over 3.35 TB/s
    and its exp2 calls (one per logit) over 132 SMs x 16 per clock at the
    maximum SM clock; the SM clock just after each timing is printed.

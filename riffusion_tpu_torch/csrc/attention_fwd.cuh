@@ -38,6 +38,11 @@
 // - At d = 40 a block fits in 80 registers, so three blocks share an SM
 //   (two up to d = 64), and one block's exponentials run while another's
 //   products do.
+// Tried on the card and dropped (slower in the same call): two blocks per
+// SM at d = 40; the next tile's S in the tensor cores while this tile's
+// exponentials run (FA3's overlap inside a warpgroup, with a second set of
+// S accumulators, 120 registers); the previous tile's P V in the tensor
+// cores during them. No TMA, warp specialisation or clusters yet.
 // The warpgroups per block (kFwdGroups) are one constant, and a
 // log-sum-exp write would follow the row sums: both are to become template
 // arguments when K1 moves onto this body.

@@ -42,12 +42,18 @@
 //     K/V tile serves 128 query rows; the query tile varies fastest, then
 //     the head, then the batch row, so one batch row's 5.2 MB of K/V stays
 //     in the 50 MB L2 while its 8 x 32 tiles run. (32, 4096, 8*40) is
-//     32 x 8 x 32 = 8,192 blocks, two on each SM at once.
+//     32 x 8 x 32 = 8,192 blocks, three on each SM at once.
 //   - Layout and bounds: Q, K, V and O are read through their (batch, seq)
 //     strides with the head picked by a column offset; a ragged s_q and
 //     s_kv are masked. One instance per padded width, 16 to 128.
 //
-// Times on an H100 80GB HBM3 at 700 W: not measured yet.
+// Times on an H100 80GB HBM3 at 700 W (scripts/time_attention_kernels.py,
+// parent / change / change / parent in one call): at (32, 4096, 8*40)
+// 2.649-2.673 ms, 257-259 TFLOP/s (the mma.sync body before it:
+// 6.183-6.324 ms), against the library forward's 2.459-2.556 ms in the same
+// call and the 1.027 ms exp2 bound: 39% of the bound. What holds it there is
+// the latency of each warpgroup's chain (S, wait, exponentials, P V, wait),
+// not the tensor cores or the SFUs (PERF.md section 6).
 //
 // The fp32 instance (attention_common.cuh's attention_f32_kernel, 128 rows
 // per block) exists so the kernel can be held against its plain version at
