@@ -13,7 +13,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build: nvcc builds csrc/attention.cu (K1), csrc/row_attention.cu (K2),
    csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward) from this
    checkout, all at once; prints each build's seconds and each instance's
-   ptxas registers and spills.
+   ptxas registers and spills, and fails if a bf16 instance spills.
 3. kernel: each forward kernel against its plain PyTorch version on the
    card, held to ops.attention.TOLERANCE: max abs error (bf16 2e-2, fp32
    with TF32 off 1e-4) and error RMS over output RMS (bf16 6e-3, fp32
@@ -21,12 +21,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    (32, 1024, 8*80), (16, 1024, 8*80) and (8, 4096, 8*40), ragged lengths,
    other head dims and large logits; K2 at the batched path's
    (32, 4096, 8*40), (9, 2048, 8*40), a ragged (10, 1000, 2*16), large
-   logits, its bf16 body's tile edges (s_q 129, s_kv 191), one K/V tile
-   (s = 64), d = 24 and fp32 (10, 2048, 2*16). Times (CUDA events, median
-   of 20) K1, plain and torch's scaled_dot_product_attention (the library
-   yardstick, never called by the port) at the two single-path shapes, and
-   K2, K1, plain and the library at (32, 4096, 8*40) bf16, before any model
-   is loaded (the plain version there needs about 45 GB). Each kernel's bound
+   logits and fp32 (10, 2048, 2*16); both at the tile edges of the bf16
+   body they share (s_q 129, s_kv 191; K1 also s_q 65), one K/V tile
+   (s = 64) and d = 24. Times (CUDA events, median of 20) K1, plain and
+   torch's scaled_dot_product_attention (the library yardstick, never
+   called by the port) at the two single-path shapes and at K1's batched
+   site (32, 1024, 8*80), and K2, plain and the library at
+   (32, 4096, 8*40) bf16, before any model is loaded (the plain version
+   there needs about 45 GB). Each kernel's bound
    is the largest of its FLOPs over 989 TFLOP/s, its bytes over 3.35 TB/s
    and its exp2 calls (one per logit) over 132 SMs x 16 per clock at the
    maximum SM clock; the SM clock just after each timing is printed.
@@ -110,6 +112,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SLICE_SHAPES = ((2, 4096, 8, 40), (2, 1024, 8, 80))  # (batch, seq, heads, head_dim)
 BATCH_SHAPE = (32, 4096, 8, 40)  # K2's site at serving batch 16
+K1_BATCH_SHAPE = (32, 1024, 8, 80)  # K1's site at serving batch 16
 TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # K1's sites at fine-tuning batch 4
 LAUNCHES_PER_REQUEST = 38 * 10
 LAUNCHES_PER_STEP = 10  # self-attention sites on K1 at UNet batch 4
@@ -143,6 +146,12 @@ K1_CASES = (
     ("ragged d32", 1, 1000, 1000, 2, 32, "bf16", 1.0),
     ("ragged d128 s_kv 777", 1, 1000, 777, 2, 128, "bf16", 1.0),
     ("large logits d40", 1, 1024, 1024, 2, 40, "bf16", 8.0),
+    # tile edges of the bf16 body (attention_fwd.cuh, K2's too: 128 query
+    # rows a block, 64-row K/V tiles), one K/V tile, d = 24 (pads to 32)
+    ("tile edges d40 s_q 129 s_kv 191", 2, 129, 191, 2, 40, "bf16", 1.0),
+    ("tile edges d40 s_q 65 s_kv 191", 2, 65, 191, 2, 40, "bf16", 1.0),
+    ("one tile d40 s 64", 16, 64, 64, 8, 40, "bf16", 1.0),
+    ("d24 s_q 300 s_kv 257", 3, 300, 257, 2, 24, "bf16", 1.0),
     ("fp32 slice d40", 2, 4096, 4096, 8, 40, "fp32", 1.0),
     ("fp32 ragged d128 s_kv 777", 1, 1000, 777, 2, 128, "fp32", 1.0),
 )
@@ -180,21 +189,12 @@ K1_GRAD_CASES = (
 # text, replacement, the kernels whose checks must reject it). The text
 # occurs once in its file (tests/test_torch_kernel_sources.py holds it so).
 # Each named kernel must reject the fault by its own checks: a forward
-# kernel's bf16 cases (K1's body is attention_common.cuh, K2's
-# attention_fwd.cuh), or a backward kernel's bf16 gradient cases
-# (attention_bwd.cuh). hopper.cuh's tile copies serve K2 and the backward.
+# kernel's bf16 cases (K1 and K2 share attention_fwd.cuh's body), or a
+# backward kernel's bf16 gradient cases (attention_bwd.cuh, fed by K1's
+# log-sum-exp). hopper.cuh's tile copies serve every bf16 kernel.
 BACKWARD = ("attention_dkv", "attention_dq")
+FORWARD = ("attention", "row_attention")
 MUTANTS = (
-    ("Q read from the next head's columns", "attention_common.cuh",
-     "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + col0;",
-     "static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb +\n"
-     "      ((blockIdx.y + 1) % gridDim.y) * p.head_dim;", ("attention",)),
-    ("ragged K/V tail unmasked (the zero-padded keys get logit 0)", "attention_common.cuh",
-     "if (col >= p.s_kv) s[nt][e] = -INFINITY;", "(void)col;", ("attention",)),
-    ("the fourth K/V tile skipped", "attention_common.cuh",
-     "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n",
-     "  for (int n0 = 0; n0 < p.s_kv; n0 += kTileN) {\n    if (n0 == 3 * kTileN) continue;\n",
-     ("attention",)),
     ("dS without its -delta term", "attention_bwd.cuh",
      "  return prob * (dp - delta);", "  return prob * dp;", BACKWARD),
     ("the LSE of the next head", "attention_bwd.cuh",
@@ -206,33 +206,53 @@ MUTANTS = (
     ("the d-pad chunk copied from global memory instead of zero-filled", "hopper.cuh",
      "col[k] = c * 8 < head_dim ? c * 8 : -1;",
      "col[k] = c * 8 < head_dim || blockIdx.y + 1 < gridDim.y ? c * 8 : -1;",
-     ("row_attention",) + BACKWARD),
+     FORWARD + BACKWARD),
     ("the transpose bit of the MN-major B dropped in dV += P^T dO", "attention_bwd.cuh",
      "Wgmma<DN>::template rs<kMnMajor>(&acc1[0][0], pa,  // dV += P^T dO",
      "Wgmma<DN>::template rs<0>(&acc1[0][0], pa,  // dV += P^T dO", ("attention_dkv",)),
     ("the ring waiting one stage short (a tile read before its copy lands)", "attention_bwd.cuh",
      "cp_async_wait<kBwdAhead - 1>();", "cp_async_wait<kBwdAhead>();", BACKWARD),
-    # K2's body: each fault below is one its bf16 cases must reject
+    # the forward body: each fault below is one both forward kernels' bf16
+    # cases must reject (the first five were planted when K2 alone ran it)
     ("K2: the transpose bit of V dropped in O += P V", "attention_fwd.cuh",
      "Wgmma<DN>::template rs<kMnMajor>(&acc[0][0], pa[kk],",
-     "Wgmma<DN>::template rs<0>(&acc[0][0], pa[kk],", ("row_attention",)),
+     "Wgmma<DN>::template rs<0>(&acc[0][0], pa[kk],", FORWARD),
     ("K2: the ring waiting one stage short (a tile read before its copy lands)",
      "attention_fwd.cuh", "cp_async_wait<kFwdAhead - 1>();", "cp_async_wait<kFwdAhead>();",
-     ("row_attention",)),
+     FORWARD),
     # d = 40 pads to 48 and d = 24 to 32: Q's and K's pad chunks copied (the
     # next head's first columns, except at the last head)
     ("K2: the d-pad chunks of Q and K copied instead of zero-filled", "attention_fwd.cuh",
-     "  const TileCopies<DP, kFwdTileN, kFwdThreads> kv_copies(p.head_dim);\n"
-     "  const TileCopies<DP, kFwdRows, kFwdThreads> q_copies(p.head_dim);\n",
+     "  const TileCopies<DP, kFwdTileN, kThreads> kv_copies(p.head_dim);\n"
+     "  const TileCopies<DP, kRows, kThreads> q_copies(p.head_dim);\n",
      "  const int copied = p.head_dim + (blockIdx.y + 1 < gridDim.y ? 8 : 0);\n"
-     "  const TileCopies<DP, kFwdTileN, kFwdThreads> kv_copies(copied);\n"
-     "  const TileCopies<DP, kFwdRows, kFwdThreads> q_copies(copied);\n", ("row_attention",)),
+     "  const TileCopies<DP, kFwdTileN, kThreads> kv_copies(copied);\n"
+     "  const TileCopies<DP, kRows, kThreads> q_copies(copied);\n", FORWARD),
     ("K2: O not rescaled when the running max moves", "attention_fwd.cuh",
      "for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];",
-     "for (int e = 0; e < 4; ++e) (void)alpha[e >> 1];", ("row_attention",)),
+     "for (int e = 0; e < 4; ++e) (void)alpha[e >> 1];", FORWARD),
     ("K2: the ragged K/V tail unmasked (the zero-filled keys get logit 0)", "attention_fwd.cuh",
      "if (n0 + j * 8 + t * 2 + (e & 1) >= p.s_kv) s[j][e] = -INFINITY;",
-     "(void)n0;", ("row_attention",)),
+     "(void)n0;", FORWARD),
+    ("the second warpgroup's S taken from the first warpgroup's Q rows", "attention_fwd.cuh",
+     "smem_desc(s_q + group * 64 * 8, kRows * 16, 128)", "smem_desc(s_q, kRows * 16, 128)",
+     FORWARD),
+    # each row's sum is over half its columns: the output and K1's LSE wrong
+    ("the row sums left partial (one of two cross-thread reductions dropped)",
+     "attention_fwd.cuh", "    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);\n",
+     "    row_sum[r] += 0.f;\n", FORWARD + BACKWARD),
+    # the log-sum-exp K1 writes for the backward kernels: wrong values reach
+    # them only through the probabilities they recompute
+    ("the forward's LSE in log2 units", "attention_fwd.cuh",
+     "lse[row + 8 * r] = fmaf(row_max[r], p.scale, logf(row_sum[r]));",
+     "lse[row + 8 * r] = fmaf(row_max[r], p.scale_log2, log2f(row_sum[r]));", BACKWARD),
+    ("the forward's LSE written to the next head's rows", "attention_fwd.cuh",
+     "float* lse = p.lse + ((long long)batch * gridDim.y + blockIdx.y) * p.s_q;",
+     "float* lse = p.lse + ((long long)batch * gridDim.y + (blockIdx.y + 1) % gridDim.y) *\n"
+     "                   p.s_q;", BACKWARD),
+    ("the forward's LSE of a thread's two rows swapped", "attention_fwd.cuh",
+     "lse[row + 8 * r] = fmaf(row_max[r], p.scale, logf(row_sum[r]));",
+     "lse[row + 8 * r] = fmaf(row_max[1 - r], p.scale, logf(row_sum[1 - r]));", BACKWARD),
 )
 FORWARD_CASES = {"attention": K1_CASES, "row_attention": K2_CASES}
 
@@ -273,17 +293,12 @@ def phase_build(attn) -> None:
         "in parallel)")
     for name, kernel in built.items():
         log(f"[build] nvcc built {kernel.path.name} in {kernel.build_seconds:.1f} s")
-        instance, spills = "?", ""
-        for line in kernel.compiler_log.splitlines():
-            entry = re.search(r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E)+)E", line)
-            if entry:  # the name after the mangling's last length prefix, and its arguments
-                name_part = re.split(r"\d+(?=[a-z])", entry.group(1))[-1]
-                args = re.findall(r"L[ib](\d+)E", entry.group(2))
-                instance = f"{name_part}<{', '.join(args)}>"
-            elif "spill" in line:
-                spills = line.strip()
-            elif "Used" in line and "registers" in line:
-                log(f"[build]   {instance}: {line.split(':', 1)[-1].strip()}; {spills}")
+        for instance, registers, spills in attn.ptxas_instances(kernel.compiler_log):
+            log(f"[build]   {instance}: {registers}; {spills}")
+            # the paths run the bf16 instances; the fp32 check instances keep
+            # a row of q and of the output in registers and spill at d = 128
+            if "bf16" in instance and re.search(r"[1-9]\d* bytes spill", spills):
+                raise AssertionError(f"{instance} spills: {spills}")
 
 
 def _time_ms(torch, fn, reps: int = 20) -> float:
@@ -356,12 +371,11 @@ def phase_kernel(torch, attn, clock_hz: float) -> dict:
               "row_attention": _check_cases(torch, attn, attn.row_attention, K2_CASES, gen)}
 
     times = {}
-    for b, s, h, d in SLICE_SHAPES + (BATCH_SHAPE,):
+    for b, s, h, d in SLICE_SHAPES + (K1_BATCH_SHAPE, BATCH_SHAPE):
         q, k, v = (torch.randn(b, s, h * d, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
-        fns = {"attention": attn.attention, "plain": attn.attention_reference}
-        if (b, s, h, d) == BATCH_SHAPE:
-            fns["row_attention"] = attn.row_attention
+        kernel = "row_attention" if (b, s, h, d) == BATCH_SHAPE else "attention"
+        fns = {kernel: getattr(attn, kernel), "plain": attn.attention_reference}
         flop = 4 * b * h * s * s * d
         for name, fn in fns.items():
             ms = _time_ms(torch, lambda: fn(q, k, v, num_heads=h, scale=d**-0.5))

@@ -1,26 +1,35 @@
-// K2's bf16 forward body for Hopper (sm_90a), O = softmax(Q K^T * scale) V
-// over packed (b, s, h*d) operands: attention_fwd_bf16_kernel, and the host
-// body of row_attention.cu's C entry point. K2's fp32 path keeps
-// attention_common.cuh's attention_f32_kernel; K1 (attention.cu) stays on
-// attention_common.cuh's mma.sync body. The Hopper building blocks
-// (cp.async tile copies, descriptors, wgmma, ex2) are in hopper.cuh.
+// The bf16 forward body for Hopper (sm_90a) of both forward kernels,
+// O = softmax(Q K^T * scale) V over packed (b, s, h*d) operands:
+// attention_fwd_bf16_kernel, and the host code that launches it. K1
+// (attention.cu) launches it with the log-sum-exp write when training asks
+// for it, K2 (row_attention.cu) without; both with two warpgroups per block
+// (attention.cu gives the times of one against two). Their fp32
+// check instances are attention_common.cuh's attention_f32_kernel. The
+// Hopper building blocks (cp.async tile copies, descriptors, wgmma, ex2) are
+// in hopper.cuh.
 //
-// The arithmetic, and so every rounding point, is attention_common.cuh's:
-// fp32 logits; an online softmax over 64-row K/V tiles in fp32 in the log2
-// domain, the running max kept in logit units and the scale*log2(e) fold c
-// entering each exp2 argument through one FFMA (s * c - m * c); P rounded
-// to bf16 unnormalized for P V; fp32 accumulation; the division by the row
-// sum once, on the output. The CPU emulation of the bf16 kernels
-// (tests/test_torch_attention.py _kernel_numerics) therefore stands for
-// this body too. exp2 is the SFU's ex2.approx (relative error about 2^-22)
-// instead of exp2f.
+// The arithmetic: fp32 logits; an online softmax over 64-row K/V tiles in
+// fp32 in the log2 domain, the running max kept in logit units and the
+// scale*log2(e) fold c entering each exp2 argument through one FFMA
+// (s * c - m * c); P rounded to bf16 unnormalized for P V; fp32
+// accumulation; the division by the row sum once, on the output. exp2 is
+// the SFU's ex2.approx (relative error about 2^-22). The CPU emulation of
+// the kernels (tests/test_torch_attention.py _kernel_numerics) rounds at
+// these same points.
+//
+// The log-sum-exp (template argument LSE): after the row sums, each row's
+// natural-log LSE, log sum_j exp(scale * q.k_j) = scale * m + log(row sum),
+// goes to p.lse as fp32, (batch, heads, s_q) contiguous: what the backward
+// kernels (attention_bwd.cuh) read. The serving instances have no write.
 //
 // The design (its parts are those of attention_bwd.cuh's dQ body, which has
-// the same shape: 128 owned query rows, K and V streamed):
-// - One block of two warpgroups per (128-row query tile, head, batch row),
-//   each warpgroup owning 64 query rows. The grid runs the query tile
-//   fastest, then the head, then the batch row, so the blocks in flight
-//   share one batch row's K/V in L2.
+// the same shape: owned query rows, K and V streamed):
+// - One block of GROUPS warpgroups (1 or 2) per (64 * GROUPS-row query
+//   tile, head, batch row), each warpgroup owning 64 query rows. The grid
+//   runs the query tile fastest, then the head, then the batch row, so the
+//   blocks in flight share one batch row's K/V in L2. Two warpgroups halve
+//   the K/V copies per query row; one gives twice the blocks, and lost at
+//   every shape of K1's paths all the same.
 // - Q is copied once by cp.async into wgmma's no-swizzle core-matrix layout
 //   and lands with the first K/V tile. d is zero-filled to DP (a multiple
 //   of 16: 40 -> 48) by the copies, never loaded from the next head.
@@ -28,24 +37,22 @@
 //   one in the products, with each thread's copy slots worked out once:
 //   one wait and one barrier per tile.
 // - S = Q K^T is wgmma m64n64k16 from shared memory, this warpgroup's Q rows
-//   and the K tile both K-major, DP / 16 k-steps.
+//   and the K tile both K-major, DP / 16 k-steps. Q's descriptor steps over
+//   the block's 64 * GROUPS rows between its 8-column chunks.
 // - The softmax runs on the S accumulators in registers. Only the last tile
 //   can be ragged, and only it is masked.
 // - O += P V is wgmma with P, packed to bf16 from the S accumulators, as the
 //   register A operand, and B the V tile as it was copied, row-major, read
 //   MN-major through its descriptor: no transposed copy. Its width DN is d
 //   rounded up to 8 (40 at d = 40, not 48).
-// - At d = 40 a block fits in 80 registers, so three blocks share an SM
-//   (two up to d = 64), and one block's exponentials run while another's
-//   products do.
+// - At d = 40 a two-warpgroup block fits in 80 registers, so three blocks
+//   share an SM (five of one warpgroup, which shared memory then limits),
+//   and one block's exponentials run while another's products do.
 // Tried on the card and dropped (slower in the same call): two blocks per
 // SM at d = 40; the next tile's S in the tensor cores while this tile's
 // exponentials run (FA3's overlap inside a warpgroup, with a second set of
 // S accumulators, 120 registers); the previous tile's P V in the tensor
 // cores during them. No TMA, warp specialisation or clusters yet.
-// The warpgroups per block (kFwdGroups) are one constant, and a
-// log-sum-exp write would follow the row sums: both are to become template
-// arguments when K1 moves onto this body.
 
 #pragma once
 
@@ -54,44 +61,47 @@
 
 namespace riff {
 
-constexpr int kFwdGroups = 2;              // warpgroups per block
-constexpr int kFwdRows = 64 * kFwdGroups;  // query rows per block
-constexpr int kFwdThreads = 128 * kFwdGroups;
 constexpr int kFwdTileN = 64;              // K/V rows per streamed tile
 constexpr int kFwdStages = 3;              // ring stages of K/V tiles
 constexpr int kFwdAhead = kFwdStages - 1;  // tiles in flight ahead of the one in use
 
-// Blocks per SM the registers are capped for: three where P V is at most
-// 40 wide (80 registers a thread; at DN = 48 that cap spills), two up to
-// d = 64 (128), one above.
-template <int DP, int DN>
-__host__ __device__ constexpr int fwd_min_blocks() {
-  return DN <= 40 ? 3 : DP <= 64 ? 2 : 1;
+// Q, then the ring of (K, V) tile pairs, for GROUPS warpgroups per block.
+template <int DP, int GROUPS>
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return (64 * GROUPS * DP + kFwdStages * 2 * kFwdTileN * DP) * 2;
 }
 
-// Q, then the ring of (K, V) tile pairs.
-template <int DP>
-__host__ __device__ constexpr int fwd_smem_bytes() {
-  return (kFwdRows * DP + kFwdStages * 2 * kFwdTileN * DP) * 2;
+// Blocks per SM the registers are capped for. Two warpgroups: three where
+// P V is at most 40 wide (80 registers a thread; at DN = 48 that cap
+// spills), two up to d = 64 (128), one above. One warpgroup: as many as
+// shared memory holds (227 KB an SM): five at d = 40 (102 registers),
+// three up to d = 80 (170), two above.
+template <int DP, int DN, int GROUPS>
+__host__ __device__ constexpr int fwd_min_blocks() {
+  if (GROUPS == 2) return DN <= 40 ? 3 : DP <= 64 ? 2 : 1;
+  return DN <= 40 ? 5 : DP <= 80 ? 3 : 2;
 }
 
 // DP: d padded to 16 (the reduction of S); DN: d padded to 8 (the width of
-// P V and of its accumulator).
-template <int DP, int DN>
-__global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<DP, DN>())
+// P V and of its accumulator); GROUPS: warpgroups per block, 64 query rows
+// each; LSE: write the rows' log-sum-exp to p.lse.
+template <int DP, int DN, int GROUPS, bool LSE>
+__global__ void __launch_bounds__(128 * GROUPS, fwd_min_blocks<DP, DN, GROUPS>())
     attention_fwd_bf16_kernel(const Params p) {
+  constexpr int kRows = 64 * GROUPS;  // query rows per block
+  constexpr int kThreads = 128 * GROUPS;
   constexpr int kStageElems = 2 * kFwdTileN * DP;  // K, then V
   constexpr int kNTiles = kFwdTileN / 8;           // n-tiles of S
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_ring = s_q + kFwdRows * DP;
+  __nv_bfloat16* s_ring = s_q + kRows * DP;
 
   const int group = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int m0 = blockIdx.x * kFwdRows;
+  const int m0 = blockIdx.x * kRows;
   const long long col0 = (long long)blockIdx.y * p.head_dim;
   const int batch = blockIdx.z;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + batch * p.q_sb + col0;
@@ -101,8 +111,8 @@ __global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<DP, DN>())
   const float c = p.scale_log2;
 
   // Each thread's copy slots; the chunks past head_dim are zero-filled.
-  const TileCopies<DP, kFwdTileN, kFwdThreads> kv_copies(p.head_dim);
-  const TileCopies<DP, kFwdRows, kFwdThreads> q_copies(p.head_dim);
+  const TileCopies<DP, kFwdTileN, kThreads> kv_copies(p.head_dim);
+  const TileCopies<DP, kRows, kThreads> q_copies(p.head_dim);
   auto load_stage = [&](int tile) {
     __nv_bfloat16* s_k = s_ring + (tile % kFwdStages) * kStageElems;
     kv_copies.copy(s_k, k, p.k_ss, tile * kFwdTileN, p.s_kv);
@@ -115,8 +125,9 @@ __global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<DP, DN>())
     cp_async_commit();
   }
 
-  // This warpgroup's 64 rows of Q, K-major.
-  const uint64_t qa = smem_desc(s_q + group * 64 * 8, kFwdRows * 16, 128);
+  // This warpgroup's 64 rows of Q, K-major: the block's next 8-column chunk
+  // is kRows rows on.
+  const uint64_t qa = smem_desc(s_q + group * 64 * 8, kRows * 16, 128);
   float acc[DN / 8][4];  // O, unnormalized
 #pragma unroll
   for (int i = 0; i < DN / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -190,7 +201,7 @@ __global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<DP, DN>())
     wgmma_fence();  // S = Q K^T
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      Wgmma<kFwdTileN>::ss(&s[0][0], desc_advance(qa, kk * 2 * kFwdRows * 16),
+      Wgmma<kFwdTileN>::ss(&s[0][0], desc_advance(qa, kk * 2 * kRows * 16),
                            smem_desc(s_k + kk * 2 * kFwdTileN * 8, kFwdTileN * 16, 128), kk > 0);
     }
     wgmma_commit();
@@ -225,16 +236,26 @@ __global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<DP, DN>())
     fence_regs(acc);
   }
 
-  // Full row sums across the 4 threads of each row group, then the one
-  // division, on the (rows, DN) output; bf16 written for the columns below
-  // head_dim and the rows below s_q.
+  // Full row sums across the 4 threads of each row group; with LSE each
+  // row's log-sum-exp, then the one division, on the (rows, DN) output;
+  // bf16 written for the columns below head_dim and the rows below s_q.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
     row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
   }
-  const float inv[2] = {1.f / row_sum[0], 1.f / row_sum[1]};
   const int row = m0 + group * 64 + warp * 16 + g;
+  if constexpr (LSE) {
+    if (t == 0) {
+      // log sum_j exp(scale * s_j) = scale * m + log(sum_j exp2((s_j - m) * c))
+      float* lse = p.lse + ((long long)batch * gridDim.y + blockIdx.y) * p.s_q;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row + 8 * r < p.s_q) lse[row + 8 * r] = fmaf(row_max[r], p.scale, logf(row_sum[r]));
+      }
+    }
+  }
+  const float inv[2] = {1.f / row_sum[0], 1.f / row_sum[1]};
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + batch * p.o_sb + col0;
 #pragma unroll
   for (int dt = 0; dt < DN / 8; ++dt) {
@@ -252,59 +273,65 @@ __global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<DP, DN>())
 }
 
 // The instance for one padded width: bf16 (dtype 0) or the fp32 check
-// instance (1), on a grid of 128-row query tiles. Returns the launch's
+// instance (1, which writes the log-sum-exp when p.lse is set), on a grid
+// of (64 * GROUPS-row query tiles, heads, batch rows). Returns the launch's
 // cudaError_t, or the refusal of its dynamic shared memory.
-template <int DP, int DN>
-cudaError_t launch_fwd(const Params& p, int dtype, dim3 grid, cudaStream_t stream) {
+template <int DP, int DN, int GROUPS, bool LSE>
+cudaError_t launch_fwd(const Params& p, int dtype, int batch, int num_heads,
+                       cudaStream_t stream) {
+  constexpr int rows = 64 * GROUPS;
+  const dim3 grid((p.s_q + rows - 1) / rows, num_heads, batch);
   if (dtype == 1) {
-    attention_f32_kernel<DP, kFwdRows><<<grid, kFwdRows, 0, stream>>>(p);
+    attention_f32_kernel<DP, rows><<<grid, rows, 0, stream>>>(p);
     return cudaGetLastError();
   }
   // above 48 KB a block's dynamic shared memory must be asked for
-  constexpr int smem = fwd_smem_bytes<DP>();
-  const cudaError_t set = cudaFuncSetAttribute(
-      attention_fwd_bf16_kernel<DP, DN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = fwd_smem_bytes<DP, GROUPS>();
+  const cudaError_t set =
+      cudaFuncSetAttribute(attention_fwd_bf16_kernel<DP, DN, GROUPS, LSE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return set;
-  attention_fwd_bf16_kernel<DP, DN><<<grid, kFwdThreads, smem, stream>>>(p);
+  attention_fwd_bf16_kernel<DP, DN, GROUPS, LSE><<<grid, 128 * GROUPS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The body of row_attention.cu's C entry point: checks the arguments (K2
-// writes no log-sum-exp: `lse` must be null), selects the operands' device,
-// and launches the instance for the padded head width. dtype: 0 = bfloat16,
-// 1 = float32; strides are in elements. Returns a cudaError_t value: 0 when
-// the launch was accepted.
-inline int row_attention_forward(const void* q, const void* k, const void* v, void* o,
-                                 float* lse, long long q_sb, long long q_ss, long long k_sb,
-                                 long long k_ss, long long v_sb, long long v_ss, long long o_sb,
-                                 long long o_ss, int batch, int s_q, int s_kv, int num_heads,
-                                 int head_dim, float scale, int dtype, int device,
-                                 void* stream) {
-  Params p;
-  if (lse != nullptr ||
-      !make_params(p, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, batch,
+// Launches the instance for the padded head width of checked parameters
+// (fwd_params). Returns a cudaError_t value: 0 when the launch was accepted.
+template <int GROUPS, bool LSE>
+int fwd_launch(const Params& p, int dtype, int batch, int num_heads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((p.head_dim + 15) / 16 * 16) {
+    case 16: return (int)launch_fwd<16, 16, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    case 32: return (int)launch_fwd<32, 32, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    case 48:  // d = 40 (the seq-4096 sites) runs P V 40 wide
+      return p.head_dim == 40
+                 ? (int)launch_fwd<48, 40, GROUPS, LSE>(p, dtype, batch, num_heads, st)
+                 : (int)launch_fwd<48, 48, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    case 64: return (int)launch_fwd<64, 64, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    case 80: return (int)launch_fwd<80, 80, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    case 96: return (int)launch_fwd<96, 96, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    case 112: return (int)launch_fwd<112, 112, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    case 128: return (int)launch_fwd<128, 128, GROUPS, LSE>(p, dtype, batch, num_heads, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The first half of both forward entry points: checks their arguments into
+// `p` (make_params) and selects the operands' device. dtype: 0 = bfloat16,
+// 1 = float32; strides are in elements; `lse` is null or a (batch, heads,
+// s_q) fp32 buffer. Returns a cudaError_t value: 0 when fwd_launch may go on.
+inline int fwd_params(Params& p, const void* q, const void* k, const void* v, void* o,
+                      float* lse, long long q_sb, long long q_ss, long long k_sb,
+                      long long k_ss, long long v_sb, long long v_ss, long long o_sb,
+                      long long o_ss, int batch, int s_q, int s_kv, int num_heads, int head_dim,
+                      float scale, int dtype, int device) {
+  if (!make_params(p, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, batch,
                    s_q, s_kv, num_heads, head_dim, scale, dtype)) {
     return (int)cudaErrorInvalidValue;
   }
   // Each library carries its own (static) CUDA runtime, whose current device
   // is not PyTorch's: select the operands' device before launching.
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
-  const dim3 grid((s_q + kFwdRows - 1) / kFwdRows, num_heads, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((head_dim + 15) / 16 * 16) {
-    case 16: return (int)launch_fwd<16, 16>(p, dtype, grid, st);
-    case 32: return (int)launch_fwd<32, 32>(p, dtype, grid, st);
-    case 48:  // d = 40 (the batched path's seq-4096 sites) runs P V 40 wide
-      return head_dim == 40 ? (int)launch_fwd<48, 40>(p, dtype, grid, st)
-                            : (int)launch_fwd<48, 48>(p, dtype, grid, st);
-    case 64: return (int)launch_fwd<64, 64>(p, dtype, grid, st);
-    case 80: return (int)launch_fwd<80, 80>(p, dtype, grid, st);
-    case 96: return (int)launch_fwd<96, 96>(p, dtype, grid, st);
-    case 112: return (int)launch_fwd<112, 112>(p, dtype, grid, st);
-    case 128: return (int)launch_fwd<128, 128>(p, dtype, grid, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)cudaSetDevice(device);
 }
 
 }  // namespace riff

@@ -23,8 +23,8 @@
 // of 132 SMs at 1980 MHz. At d = 40 the exponentials set the bound, so
 // every instruction per logit besides the exp2 counts.
 //
-// What the design does about it (attention_fwd.cuh holds the body and says
-// more):
+// What the design does about it (attention_fwd.cuh holds the body, which K1
+// runs too, and says more):
 //   - Tensor cores: wgmma, S = Q K^T from shared memory and O += P V with P
 //     fed from the S accumulators as the register A operand, so the logits
 //     never leave registers. V is read MN-major from the tile as it was
@@ -61,13 +61,19 @@
 
 #include "attention_fwd.cuh"
 
+// K2 writes no log-sum-exp (its gradient is the plain recompute): a buffer
+// for one is refused. Two warpgroups per block, 128 query rows.
 extern "C" int riff_row_attention_forward(const void* q, const void* k, const void* v, void* o,
                                           float* lse, long long q_sb, long long q_ss, long long k_sb,
                                           long long k_ss, long long v_sb, long long v_ss,
                                           long long o_sb, long long o_ss, int batch, int s_q,
                                           int s_kv, int num_heads, int head_dim, float scale,
                                           int dtype, int device, void* stream) {
-  return riff::row_attention_forward(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
-                                     o_ss, batch, s_q, s_kv, num_heads, head_dim, scale, dtype,
-                                     device, stream);
+  if (lse != nullptr) return (int)cudaErrorInvalidValue;
+  riff::Params p;
+  const int rc = riff::fwd_params(p, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+                                  o_ss, batch, s_q, s_kv, num_heads, head_dim, scale, dtype,
+                                  device);
+  if (rc != 0) return rc;
+  return riff::fwd_launch<2, false>(p, dtype, batch, num_heads, stream);
 }

@@ -52,6 +52,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -64,8 +65,8 @@ import torch
 __all__ = [
     "attention", "row_attention", "attention_backward", "attention_reference",
     "attention_backward_reference", "build_kernels", "compare_to_plain", "backward_delta",
-    "compare_grads_to_plain", "kernel_takes_head_dim", "route", "COUNTS", "TOLERANCE",
-    "GRAD_TOLERANCE",
+    "compare_grads_to_plain", "kernel_takes_head_dim", "ptxas_instances", "route", "COUNTS",
+    "TOLERANCE", "GRAD_TOLERANCE",
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -216,6 +217,26 @@ def build_kernels(
             _built[name] = BuiltKernel(fn=fn, path=so_path, build_seconds=seconds,
                                        compiler_log=log)
         return {n: _built[n] for n in names}
+
+
+def ptxas_instances(compiler_log: str) -> T.List[T.Tuple[str, str, str]]:
+    """(instance, registers, spills) of each kernel instance in an nvcc
+    `-Xptxas -v` log: the instance as `name<args>` read from the mangled
+    name (`_ZN4riff25attention_fwd_bf16_kernelILi48ELi40ELi2ELb0EEEv...` ->
+    `attention_fwd_bf16_kernel<48, 40, 2, 0>`), ptxas's "Used ... registers"
+    line and its spill line."""
+    found, instance, spills = [], "?", ""
+    for line in compiler_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E)+)E", line)
+        if entry:  # the name after the mangling's last length prefix, and its arguments
+            name = re.split(r"\d+(?=[a-z])", entry.group(1))[-1]
+            args = re.findall(r"L[ib](\d+)E", entry.group(2))
+            instance = f"{name}<{', '.join(args)}>"
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            found.append((instance, line.split(":", 1)[-1].strip(), spills))
+    return found
 
 
 def attention_reference(

@@ -16,7 +16,9 @@ Prints, and writes as JSON with --out:
 - for one further FAST batch of 16 under torch.profiler: each pipeline
   stage's span on the host and on the device (the riffusion.* spans), the
   device's busy time (the sum of kernel and copy times; one stream) against
-  the batch's wall time, and the 15 kernels with the most device time;
+  the batch's wall time, K1's and K2's device time (their instances of the
+  forward body, `forward_instances`), and the 15 kernels with the most
+  device time;
 - the card's SM clock, power draw, temperature and active clock-event
   reasons, sampled by nvidia-smi every 200 ms, summarised over each of the
   above (min, median, max), so that a kernel's time inside the batch and
@@ -36,6 +38,31 @@ import typing as T
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+# The bf16 forward body both forward kernels run (csrc/attention_fwd.cuh):
+# K1's and K2's instances of it are told apart by the names that one
+# profiled call of each wrapper, at its batch-16 site's head width, gives.
+FORWARD_KERNEL = "attention_fwd_bf16_kernel"
+FORWARD_SITES = {"k1": ("attention", 1024, 8, 80), "k2": ("row_attention", 4096, 8, 40)}
+
+
+def forward_instances(torch, attn) -> T.Dict[str, T.Set[str]]:
+    """{"k1": K1's instance names, "k2": K2's}, from one profiled call of
+    each wrapper (batch 1) at its batch-16 site's sequence and head width;
+    raises if the two share a name, which would make their times one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for label, (wrapper, s, h, d) in FORWARD_SITES.items():
+        q, k, v = (torch.randn(1, s, h * d, device="cuda").to(torch.bfloat16) for _ in range(3))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            getattr(attn, wrapper)(q, k, v, num_heads=h, scale=d**-0.5)
+            torch.cuda.synchronize()
+        names[label] = {e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and FORWARD_KERNEL in e.name}
+    if not names["k1"] or not names["k2"] or names["k1"] & names["k2"]:
+        raise RuntimeError(f"K1's and K2's forward instances cannot be told apart: {names}")
+    return names
 
 
 def _smi_fields() -> str:
@@ -162,6 +189,7 @@ def main(argv=None) -> int:
     print(f"K2 alone at (32, 4096, 8*40) bf16: {result['k2_alone']}", flush=True)
     del q, k, v
 
+    instances = forward_instances(torch, attn)
     attn.COUNTS.reset()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -193,6 +221,9 @@ def main(argv=None) -> int:
         "device_ops": len(kernels),
         "k1_launches": attn.COUNTS.launches,
         "k2_launches": attn.COUNTS.row_launches,
+        "k1_ms": sum(by_name.get(n, (0.0, 0))[0] for n in instances["k1"]),
+        "k2_ms": sum(by_name.get(n, (0.0, 0))[0] for n in instances["k2"]),
+        "forward_instances": {k: sorted(v) for k, v in instances.items()},
         "plain_calls": attn.COUNTS.plain_calls,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "clocks": clocks.summary(t0, t1),
@@ -202,7 +233,8 @@ def main(argv=None) -> int:
     p = result["profiled"]
     print(f"profiled batch {profiled_s:.4f} s: device busy {busy_ms:.1f} ms (idle share "
           f"{p['device_idle_share']:.4f}), {len(kernels)} device ops, K1/K2/plain "
-          f"{p['k1_launches']}/{p['k2_launches']}/{p['plain_calls']}, peak "
+          f"{p['k1_launches']}/{p['k2_launches']}/{p['plain_calls']} launches, K1 "
+          f"{p['k1_ms']:.2f} ms, K2 {p['k2_ms']:.2f} ms, peak "
           f"{p['max_memory_allocated_gib']:.2f} GiB")
     for name, spans in stages.items():
         print(f"  {name}: " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))

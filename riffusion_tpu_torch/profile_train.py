@@ -33,6 +33,12 @@ import sys
 import time
 from pathlib import Path
 
+# The attention kernels of a step as the profiler names them: K1's forward
+# (csrc/attention_fwd.cuh's bf16 body, which K2 also runs but training never
+# reaches) and the two backward kernels (csrc/attention_bwd.cuh).
+ATTENTION_KERNELS = {"k1_forward": "attention_fwd_bf16_kernel",
+                     "dkv": "attention_dkv_bf16_kernel", "dq": "attention_dq_bf16_kernel"}
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -120,12 +126,8 @@ def main(argv=None) -> int:
     for e in kernels:
         total, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + e.time_range.elapsed_us() / 1e3, count + 1)
-    attention_ms = {
-        label: sum(t for n, (t, _) in by_name.items() if key in n)
-        for label, key in (("k1_forward", "attention_bf16_kernel"),
-                           ("dkv", "attention_dkv_bf16_kernel"),
-                           ("dq", "attention_dq_bf16_kernel"))
-    }
+    attention_ms = {label: sum(t for n, (t, _) in by_name.items() if key in n)
+                    for label, key in ATTENTION_KERNELS.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     result["profiled"] = {
         "steps": 2,

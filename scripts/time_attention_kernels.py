@@ -6,12 +6,15 @@ one checkout of the repository:
     python3 scripts/time_attention_kernels.py [--repo DIR] [--label NAME]
 
 The forward: K1 (`ops.attention.attention`) at (2, 4096, 8*40) and
-(2, 1024, 8*80) bf16, the single-clip path's sites, and K2
-(`row_attention`) and K1 at (32, 4096, 8*40), the batched path's; the
+(2, 1024, 8*80) bf16, the single-clip path's sites, and at
+(32, 1024, 8*80), the batched path's seq-1024 sites; K2 (`row_attention`)
+and K1 at (32, 4096, 8*40), the batched path's seq-4096 sites (K2's); the
 library's forward (torch's scaled_dot_product_attention on heads-first
-copies, a yardstick the port never calls) at (2, 4096, 8*40) and
-(32, 4096, 8*40). The backward, at the fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80):
-the dK/dV and dQ kernels alone, the port's whole `attention_backward`
+copies, a yardstick the port never calls) at each of these shapes. At the
+fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80): K1 writing the
+log-sum-exp and the library's forward on operands that need gradients (so
+that it too keeps its log-sum-exp); the dK/dV and dQ kernels alone,
+the port's whole `attention_backward`
 (delta, then both kernels: the row to hold against the library), and the
 library's backward (torch's scaled_dot_product_attention through autograd,
 a yardstick the port never calls). Each is the median of 20 single calls
@@ -37,14 +40,17 @@ from pathlib import Path
 SHAPES = (  # (kernel, batch, seq, heads, head_dim)
     ("attention", 2, 4096, 8, 40),
     ("attention", 2, 1024, 8, 80),
+    ("attention", 32, 1024, 8, 80),
     ("attention", 32, 4096, 8, 40),
     ("row_attention", 32, 4096, 8, 40),
     ("library forward", 2, 4096, 8, 40),
+    ("library forward", 2, 1024, 8, 80),
+    ("library forward", 32, 1024, 8, 80),
     ("library forward", 32, 4096, 8, 40),
 )
 TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # (batch, seq, heads, head_dim)
-BACKWARD_FLOP = {"attention_dkv": 8, "attention_dq": 6, "attention_backward": 14,
-                 "library backward": 10}  # times b*h*s*s*d
+FLOP = {"attention with LSE": 4, "library forward": 4, "attention_dkv": 8, "attention_dq": 6,
+        "attention_backward": 14, "library backward": 10}  # times b*h*s*s*d
 
 
 def _median_ms(torch, fn) -> float:
@@ -110,6 +116,9 @@ def main() -> int:
                            for x in (q, k, v, dout))
         lib_out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale)
         fns = {
+            "attention with LSE": lambda: attn._launch("attention", q, k, v, h, scale, lse=lse),
+            "library forward": lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale),
             "attention_dkv": lambda: attn._launch_backward("attention_dkv", q, k, v, dout, lse,
                                                            delta, h, scale),
             "attention_dq": lambda: attn._launch_backward("attention_dq", q, k, v, dout, lse,
@@ -122,7 +131,7 @@ def main() -> int:
         for name, fn in fns.items():
             key = f"{name} ({b}, {s}, {h}*{d})"
             times[key] = _median_ms(torch, fn)
-            tflops[key] = BACKWARD_FLOP[name] * b * h * s * s * d / times[key] / 1e9
+            tflops[key] = FLOP[name] * b * h * s * s * d / times[key] / 1e9
         del q, k, v, dout, lse, out, delta, qh, kh, vh, doh, lib_out, fns
         torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

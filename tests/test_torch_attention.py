@@ -148,10 +148,12 @@ def test_kernel_source_is_shipped():
     for source, entry in attn_mod.KERNELS.values():
         assert source.is_file()
         assert entry in source.read_text()
-        # K1's forward body, K2's (attention_fwd.cuh) or the backward's; the
-        # last two include the first and hopper.cuh
+        # the forward body (attention_fwd.cuh: K1 and K2) or the backward's;
+        # both include attention_common.cuh and hopper.cuh
         assert any(f'#include "{body}"' in source.read_text()
-                   for body in ("attention_common.cuh", "attention_fwd.cuh", "attention_bwd.cuh"))
+                   for body in ("attention_fwd.cuh", "attention_bwd.cuh"))
+    for name in ("attention", "row_attention"):  # one bf16 forward body
+        assert '#include "attention_fwd.cuh"' in attn_mod.KERNELS[name][0].read_text()
     assert (attn_mod._CSRC / "attention_common.cuh").is_file()
     for body in ("attention_fwd.cuh", "attention_bwd.cuh"):
         text = (attn_mod._CSRC / body).read_text()
@@ -159,18 +161,22 @@ def test_kernel_source_is_shipped():
 
 
 def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_tile=None,
-                     fold_q_bf16=False, wrong_head=False, no_rescale=False):
-    """The bf16 arithmetic of csrc/attention.cu and csrc/row_attention.cu in
-    PyTorch: fp32 logits, an online softmax over 64-row K/V tiles in the
-    log2 domain with the scale*log2(e) fold in fp32, unnormalized weights
-    rounded to bf16 for P V, fp32 accumulation, the division after P V, a
-    bf16 output. (K1's mma.sync body and K2's wgmma body, attention_fwd.cuh,
-    round at these same points and differ in query rows per block, which
-    does not change a row's arithmetic.) Flags plant faults: the
-    zero-padded keys of the ragged last tile get logit 0 instead of -inf,
-    one K/V tile is skipped, Q is read from the next head's columns, the
-    fold is made into Q in bf16 as the TPU kernel makes it, or O is not
-    rescaled when the running max moves (the row sum still is)."""
+                     fold_q_bf16=False, wrong_head=False, no_rescale=False, lse=False,
+                     lse_fault=None):
+    """The bf16 arithmetic of csrc/attention_fwd.cuh, the body K1
+    (csrc/attention.cu) and K2 (csrc/row_attention.cu) run, in PyTorch:
+    fp32 logits, an online softmax over 64-row K/V tiles in the log2 domain
+    with the running max in logit units and the scale*log2(e) fold in fp32
+    (s * c - m * c), unnormalized weights rounded to bf16 for P V, fp32
+    accumulation, the division after P V, a bf16 output. With `lse`, also
+    K1's log-sum-exp, (b, h, s_q) fp32: m * scale + log(row sum), natural
+    log. Flags plant faults: the zero-padded keys of the ragged last tile
+    get logit 0 instead of -inf, one K/V tile is skipped, Q is read from the
+    next head's columns, the fold is made into Q in bf16 as the TPU kernel
+    makes it, or O is not rescaled when the running max moves (the row sum
+    still is); `lse_fault` writes the LSE in log2 units ("log2 units"), into
+    the next head's rows ("next head"), or swaps the two rows, g and g + 8,
+    each thread of the kernel holds ("rows swapped")."""
     b, s_q, inner = q.shape
     d = inner // num_heads
 
@@ -186,21 +192,34 @@ def _kernel_numerics(q, k, v, num_heads, scale, *, tail_logit_zero=False, skip_t
     if tail_logit_zero:
         pad = torch.zeros(b, num_heads, -kh.shape[2] % 64, d)
         kh, vh = torch.cat([kh, pad], 2), torch.cat([vh, pad], 2)
-    row_max = torch.full((b, num_heads, s_q, 1), -math.inf)
+    row_max = torch.full((b, num_heads, s_q, 1), -math.inf)  # logit units
     row_sum = torch.zeros(b, num_heads, s_q, 1)
     acc = torch.zeros(b, num_heads, s_q, d)
     for tile, n0 in enumerate(range(0, kh.shape[2], 64)):
         if tile == skip_tile:
             continue
-        logits = qh @ kh[:, :, n0:n0 + 64].transpose(-1, -2) * c
+        logits = qh @ kh[:, :, n0:n0 + 64].transpose(-1, -2)
         new_max = torch.maximum(row_max, logits.amax(-1, keepdim=True))
-        alpha, p = torch.exp2(row_max - new_max), torch.exp2(logits - new_max)
+        alpha, p = torch.exp2((row_max - new_max) * c), torch.exp2(logits * c - new_max * c)
         row_sum = row_sum * alpha + p.sum(-1, keepdim=True)
         if not no_rescale:
             acc = acc * alpha
         acc = acc + p.to(torch.bfloat16).float() @ vh[:, :, n0:n0 + 64]
         row_max = new_max
-    return (acc / row_sum).transpose(1, 2).reshape(b, s_q, inner).to(torch.bfloat16)
+    out = (acc / row_sum).transpose(1, 2).reshape(b, s_q, inner).to(torch.bfloat16)
+    if not lse:
+        return out
+    if lse_fault == "log2 units":
+        lse_rows = row_max * c + torch.log2(row_sum)
+    else:
+        lse_rows = row_max * scale + torch.log(row_sum)
+    lse_rows = lse_rows[..., 0]
+    if lse_fault == "next head":  # head h's rows written where head h + 1's belong
+        lse_rows = lse_rows.roll(1, dims=1)
+    if lse_fault == "rows swapped":
+        rows = torch.arange(s_q)
+        lse_rows = lse_rows[..., torch.where((rows ^ 8) < s_q, rows ^ 8, rows)]
+    return out, lse_rows
 
 
 def _bf16_case(s_q, s_kv, h, d, seed=4, mult=1.0):
@@ -269,6 +288,36 @@ def test_bf16_tolerance_rejects_q_from_the_wrong_head(s_q, s_kv, h, d):
     max_abs, rel_rms, ok = compare_to_plain(
         _kernel_numerics(q, k, v, h, d**-0.5, wrong_head=True), ref)
     assert not ok, (max_abs, rel_rms)
+
+
+# K1's log-sum-exp (the body's LSE write: m * scale + log(row sum) after the
+# online softmax over 64-row K/V tiles) against logsumexp of the fp32
+# logits, per head: at the path's width, at a ragged s_kv (the last tile
+# masked) and at large logits. 1e-4: the same fp32 arithmetic in another
+# order (the card's check allows 1e-3 for ex2.approx).
+@pytest.mark.parametrize("s_q,s_kv,h,d,mult", [(1024, 1024, 2, 40, 1.0), (1000, 777, 2, 128, 1.0),
+                                               (333, 1000, 3, 16, 4.0)],
+                         ids=["d40", "ragged-d128", "large-logits-d16"])
+def test_kernel_lse_matches_logsumexp(s_q, s_kv, h, d, mult):
+    q, k, v = _bf16_case(s_q, s_kv, h, d, mult=mult)
+    out, lse = _kernel_numerics(q, k, v, h, d**-0.5, lse=True)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float().reshape(1, s_q, h, d),
+                          k.float().reshape(1, s_kv, h, d)) * d**-0.5
+    assert lse.shape == (1, h, s_q) and lse.dtype == torch.float32
+    assert float((lse - torch.logsumexp(logits, dim=-1)).abs().max()) < 1e-4
+    assert torch.equal(out, _kernel_numerics(q, k, v, h, d**-0.5))
+
+
+@pytest.mark.parametrize("fault", ["log2 units", "next head", "rows swapped"])
+def test_lse_check_rejects_a_planted_fault(fault):
+    """The LSE faults chip_smoke.py plants in the body fail the card's LSE
+    bound (1e-3 max abs against logsumexp)."""
+    s_q, s_kv, h, d = 1000, 777, 2, 40
+    q, k, v = _bf16_case(s_q, s_kv, h, d)
+    _, lse = _kernel_numerics(q, k, v, h, d**-0.5, lse=True, lse_fault=fault)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float().reshape(1, s_q, h, d),
+                          k.float().reshape(1, s_kv, h, d)) * d**-0.5
+    assert float((lse - torch.logsumexp(logits, dim=-1)).abs().max()) > 1e-3
 
 
 # K2's plain version (the CPU path of `row_attention`) against the JAX

@@ -48,6 +48,10 @@ def _qkv(dev, b, s_q, s_kv, h, d, dtype, mult=1.0, seed=0):
 # Each case is held to ops.attention.TOLERANCE (max abs error and error RMS
 # over output RMS, per dtype; the reasons are there, and
 # tests/test_torch_attention.py shows the bf16 bound fails planted faults).
+# K1 runs attention_fwd.cuh's body, as K2 does: 128 query rows per block
+# and 64-row K/V tiles, so s_q 65 and 129 and s_kv 191 leave ragged tiles,
+# s = 64 is one K/V tile, read as soon as its copies land, and d = 24 pads
+# to 32 for both products.
 @pytest.mark.parametrize(
     "b,s_q,s_kv,h,d,dtype,mult",
     [
@@ -62,9 +66,14 @@ def _qkv(dev, b, s_q, s_kv, h, d, dtype, mult=1.0, seed=0):
         (1, 1024, 1024, 2, 40, torch.bfloat16, 8.0),
         (2, 300, 300, 3, 32, torch.float32, 1.0),
         (1, 1000, 777, 2, 128, torch.float32, 1.0),
+        (2, 129, 191, 2, 40, torch.bfloat16, 1.0),
+        (2, 65, 191, 2, 40, torch.bfloat16, 1.0),
+        (16, 64, 64, 8, 40, torch.bfloat16, 1.0),
+        (3, 300, 257, 2, 24, torch.bfloat16, 1.0),
     ],
     ids=["slice-d40", "slice-d80", "batch16-d80", "batch8-d80", "batch4-d40", "ragged-d16",
-         "ragged-d32", "ragged-d128", "large-logits", "f32-d32", "f32-ragged-d128"],
+         "ragged-d32", "ragged-d128", "large-logits", "f32-d32", "f32-ragged-d128", "edges-d40",
+         "edges-s_q65", "one-tile", "d24"],
 )
 def test_kernel_matches_plain(cuda_device, b, s_q, s_kv, h, d, dtype, mult):
     q, k, v = _qkv(cuda_device, b, s_q, s_kv, h, d, dtype, mult)
@@ -119,7 +128,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         attention(q, q, q, num_heads=2, scale=1.0)
 
 
-# K2's bf16 body (csrc/attention_fwd.cuh) owns 128 query rows per block and
+# K2's bf16 body (csrc/attention_fwd.cuh, K1's too) owns 128 query rows per block and
 # streams 64-row K/V tiles: s_q 129 and s_kv 191 leave a ragged query tile
 # and a ragged last K/V tile; s = 64 is one K/V tile, read as soon as its
 # copies land (a ring that does not wait for them reads shared memory

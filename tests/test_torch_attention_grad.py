@@ -26,6 +26,7 @@ import pytest
 import torch
 from jax.experimental.pallas.ops.tpu import flash_attention as jax_flash
 
+from test_torch_attention import _kernel_numerics
 from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu.models.layers import Attention as JaxAttention
 from riffusion_tpu.ops.attention import _reference, full_row_attention
@@ -257,3 +258,23 @@ def test_grad_tolerance_rejects_planted_faults(fault):
     grads = emulate_backward(q, k, v, out, dout, lse, h, scale, fault=fault)
     result = attn.compare_grads_to_plain(grads, refs)
     assert not all(ok for _, _, ok in result.values()), result
+
+
+@pytest.mark.parametrize("lse_fault", [None, "log2 units", "next head", "rows swapped"],
+                         ids=["forward-lse", "log2-units", "next-head", "rows-swapped"])
+def test_backward_from_the_forward_kernels_lse(lse_fault):
+    """What the backward kernels take from K1: its output and log-sum-exp by
+    the forward body's arithmetic (test_torch_attention._kernel_numerics),
+    at a ragged s_q and s_kv, through the backward kernels' arithmetic,
+    within GRAD_TOLERANCE of attention_backward_reference on the same
+    output; and rejected with each LSE fault chip_smoke.py plants in the
+    forward body."""
+    b, s_q, s_kv, h, d = 1, 333, 777, 2, 40
+    scale = d ** -0.5
+    q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
+                     for x in _inputs(b, s_q, s_kv, h, d, seed=3))
+    out, lse = _kernel_numerics(q, k, v, h, scale, lse=True, lse_fault=lse_fault)
+    refs = attn.attention_backward_reference(q, k, v, out, dout, num_heads=h, scale=scale)
+    grads = emulate_backward(q, k, v, out, dout, lse, h, scale)
+    result = attn.compare_grads_to_plain(grads, refs)
+    assert all(ok for _, _, ok in result.values()) == (lse_fault is None), result
