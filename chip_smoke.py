@@ -48,10 +48,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 6. tiny: the tiny model end to end on the card (fp32) against the same model
    on the CPU, with the same injected noise, at a 256 px seed (K1 sites
    reached, K2 not); images agree within one uint8 level on >= 99% of pixels.
+   Then the same request with ddim, lms, euler and euler_a (its per-step
+   noise injected too), a txt2img (euler_a) and an img2img (lms), each held
+   to the same image bound.
 7. tiny batch: 5 requests through riffuse_audio_batch, the tiny model in fp32
    at a 512 px seed (UNet batch 10, the 64x64 level is lq 4096 at d=16, so K2
-   is reached), on the card against the CPU with the same noise per request;
-   the same image bound, K2 launched, no plain-version call.
+   is reached), on the card against the CPU with the same noise per request,
+   with unipc_k:rho=2, ddim, lms, euler and euler_a; the same image bound, K2
+   launched in each (euler_a's batch among them), no plain-version call.
 8. tiny train: three trainer steps of the tiny UNet in fp32 (32x32
    latents, so K1 and its backward are reached) on the card against the
    same steps on the CPU with the same t and noise: the losses, and the
@@ -69,9 +73,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    batching window closed so that it does not wait 3 s for company. One
    /run_inference_batch/ of 16 at 50-step PNDM: K2 and K1 190 times each.
    E comes from the port's plans. Every response passes the checks of 9.
-11. train: fine-tuning at full width. 8 synthesized clips of 5.12 s go
-   through build_latent_dataset with the random:full pipeline, then
-   run_finetune(steps=4, batch_size=4) (fp32 masters, bf16 compute, AdamW,
+checkpoint: a diffusers-layout directory (under .chipwork/, deleted at the
+   end) written from random:full's fp32 weights by this script's own writer
+   and its own inverse of the loader's key renames, checked to round-trip on
+   every key first: SD v1 config.json files, a scheduler config naming
+   DDIMScheduler, the UNet and CLIP as safetensors, the VAE as a torch .bin
+   under the old attention names (query/key/value/proj_attn). The server
+   started with --checkpoint DIR loads it (UNet and CLIP bf16, VAE fp32):
+   every parameter bit-equal to random:full's, the sampler ddim; prints the
+   bytes on disk, the load seconds and the peak device memory. Two 50-step
+   /run_inference/ requests at strength 0.75 through K1 exactly 10 x E times
+   each (E, the DDIM plan's evaluations); then on the same pipeline one
+   50-step riffuse_audio each with pndm, ddim, lms, euler and euler_a (two
+   turns) and one 512x512 txt2img (euler_a, 50 steps), each with exact K1
+   counts and a non-flat image; each request's seconds.
+11. train: fine-tuning at full width from the checkpoint directory. 8
+   synthesized clips of 5.12 s go through build_latent_dataset with the
+   checkpoint's pipeline, then run_finetune(checkpoint=DIR, steps=4,
+   batch_size=4) (fp32 masters, bf16 compute, AdamW,
    EMA, the final checkpoint and the export) in a directory under .chipwork/
    that is deleted at the end. Every step takes exactly 10 K1 forwards,
    10 dK/dV and 10 dQ launches and no plain call, with a finite loss.
@@ -80,26 +99,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    full-width step's gradients with the kernels against the same step with
    the plain attention (the smoke swaps models.layers._ATTENTION_OPS in
    its own process) within TRAIN_GRAD_BOUND; the export reloaded with
-   RiffusionPipeline.load_checkpoint and one request riffused.
+   RiffusionPipeline.load_checkpoint and one request riffused with the
+   sampler it carries from the checkpoint (ddim, 10 x E K1 launches).
 
 `--mutants` instead builds each planted fault of MUTANTS into a copy of
 the kernel sources and shows that the checks of every kernel it touches
 reject it (tests/test_torch_kernel_sources.py holds each fault's text to
 its source on the CPU).
 
-The last two lines are the kernel table and
-{"ok": true, "device": {"platform": "gpu", ...}}.
+Each phase's seconds are printed ("[time]"). The last two lines are the
+kernel table and {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
 
 import base64
 import copy
+import gc
 import io
 import json
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -116,6 +138,7 @@ K1_BATCH_SHAPE = (32, 1024, 8, 80)  # K1's site at serving batch 16
 TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # K1's sites at fine-tuning batch 4
 LAUNCHES_PER_REQUEST = 38 * 10
 LAUNCHES_PER_STEP = 10  # self-attention sites on K1 at UNet batch 4
+SAMPLERS = ("ddim", "lms", "euler", "euler_a")  # the samplers a diffusers checkpoint names
 
 # The card's published peaks (H100 SXM, dense) for the bound of each kernel:
 # the largest of its FLOPs over the bf16 tensor-core rate, its bytes (each
@@ -612,13 +635,14 @@ def phase_tiny(torch, attn) -> None:
     cpu_pipe = RiffusionPipeline(cpu_bundle, device="cpu")
     n_active = cpu_pipe.converter(params).n_active
     latent = (1, 4, size // 8, size // 8)
-    noise = FixedNoise({
+    draws = {
         "vae_eps": rng.standard_normal(latent),
         "noise_a": rng.standard_normal(latent),
         "noise_b": rng.standard_normal(latent),
         "gl_real": rng.random((1, n_active, size)),
         "gl_imag": rng.random((1, n_active, size)),
-    })
+    }
+    noise = FixedNoise(draws)
     inputs = InferenceInput(start=PromptInput(prompt="church bells", seed=1),
                             end=PromptInput(prompt="techno", seed=2), alpha=0.5,
                             num_inference_steps=10)
@@ -637,6 +661,39 @@ def phase_tiny(torch, attn) -> None:
         raise AssertionError("the tiny run on the card did not go through K1 alone")
     if max_diff > 1 or equal < 0.99 or not wave_err < 0.35:
         raise AssertionError("the card's tiny run disagrees with the CPU run")
+
+    def both(what: str, fn) -> None:
+        attn.COUNTS.reset()
+        img_g = fn(gpu_pipe)
+        torch.cuda.synchronize()
+        counts = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+        equal, max_diff = _image_agreement(img_g, fn(cpu_pipe))
+        log(f"[tiny] {what}, cuda fp32 vs cpu fp32: pixels equal {equal:.4%}, max diff "
+            f"{max_diff}; (K1, K2, plain) launches {counts}")
+        if counts[0] == 0 or counts[1:] != (0, 0):
+            raise AssertionError(f"tiny {what} on the card did not go through K1 alone")
+        if max_diff > 1 or equal < 0.99:
+            raise AssertionError(f"the card's tiny {what} disagrees with the CPU's")
+
+    def with_ancestral(draws: dict, steps: int) -> dict:
+        return {**draws, "ancestral": rng.standard_normal((steps,) + latent)}
+
+    # guidance 1.75 for the other samplers (phase 7's docstring)
+    low = InferenceInput(start=PromptInput(prompt="church bells", seed=1, guidance=1.75),
+                         end=PromptInput(prompt="techno", seed=2, guidance=1.75), alpha=0.5,
+                         num_inference_steps=10)
+    for name in SAMPLERS:
+        steps = cpu_pipe._plan(name, 10, 0.75)[0].num_steps
+        nz = FixedNoise(with_ancestral(draws, steps) if name == "euler_a" else draws)
+        both(f"riffuse_audio {name}-10",
+             lambda p: p.riffuse_audio(low, image, params=params, scheduler=name, noise=nz)[0])
+    t2i = FixedNoise(with_ancestral({"latents": rng.standard_normal(latent)}, 10))
+    both("txt2img euler_a-10", lambda p: p.txt2img(
+        "church bells", negative_prompt="noise", num_inference_steps=10, guidance=1.75,
+        width=size, height=size, scheduler="euler_a", noise=t2i))
+    both("img2img lms-10", lambda p: p.img2img(
+        "techno", image, denoising_strength=0.6, num_inference_steps=10, guidance=1.75,
+        scheduler="lms", noise=noise))
 
 
 def _image_agreement(a_img, b_img):
@@ -668,36 +725,254 @@ def phase_tiny_batch(torch, attn) -> None:
     cpu_pipe = RiffusionPipeline(cpu_bundle, device="cpu")
     n_active = cpu_pipe.converter(params).n_active
     latent = (1, 4, size // 8, size // 8)
-    noises = [FixedNoise({
+    draws = [{
         "vae_eps": rng.standard_normal(latent),
         "noise_a": rng.standard_normal(latent),
         "noise_b": rng.standard_normal(latent),
         "gl_real": rng.random((1, n_active, size)),
         "gl_imag": rng.random((1, n_active, size)),
-    }) for _ in range(n)]
+    } for _ in range(n)]
+    noises = [FixedNoise(d) for d in draws]
     inputs_list = [
         InferenceInput(start=PromptInput(prompt=f"church bells {i}", seed=i, guidance=1.5 + 0.1 * i),
                        end=PromptInput(prompt="techno", seed=10 + i, guidance=1.5),
                        alpha=0.2 * i, num_inference_steps=10)
         for i in range(n)
     ]
-    scheduler = "unipc_k:rho=2"
-    attn.COUNTS.reset()
-    out_g = gpu_pipe.riffuse_audio_batch(inputs_list, image, params=params, noises=noises,
-                                         scheduler=scheduler)
+    for scheduler in ("unipc_k:rho=2",) + SAMPLERS:
+        if scheduler == "euler_a":
+            steps = cpu_pipe._plan(scheduler, 10, 0.75)[0].num_steps
+            noises = [FixedNoise({**d, "ancestral": rng.standard_normal((steps,) + latent)})
+                      for d in draws]
+        attn.COUNTS.reset()
+        out_g = gpu_pipe.riffuse_audio_batch(inputs_list, image, params=params, noises=noises,
+                                             scheduler=scheduler)
+        torch.cuda.synchronize()
+        launches, rows = attn.COUNTS.launches, attn.COUNTS.row_launches
+        plain = attn.COUNTS.plain_calls
+        out_c = cpu_pipe.riffuse_audio_batch(inputs_list, image, params=params, noises=noises,
+                                             scheduler=scheduler)
+        agreement = [_image_agreement(g[0], c[0]) for g, c in zip(out_g, out_c)]
+        log(f"[tiny batch] {n} requests at {size}px ({scheduler}, UNet batch {2 * n}), cuda "
+            f"fp32 vs cpu fp32, (pixels equal, max diff) per request: "
+            f"{[(f'{e:.4%}', m) for e, m in agreement]}; K1 launches {launches}, K2 launches "
+            f"{rows}, plain calls {plain}")
+        if rows == 0 or launches == 0 or plain != 0:
+            raise AssertionError(f"the tiny batch ({scheduler}) on the card did not go through "
+                                 "both kernels")
+        if any(m > 1 or e < 0.99 for e, m in agreement):
+            raise AssertionError(f"the card's tiny batch ({scheduler}) disagrees with the CPU's")
+
+
+# ------------------------------------------------------------- the checkpoint
+
+
+def _diffusers_key(kind: str, key: str, old_vae_names: bool = False) -> str:
+    """The inverse of the loader's renames (models/weights.py): a port
+    state-dict key -> its key in a diffusers checkpoint."""
+    if kind == "unet":
+        k = re.sub(r"(down_blocks|up_blocks|attentions|resnets|downsamplers|upsamplers)_(\d+)",
+                   r"\1.\2", key)
+        k = re.sub(r"(^|\.)blocks_(\d+)", r"\1transformer_blocks.\2", k)
+        return (k.replace(".to_out.", ".to_out.0.").replace("ff.proj_in", "ff.net.0.proj")
+                .replace("ff.proj_out", "ff.net.2"))
+    if kind == "vae":
+        k = re.sub(r"(down_blocks|up_blocks)_(\d+)_(resnets|downsamplers|upsamplers)_(\d+)",
+                   r"\1.\2.\3.\4", key)
+        k = re.sub(r"(resnets|attentions)_(\d+)", r"\1.\2", k)
+        k = re.sub(r"^(?:encoder\.(quant_conv)|decoder\.(post_quant_conv))",
+                   lambda m: m.group(1) or m.group(2), k)
+        if old_vae_names:  # the diffusers <= 0.9 names
+            for new, old in (("to_q", "query"), ("to_k", "key"), ("to_v", "value"),
+                             ("to_out", "proj_attn")):
+                k = k.replace(f".attentions.0.{new}.", f".attentions.0.{old}.")
+            return k
+        return k.replace(".to_out.", ".to_out.0.")
+    k = re.sub(r"^layers_(\d+)\.", r"encoder.layers.\1.", key)
+    k = re.sub(r"\.(fc\d)\.", r".mlp.\1.", k)
+    return "text_model." + re.sub(r"^(token|position)_embedding", r"embeddings.\1_embedding", k)
+
+
+def _check_renames(torch, weights, states: dict) -> int:
+    """Every port key -> its diffusers key -> back through the loader's
+    renames: the same key and shape (meta tensors). Returns the keys checked."""
+    checked = 0
+    for kind, state in states.items():
+        for old in (False, True) if kind == "vae" else (False,):
+            names = {_diffusers_key(kind, k, old): k for k in state}
+            if len(names) != len(state):
+                raise AssertionError(f"{kind}: the inverse renames are not one-to-one")
+            meta = {d: torch.empty(state[k].shape, device="meta") for d, k in names.items()}
+            back, _ = weights.convert_diffusers_state_dict(meta, kind)
+            bad = sorted(set(back) ^ set(state)) + [
+                k for k in state if k in back and tuple(back[k].shape) != tuple(state[k].shape)]
+            if bad:
+                raise AssertionError(f"{kind}: the renames do not round-trip: {bad[:5]}")
+            checked += len(state)
+    return checked
+
+
+def _write_safetensors(torch, path: Path, tensors: dict) -> None:
+    """The safetensors layout: an 8-byte little-endian header length, the
+    JSON header (padded to 8 bytes), the raw bytes in header order."""
+    names = {torch.float32: "F32", torch.int64: "I64"}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            fh.write(t.detach().contiguous().cpu().numpy().data)
+
+
+def _write_checkpoint(torch, weights, root: Path) -> int:
+    """random:full's fp32 weights as a diffusers-layout directory; returns
+    the keys whose renames were checked."""
+    bundle = weights.random_bundle("full", seed=0, device="cuda", dtype=torch.float32)
+    states = {"unet": bundle.unet.state_dict(), "vae": bundle.vae.state_dict(),
+              "clip": bundle.text_encoder.state_dict()}
+    checked = _check_renames(torch, weights, states)
+    configs = {
+        "unet": {"_class_name": "UNet2DConditionModel", "sample_size": 64, "in_channels": 4,
+                 "out_channels": 4, "block_out_channels": [320, 640, 1280, 1280],
+                 "layers_per_block": 2, "cross_attention_dim": 768, "attention_head_dim": 8,
+                 "down_block_types": ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+                 "norm_num_groups": 32, "freq_shift": 0, "flip_sin_to_cos": True},
+        "vae": {"_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3,
+                "latent_channels": 4, "block_out_channels": [128, 256, 512, 512],
+                "layers_per_block": 2, "norm_num_groups": 32, "scaling_factor": 0.18215},
+        "text_encoder": {"architectures": ["CLIPTextModel"], "vocab_size": 49408,
+                         "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+                         "max_position_embeddings": 77, "intermediate_size": 3072,
+                         "hidden_act": "quick_gelu"},
+        "scheduler": None,
+    }
+    for folder, cfg in configs.items():
+        (root / folder).mkdir(parents=True)
+        if cfg is not None:
+            (root / folder / "config.json").write_text(json.dumps(cfg, indent=2))
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(
+        {"_class_name": "DDIMScheduler", "num_train_timesteps": 1000, "beta_start": 0.00085,
+         "beta_end": 0.012, "beta_schedule": "scaled_linear", "steps_offset": 1}))
+    (root / "model_index.json").write_text(json.dumps({"_class_name": "StableDiffusionPipeline"}))
+    _write_safetensors(torch, root / "unet" / "diffusion_pytorch_model.safetensors",
+                       {_diffusers_key("unet", k): v for k, v in states["unet"].items()})
+    torch.save({_diffusers_key("vae", k, old_vae_names=True): v.cpu()
+                for k, v in states["vae"].items()}, root / "vae" / "diffusion_pytorch_model.bin")
+    clip = {_diffusers_key("clip", k): v for k, v in states["clip"].items()}
+    clip["text_model.embeddings.position_ids"] = torch.arange(77)[None]  # skipped on load
+    _write_safetensors(torch, root / "text_encoder" / "model.safetensors", clip)
+    del bundle, states, clip
+    torch.cuda.empty_cache()
+    return checked
+
+
+def _modules(pipe) -> dict:
+    return {"unet": pipe.unet, "vae": pipe.vae, "clip": pipe.text_encoder}
+
+
+def phase_checkpoint(torch, attn, pipe, root: Path) -> dict:
+    """The diffusers directory written, loaded by the server's --checkpoint
+    and checked against random:full (`pipe`), then served: two DDIM-50
+    requests over HTTP, then pndm, lms, euler and euler_a riffuse_audio and
+    an euler_a txt2img on the loaded pipeline."""
+    import numpy as np
+
+    from riffusion_tpu_torch import server as server_mod
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+    from riffusion_tpu_torch.models import weights
+    from riffusion_tpu_torch.serving import load_seed_image
+
+    start = time.perf_counter()
+    checked = _write_checkpoint(torch, weights, root)
+    files = sorted(p for p in root.rglob("*") if p.is_file())
+    nbytes = sum(p.stat().st_size for p in files)
+    log(f"[checkpoint] wrote {root.name}: {nbytes} bytes on disk in {len(files)} files, "
+        f"{time.perf_counter() - start:.1f} s; the renames round-trip on {checked} keys "
+        "(the VAE's under both namings)")
+
     torch.cuda.synchronize()
-    launches, rows, plain = attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls
-    out_c = cpu_pipe.riffuse_audio_batch(inputs_list, image, params=params, noises=noises,
-                                         scheduler=scheduler)
-    agreement = [_image_agreement(g[0], c[0]) for g, c in zip(out_g, out_c)]
-    log(f"[tiny batch] {n} requests at {size}px ({scheduler}, UNet batch {2 * n}), cuda fp32 vs "
-        f"cpu fp32, (pixels equal, max diff) per request: "
-        f"{[(f'{e:.4%}', m) for e, m in agreement]}; K1 launches {launches}, K2 launches {rows}, "
-        f"plain calls {plain}")
-    if rows == 0 or launches == 0 or plain != 0:
-        raise AssertionError("the tiny batch on the card did not go through both kernels")
-    if any(m > 1 or e < 0.99 for e, m in agreement):
-        raise AssertionError("the card's tiny batch disagrees with the CPU's")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    srv = server_mod.create_app(**server_mod.parse_args(
+        ["--checkpoint", str(root), "--device", "cuda", "--port", "0",
+         "--seed-images-dir", str(REPO / "seed_images")]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - start
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    ck = server_mod.PIPELINE
+    mismatched = [f"{name}.{k}" for name, m in _modules(ck).items()
+                  for (k, a), b in zip(m.state_dict().items(),
+                                       _modules(pipe)[name].state_dict().values())
+                  if a.dtype != b.dtype or not torch.equal(a, b)]
+    count = sum(v.numel() for m in _modules(ck).values() for v in m.state_dict().values())
+    dtypes = {name: next(m.parameters()).dtype for name, m in _modules(ck).items()}
+    log(f"[checkpoint] the server's --checkpoint loaded it in {load_s:.2f} s ({dtypes}); "
+        f"peak device memory of the load {peak:.2f} GiB above the {before / 2**30:.2f} GiB "
+        f"already held; {count} parameters, {len(mismatched)} not bit-equal to random:full's; "
+        f"sampler {ck.bundle.scheduler_name}")
+    if mismatched or ck.bundle.scheduler_name != "ddim":
+        raise AssertionError(f"the checkpoint did not load as random:full: {mismatched[:5]}")
+
+    def evals(scheduler: str, steps: int = 50, strength: float = 0.75) -> int:
+        return ck._plan(scheduler, steps, strength)[0].num_steps
+
+    thread, url = _serve(srv)
+    k1 = 0
+    seconds = {}
+    try:
+        for i in range(2):
+            attn.COUNTS.reset()
+            status, out, wall = _post(url + "/run_inference/", _request(i))
+            log(f"[checkpoint] /run_inference/ {i} (ddim-50, strength 0.75): HTTP {status}, "
+                f"{wall:.3f} s wall, K1 launches {attn.COUNTS.launches}")
+            if status != 200:
+                raise AssertionError(f"request {i}: HTTP {status}")
+            _check_response(out)
+            _expect_counts(attn, f"checkpoint request {i}", 10 * evals("ddim"), 0)
+            k1 += attn.COUNTS.launches
+            seconds[f"ddim-50 HTTP {i}"] = wall
+    finally:
+        _stop(srv, thread)
+
+    seed = load_seed_image(REPO / "seed_images", "og_beat")
+    inputs = InferenceInput(start=PromptInput(prompt="funky synth solo", seed=42),
+                            end=PromptInput(prompt="jazzy saxophone", seed=123), alpha=0.5,
+                            num_inference_steps=50)
+
+    def run(what: str, k1_expected: int, fn) -> None:
+        nonlocal k1
+        attn.COUNTS.reset()
+        t0 = time.perf_counter()
+        image, std = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pixels = np.asarray(image, np.float64)
+        log(f"[checkpoint] {what}: {wall:.3f} s, image {image.size}, pixel std "
+            f"{pixels.std():.2f}, audio std {std}, K1 launches {attn.COUNTS.launches}")
+        _expect_counts(attn, what, k1_expected, 0)
+        if image.size != (512, 512) or not (np.isfinite(pixels).all() and pixels.std() > 0) \
+                or not (std is None or std > 100):
+            raise AssertionError(f"{what}: a flat image or silent audio")
+        k1 += attn.COUNTS.launches
+        seconds[what] = wall
+
+    def audio(name: str):
+        image, segment = ck.riffuse_audio(inputs, seed, scheduler=name)
+        return image, float(segment.raw_data.astype(np.float64).std())
+
+    for turn in (1, 2):  # each sampler twice, in turns: a host-bound request spreads
+        for name in ("pndm",) + SAMPLERS:
+            run(f"riffuse_audio {name}-50 ({turn})", 10 * evals(name), lambda: audio(name))
+    run("txt2img euler_a-50, 512x512", 10 * 50, lambda: (ck.txt2img(
+        "funky synth solo", seed=7, num_inference_steps=50, scheduler="euler_a"), None))
+    return {"pipe": ck, "launches": k1, "seconds": seconds, "bytes": nbytes, "load_s": load_s}
 
 
 def _movement_agreement(torch, ours: dict, ref: dict, start: dict) -> tuple:
@@ -809,10 +1084,11 @@ def _full_width_gradients(torch, attn, layers, ds_dir: Path) -> dict:
     return result
 
 
-def phase_train(torch, attn, pipe) -> dict:
-    """Fine-tuning at full width: the latent dataset from the random:full
-    pipeline, run_finetune of 4 steps at batch 4, the kernels' gradients
-    against the plain attention's, and the export reloaded and served."""
+def phase_train(torch, attn, pipe, checkpoint: Path) -> dict:
+    """Fine-tuning at full width from the checkpoint directory: the latent
+    dataset from its pipeline, run_finetune of 4 steps at batch 4, the
+    kernels' gradients against the plain attention's, and the export
+    reloaded and served."""
     import numpy as np
 
     from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
@@ -848,7 +1124,7 @@ def phase_train(torch, attn, pipe) -> dict:
         attn.COUNTS.reset()
         start = time.perf_counter()
         stats = run_finetune(FinetuneConfig(
-            checkpoint="random:full", dataset_dir=str(tmp / "dataset"),
+            checkpoint=str(checkpoint), dataset_dir=str(tmp / "dataset"),
             output_dir=str(tmp / "run"), steps=4, batch_size=4, log_every=1, device="cuda",
         ), log=on_log)
         wall = time.perf_counter() - start
@@ -893,12 +1169,16 @@ def phase_train(torch, attn, pipe) -> dict:
             load_seed_image(REPO / "seed_images", "og_beat"))
         torch.cuda.synchronize()
         samples = segment.raw_data.astype(np.float64)
-        log(f"[train] export reloaded and one 50-step request riffused in "
+        # the export keeps the checkpoint's sampler (ddim): 10 K1 launches per evaluation
+        sampler = tuned.bundle.scheduler_name
+        expected = 10 * tuned._plan(sampler, 50, 0.75)[0].num_steps
+        log(f"[train] export reloaded and one 50-step request riffused ({sampler}) in "
             f"{time.perf_counter() - start:.2f} s: image {image.size}, pixel std "
             f"{np.asarray(image, np.float64).std():.2f}, audio {segment.duration_seconds:.2f} s "
-            f"(std {samples.std():.0f}); K1 launches {attn.COUNTS.launches}")
+            f"(std {samples.std():.0f}); K1 launches {attn.COUNTS.launches} ({expected} expected)")
         if image.size != (512, 512) or not np.asarray(image).std() > 0 \
-                or not samples.std() > 100 or attn.COUNTS.launches != LAUNCHES_PER_REQUEST:
+                or not samples.std() > 100 or attn.COUNTS.launches != expected \
+                or sampler != "ddim":
             raise AssertionError("the reloaded export did not serve a request")
         del tuned
     finally:
@@ -1114,21 +1394,47 @@ def main(argv=None) -> int:
         log(f"[mutants] every one of {len(MUTANTS)} mutants was rejected by the checks of every "
             "kernel it touches")
         return 0
-    kernel = phase_kernel(torch, attn, clock_hz)
-    grad = phase_kernel_grad(torch, attn, clock_hz)
-    phase_dsp(torch)
-    phase_tiny(torch, attn)
-    phase_tiny_batch(torch, attn)
-    phase_tiny_train(torch, attn)
+    def phase(name: str, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        log(f"[time] {name}: {time.perf_counter() - start:.1f} s")
+        return result
+
+    kernel = phase("kernel", phase_kernel, torch, attn, clock_hz)
+    grad = phase("kernel-grad", phase_kernel_grad, torch, attn, clock_hz)
+    phase("dsp", phase_dsp, torch)
+    phase("tiny", phase_tiny, torch, attn)
+    phase("tiny batch", phase_tiny_batch, torch, attn)
+    phase("tiny train", phase_tiny_train, torch, attn)
 
     start = time.perf_counter()
     pipe = RiffusionPipeline.load_checkpoint("random:full", device="cuda")
     torch.cuda.synchronize()
     log(f"[slice] random:full (UNet/CLIP bf16, VAE fp32) built on the card in "
         f"{time.perf_counter() - start:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    single = phase_slice(torch, attn, pipe)
-    batch = phase_batch(torch, attn, pipe)
-    train = phase_train(torch, attn, pipe)
+    single = phase("slice", phase_slice, torch, attn, pipe)
+    batch = phase("batch", phase_batch, torch, attn, pipe)
+    work = REPO / ".chipwork"
+    work.mkdir(exist_ok=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="checkpoint-", dir=work))
+    try:
+        ckpt = phase("checkpoint", phase_checkpoint, torch, attn, pipe, ckpt_dir)
+        # random:full's weights are freed before the fine-tune (the batch
+        # phase's DynamicBatcher and its threads form a cycle, hence collect)
+        held = sum(t.numel() * t.element_size()
+                   for m in _modules(pipe).values() for t in m.state_dict().values())
+        before = torch.cuda.memory_allocated()
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        freed = before - torch.cuda.memory_allocated()
+        log(f"[checkpoint] dropping random:full's pipeline freed {freed} bytes of device "
+            f"memory; its weights hold {held}")
+        if freed < held:
+            raise AssertionError("random:full's pipeline was not freed when it was dropped")
+        train = phase("train", phase_train, torch, attn, ckpt["pipe"], ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     times, grad_times = kernel["times"], grad["times"]
     b, s, _, d = BATCH_SHAPE
@@ -1139,7 +1445,8 @@ def main(argv=None) -> int:
          f"{flash}:589 _flash_attention_impl (called from riffusion_tpu/models/layers.py:251)",
          times[("attention", 2, 4096, 40)], times[("plain", 2, 4096, 40)],
          times[("bound", 2, 4096, 40)], times[("library", 2, 4096, 40)],
-         single["attention"] + batch["counts"]["attention"] + train["launches"]["attention"]),
+         single["attention"] + batch["counts"]["attention"] + ckpt["launches"]
+         + train["launches"]["attention"]),
         ("row_attention", "row_attention.cu",
          "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
          times[("row_attention", b, s, d)], times[("plain", b, s, d)],

@@ -1,7 +1,8 @@
 """
-Diffusion schedulers on tensors: PNDM (PLMS), DPM-Solver++(2M) and the
-UniPC-style exponential predictor-corrector, each on the linear sigma grid
-or (the `_k` variants) the Karras rho-spaced grid.
+Diffusion schedulers on tensors: DDIM, PNDM (PLMS), LMS, Euler,
+Euler-Ancestral, DPM-Solver++(2M) and the UniPC-style exponential
+predictor-corrector, the last two on the linear sigma grid or (the `_k`
+variants) the Karras rho-spaced grid.
 
 The counterpart of riffusion_tpu/diffusion/schedulers.py: a host-side
 *plan* (numpy per-step timesteps and coefficients, computed once per
@@ -11,8 +12,10 @@ JAX package's numpy code (it cannot be imported without jax), held to it by
 tests/test_torch_schedulers.py; the denoise loop that calls `step` is a
 plain Python loop in the pipeline, so `i` is a Python int here.
 
-The other samplers of the JAX package (ddim, lms, euler, euler_a) are not
-ported yet.
+euler_a adds noise at every step. The JAX package keeps a PRNG key per
+batch item in the stepper's state; here the caller draws every step's noise
+up front, one (S, N, C, h, w) tensor (`init_state(..., ancestral=...)`), so
+each request's draws come from its own noise source.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import typing as T
 import numpy as np
 import torch
 
-SCHEDULER_NAMES = ("pndm", "dpmpp", "dpmpp_k", "unipc", "unipc_k")
+SCHEDULER_NAMES = (
+    "pndm", "ddim", "lms", "euler", "euler_a", "dpmpp", "dpmpp_k", "unipc", "unipc_k"
+)
 
 #: Schedulers on the Karras rho-spaced sigma grid; only they take grid
 #: options ("unipc_k:rho=2", "dpmpp_k:anchor=suffix_exact,rho=5").
@@ -33,7 +38,7 @@ KARRAS_GRID = ("dpmpp_k", "unipc_k")
 #: Schedulers whose step works in k-diffusion sigma space (x = x0 + sigma*eps)
 #: rather than DDPM space: their img2img start and mask re-noising use
 #: `add_noise_sigma`, and the UNet input is divided by sqrt(sigma^2 + 1).
-SIGMA_BASED = ("dpmpp", "dpmpp_k", "unipc", "unipc_k")
+SIGMA_BASED = ("lms", "euler", "euler_a", "dpmpp", "dpmpp_k", "unipc", "unipc_k")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +78,7 @@ class SchedulerPlan:
     num_inference_steps: int
     timesteps: np.ndarray  # (S,) int32
     coeffs: T.Dict[str, np.ndarray]
+    init_noise_sigma: float = 1.0  # the scale of txt2img's starting noise
     history: int = 1  # size of the history ring the stepper keeps
 
     @property
@@ -146,6 +152,41 @@ def _sliced_grid(
     return t[t_start:], sigmas[t_start:]
 
 
+# ---------------------------------------------------------------------- DDIM
+
+
+def _make_ddim_plan(noise: NoiseConfig, num_steps: int, t_start: int = 0) -> SchedulerPlan:
+    """DDIM (eta 0) on the PNDM timestep grid, without its duplicate."""
+    step = noise.num_train_timesteps // num_steps
+    timesteps = (np.arange(0, num_steps) * step + noise.steps_offset)[::-1].astype(np.int64)
+    timesteps = timesteps[t_start:]
+    acp = noise.alphas_cumprod
+    prev_ts = timesteps - step
+    alpha_t = acp[timesteps]
+    alpha_prev = np.where(prev_ts >= 0, acp[np.maximum(prev_ts, 0)], noise.final_alpha_cumprod)
+    return SchedulerPlan(
+        name="ddim",
+        num_inference_steps=num_steps,
+        timesteps=timesteps.astype(np.int32),
+        coeffs={"alpha_t": alpha_t.astype(np.float32),
+                "alpha_prev": alpha_prev.astype(np.float32)},
+    )
+
+
+def _no_state(plan, shape, dtype, device, ancestral=None):
+    return {}
+
+
+def _ddim_step(plan, state, i, model_output, sample):
+    """x0 from eps, then the deterministic step to alpha_prev; the square
+    roots in float32, as the JAX step takes them."""
+    f32 = np.float32
+    a_t, a_prev = f32(plan.coeffs["alpha_t"][i]), f32(plan.coeffs["alpha_prev"][i])
+    x0 = (sample - float(np.sqrt(f32(1) - a_t)) * model_output) / float(np.sqrt(a_t))
+    prev = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(f32(1) - a_prev)) * model_output
+    return prev, state
+
+
 # ---------------------------------------------------------------------- PNDM
 
 
@@ -214,7 +255,7 @@ def _make_pndm_plan(noise: NoiseConfig, num_steps: int, t_start: int = 0) -> Sch
     )
 
 
-def _pndm_init_state(plan, shape, dtype, device):
+def _pndm_init_state(plan, shape, dtype, device, ancestral=None):
     """The eps ring (newest at index 0) and the sample stored at step 0 for
     reuse at step 1."""
     return {
@@ -243,6 +284,115 @@ def _row(table: np.ndarray, i: int, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(table[i], dtype=like.dtype, device=like.device)
 
 
+# -------------------------------------------------------- LMS, Euler, Euler-a
+
+
+def _make_lms_plan(
+    noise: NoiseConfig, num_steps: int, t_start: int = 0, order: int = 4
+) -> SchedulerPlan:
+    """k-diffusion's linear multistep: per step, the integrals over
+    [sigma_i, sigma_i+1] of the Lagrange basis over the last `order` sigmas
+    (fewer while the history fills), newest first."""
+    from scipy import integrate
+
+    t, sigmas = _sliced_grid(noise, num_steps, t_start, karras=False)
+    n_exec = len(t)
+    coeffs = np.zeros((n_exec, order), np.float64)
+    for i in range(n_exec):
+        cur_order = min(i + 1, order)
+        for j in range(cur_order):
+
+            def lms_derivative(tau, j=j, i=i, cur_order=cur_order):
+                prod = 1.0
+                for k in range(cur_order):
+                    if j == k:
+                        continue
+                    prod *= (tau - sigmas[i - k]) / (sigmas[i - j] - sigmas[i - k])
+                return prod
+
+            coeffs[i, j] = integrate.quad(
+                lms_derivative, sigmas[i], sigmas[i + 1], epsrel=1e-4
+            )[0]
+
+    return SchedulerPlan(
+        name="lms",
+        num_inference_steps=num_steps,
+        timesteps=np.round(t).astype(np.int32),
+        coeffs={"sigmas": sigmas.astype(np.float32), "lms": coeffs.astype(np.float32),
+                "t_float": t.astype(np.float32)},
+        init_noise_sigma=float(np.max(sigmas)),
+        history=order,
+    )
+
+
+def _lms_init_state(plan, shape, dtype, device, ancestral=None):
+    """The derivative ring, newest at index 0."""
+    return {"derivs": torch.zeros((plan.history,) + tuple(shape), dtype=dtype, device=device)}
+
+
+def _derivative(plan, i, model_output, sample):
+    """d = (x - x0) / sigma_i, formed as the JAX steps form it."""
+    sigma = float(plan.coeffs["sigmas"][i])
+    x0 = sample - sigma * model_output
+    return (sample - x0) / sigma
+
+
+def _lms_step(plan, state, i, model_output, sample):
+    d = _derivative(plan, i, model_output, sample)
+    derivs = torch.cat([d[None], state["derivs"][:-1]], dim=0)
+    prev = sample + torch.tensordot(_row(plan.coeffs["lms"], i, derivs), derivs, dims=1)
+    return prev, {"derivs": derivs}
+
+
+def _make_euler_plan(
+    noise: NoiseConfig, num_steps: int, t_start: int = 0, ancestral: bool = False
+) -> SchedulerPlan:
+    """Euler on the linear sigma grid; `ancestral` adds each step's split
+    of the target sigma into a deterministic part (sigma_down) and fresh
+    noise (sigma_up), both clamped at 0."""
+    t, sigmas = _sliced_grid(noise, num_steps, t_start, karras=False)
+    coeffs: T.Dict[str, np.ndarray] = {"sigmas": sigmas.astype(np.float32),
+                                       "t_float": t.astype(np.float32)}
+    if ancestral:
+        s_from, s_to = sigmas[:-1], sigmas[1:]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            sigma_up = np.sqrt(
+                np.maximum(s_to**2 * (s_from**2 - s_to**2) / np.maximum(s_from**2, 1e-20), 0)
+            )
+            sigma_down = np.sqrt(np.maximum(s_to**2 - sigma_up**2, 0))
+        coeffs["sigma_up"] = sigma_up.astype(np.float32)
+        coeffs["sigma_down"] = sigma_down.astype(np.float32)
+    return SchedulerPlan(
+        name="euler_a" if ancestral else "euler",
+        num_inference_steps=num_steps,
+        timesteps=np.round(t).astype(np.int32),
+        coeffs=coeffs,
+        init_noise_sigma=float(np.max(sigmas)),
+    )
+
+
+def _euler_step(plan, state, i, model_output, sample):
+    sigmas = plan.coeffs["sigmas"]
+    d = _derivative(plan, i, model_output, sample)
+    return sample + d * float(sigmas[i + 1] - sigmas[i]), state
+
+
+def _euler_a_init_state(plan, shape, dtype, device, ancestral=None):
+    """Every step's noise for the N items, (S, N, C, h, w)."""
+    want = (plan.num_steps,) + tuple(shape)
+    if ancestral is None or tuple(ancestral.shape) != want:
+        got = None if ancestral is None else tuple(ancestral.shape)
+        raise ValueError(f"euler_a needs its per-step noise of shape {want}, got {got}")
+    return {"ancestral": ancestral.to(device=device, dtype=dtype)}
+
+
+def _euler_a_step(plan, state, i, model_output, sample):
+    c = plan.coeffs
+    d = _derivative(plan, i, model_output, sample)
+    prev = sample + d * float(c["sigma_down"][i] - c["sigmas"][i])
+    return prev + state["ancestral"][i] * float(c["sigma_up"][i]), state
+
+
 # ------------------------------------------------------------- DPM-Solver++ 2M
 
 
@@ -262,11 +412,12 @@ def _make_dpmpp_plan(
         timesteps=np.round(t).astype(np.int32),
         coeffs={"sigmas": sigmas.astype(np.float32), "lam": lam.astype(np.float32),
                 "t_float": t.astype(np.float32), "first_order": first_order},
+        init_noise_sigma=float(np.max(sigmas)),
         history=2,
     )
 
 
-def _dpmpp_init_state(plan, shape, dtype, device):
+def _dpmpp_init_state(plan, shape, dtype, device, ancestral=None):
     return {"x0_prev": torch.zeros(tuple(shape), dtype=dtype, device=device), "has_prev": False}
 
 
@@ -368,11 +519,12 @@ def _make_unipc_plan(
             "corr_ratio": corr_ratio.astype(np.float32),
             "corr_on": corr_on.astype(np.float32),
         },
+        init_noise_sigma=float(np.max(sigmas)),
         history=ring,
     )
 
 
-def _unipc_init_state(plan, shape, dtype, device):
+def _unipc_init_state(plan, shape, dtype, device, ancestral=None):
     def zeros(lead=()):
         return torch.zeros(lead + tuple(shape), dtype=dtype, device=device)
 
@@ -403,6 +555,10 @@ def _unipc_step(plan, state, i, model_output, sample):
 
 _MAKERS: T.Dict[str, T.Callable[..., SchedulerPlan]] = {
     "pndm": _make_pndm_plan,
+    "ddim": _make_ddim_plan,
+    "lms": _make_lms_plan,
+    "euler": _make_euler_plan,
+    "euler_a": functools.partial(_make_euler_plan, ancestral=True),
     "dpmpp": _make_dpmpp_plan,
     "dpmpp_k": functools.partial(_make_dpmpp_plan, karras=True),
     "unipc": _make_unipc_plan,
@@ -411,6 +567,10 @@ _MAKERS: T.Dict[str, T.Callable[..., SchedulerPlan]] = {
 
 _FAMILIES = {
     "pndm": (_pndm_init_state, _pndm_step),
+    "ddim": (_no_state, _ddim_step),
+    "lms": (_lms_init_state, _lms_step),
+    "euler": (_no_state, _euler_step),
+    "euler_a": (_euler_a_init_state, _euler_a_step),
     "dpmpp": (_dpmpp_init_state, _dpmpp_step),
     "unipc": (_unipc_init_state, _unipc_step),
 }
@@ -436,7 +596,7 @@ def make_plan(
     take grid options after a colon (`rho`, `anchor`)."""
     base, opts = parse_scheduler(name)
     if base not in _MAKERS:
-        raise ValueError(f"Scheduler {base!r} is not ported yet; choose from {SCHEDULER_NAMES}")
+        raise ValueError(f"Unknown scheduler {base!r}; choose from {SCHEDULER_NAMES}")
     kwargs: T.Dict[str, T.Any] = {}
     if opts:
         if base not in KARRAS_GRID:
@@ -451,9 +611,22 @@ def make_plan(
     return _MAKERS[base](noise, num_steps, t_start, **kwargs)
 
 
-def init_state(plan: SchedulerPlan, shape, dtype=torch.float32, device="cpu") -> T.Dict[str, T.Any]:
-    """The stepper's initial state for latents of `shape`."""
-    return _FAMILIES[plan.name][0](plan, shape, dtype, device)
+def draws_noise(plan: SchedulerPlan) -> bool:
+    """Whether the plan's steps add fresh noise (an ancestral sampler, whose
+    plan splits each step's sigma into sigma_down and sigma_up)."""
+    return "sigma_up" in plan.coeffs
+
+
+def init_state(
+    plan: SchedulerPlan, shape, dtype: torch.dtype, device: T.Union[str, torch.device],
+    ancestral: T.Optional[torch.Tensor] = None,
+) -> T.Dict[str, T.Any]:
+    """The stepper's initial state for latents of `shape` on `device`. A plan
+    that `draws_noise` takes `ancestral`, every step's noise, (S,) + shape;
+    the other samplers draw nothing."""
+    if ancestral is not None and not draws_noise(plan):
+        raise ValueError(f"{plan.name} takes no per-step noise")
+    return _FAMILIES[plan.name][0](plan, shape, dtype, device, ancestral)
 
 
 def step(plan: SchedulerPlan, state, i: int, model_output: torch.Tensor, sample: torch.Tensor):
@@ -463,7 +636,7 @@ def step(plan: SchedulerPlan, state, i: int, model_output: torch.Tensor, sample:
 
 def scale_model_input(plan: SchedulerPlan, sample: torch.Tensor, i: int) -> torch.Tensor:
     """Pre-UNet latent scaling: sample / sqrt(sigma^2 + 1) for the
-    sigma-space samplers, identity for PNDM."""
+    sigma-space samplers, identity for PNDM and DDIM."""
     if plan.name in SIGMA_BASED:
         sigma = plan.coeffs["sigmas"][i]
         return sample / float(np.sqrt(sigma * sigma + np.float32(1.0)))

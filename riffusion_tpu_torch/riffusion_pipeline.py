@@ -4,8 +4,8 @@ CUDA device (or the CPU, when asked for).
 
 The counterpart of the riffuse paths of riffusion_tpu/riffusion_pipeline.py:
 `load_checkpoint`, `embed_text`, `embed_text_weighted`, `riffuse`
-(`interpolate_img2img`), `riffuse_audio`, `riffuse_audio_batch`,
-`preprocess_image`, `preprocess_mask`. Where the JAX package traces one
+(`interpolate_img2img`), `riffuse_audio`, `riffuse_audio_batch`, `txt2img`,
+`img2img`, `preprocess_image`, `preprocess_mask`. Where the JAX package traces one
 program (VAE encode -> seed-noise slerp -> noising -> CFG denoise scan ->
 VAE decode -> codec -> inverse mel -> Griffin-Lim), this runs the same steps
 eagerly, with the denoise loop as a Python loop over `schedulers.step`. A
@@ -14,11 +14,13 @@ at batch 2N, and every entry point goes through it.
 
 Randomness. A request draws five tensors: the VAE reparameterization eps,
 the two seed noises `noise_a` / `noise_b`, and the two uniform Griffin-Lim
-phase tensors. All of them come from one `NoiseSource` per request, a
-callable `(name, shape, device) -> tensor`. The default, `GeneratorNoise`,
-uses device torch.Generators seeded from (start.seed, end.seed); a test
-passes `FixedNoise` with the draws the JAX program made, so both packages
-see the same numbers. In a batch, request i draws what it would draw alone.
+phase tensors; with euler_a also "ancestral", every step's noise at once,
+(S, 1, C, h, w). `txt2img` draws "latents" (and "ancestral"). All of them
+come from one `NoiseSource` per request, a callable `(name, shape, device)
+-> tensor`. The default, `GeneratorNoise`, uses device torch.Generators
+seeded from (start.seed, end.seed); a test passes `FixedNoise` with the
+draws the JAX program made, so both packages see the same numbers. In a
+batch, request i draws what it would draw alone.
 
 The UNet and CLIP run in bfloat16 on CUDA and float32 on the CPU; the VAE
 and the DSP always run in float32 (TF32 off, torch_util.configure_numerics).
@@ -41,7 +43,7 @@ from PIL import Image
 from torch.profiler import record_function
 
 from riffusion_tpu_torch.audio.segment import AudioSegment
-from riffusion_tpu_torch.datatypes import InferenceInput
+from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.external import prompt_weighting
 from riffusion_tpu_torch.models.weights import ModelBundle, load_bundle
@@ -50,7 +52,9 @@ from riffusion_tpu_torch.spectrogram_converter import SpectrogramConverter
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 from riffusion_tpu_torch.util import audio_util, torch_util
 
-NOISE_NAMES = ("vae_eps", "noise_a", "noise_b", "gl_real", "gl_imag")
+#: euler_a's per-step noise, and txt2img's starting latents: drawn only by
+#: the paths that use them.
+ANCESTRAL, LATENTS = "ancestral", "latents"
 NoiseSource = T.Callable[[str, T.Tuple[int, ...], torch.device], torch.Tensor]
 
 
@@ -66,8 +70,10 @@ class GeneratorNoise:
 
     noise_a depends on start.seed only and noise_b on end.seed only, so two
     requests that share a seed share that noise (what makes consecutive
-    interpolation clips continuous). The VAE eps and the phase come from
-    generators derived from start.seed, independent of noise_a."""
+    interpolation clips continuous). The VAE eps, the phase, euler_a's
+    per-step noise and txt2img's latents come from generators derived from
+    start.seed with salts of their own, independent of noise_a and of one
+    another."""
 
     def __init__(self, start_seed: int, end_seed: int, device: torch.device):
         def gen(seed: int) -> torch.Generator:
@@ -78,6 +84,8 @@ class GeneratorNoise:
             "noise_a": gen(int(start_seed)),
             "noise_b": gen(int(end_seed)),
             "gl": gen(_derived_seed(start_seed, 7)),
+            ANCESTRAL: gen(_derived_seed(start_seed, 13)),
+            LATENTS: gen(_derived_seed(start_seed, 17)),
         }
 
     def __call__(self, name: str, shape: T.Tuple[int, ...], device: torch.device) -> torch.Tensor:
@@ -88,15 +96,15 @@ class GeneratorNoise:
 
 class FixedNoise:
     """A noise source that hands out given arrays (numpy or tensors), one per
-    name, checking each shape."""
+    name, checking each shape. A draw it lacks raises, naming the draw, when
+    a path asks for it."""
 
     def __init__(self, draws: T.Mapping[str, T.Any]):
-        missing = set(NOISE_NAMES) - set(draws)
-        if missing:
-            raise ValueError(f"FixedNoise needs draws for {sorted(missing)}")
         self._draws = dict(draws)
 
     def __call__(self, name: str, shape: T.Tuple[int, ...], device: torch.device) -> torch.Tensor:
+        if name not in self._draws:
+            raise ValueError(f"FixedNoise has no draw {name!r} (it holds {sorted(self._draws)})")
         value = torch.as_tensor(np.asarray(self._draws[name], dtype=np.float32))
         if tuple(value.shape) != tuple(shape):
             raise ValueError(f"noise {name!r} has shape {tuple(value.shape)}, expected {shape}")
@@ -113,6 +121,34 @@ def _waveform_to_int16(waveform: torch.Tensor) -> torch.Tensor:
         peak = torch.max(torch.abs(waveform))
     scale = torch.where(peak > 0, 32767.0 / torch.clamp(peak, min=1e-30), torch.ones_like(peak))
     return torch.clamp(torch.round(waveform * scale), -32768, 32767).to(torch.int16)
+
+
+@torch.inference_mode()
+def _encode_ids(text_encoder: torch.nn.Module, device: torch.device,
+                ids: np.ndarray) -> torch.Tensor:
+    return text_encoder(torch.as_tensor(ids, dtype=torch.long, device=device))
+
+
+def _embed_plain(tokenizer, encode: T.Callable, text: str) -> torch.Tensor:
+    """Plain CLIP embedding of `text`, (1, 77, hidden)."""
+    ids = np.asarray(
+        tokenizer(
+            text,
+            padding="max_length",
+            max_length=tokenizer.model_max_length,
+            truncation=True,
+        )["input_ids"],
+        dtype=np.int64,
+    )
+    return encode(ids)
+
+
+def _embed_weighted(tokenizer, encode: T.Callable, text: str) -> torch.Tensor:
+    """Attention-weighted embedding (`(word:1.5)` syntax), (1, L, hidden)."""
+    emb, _ = prompt_weighting.get_weighted_text_embeddings(
+        encode, tokenizer, text, uncond_prompt=None, max_embeddings_multiples=3
+    )
+    return emb
 
 
 class RiffusionPipeline:
@@ -133,6 +169,14 @@ class RiffusionPipeline:
         self.vae = bundle.vae.to(self.device, torch.float32).eval()
         self.text_encoder = bundle.text_encoder.to(self.device).eval()
         self.tokenizer = bundle.tokenizer
+        # embed_text and embed_text_weighted: each pipeline's own caches of
+        # prompt embeddings. They hold the text encoder, not the pipeline, so
+        # a pipeline that is dropped frees its weights.
+        self._encode_77 = functools.partial(_encode_ids, self.text_encoder, self.device)
+        self.embed_text = functools.lru_cache(maxsize=256)(
+            functools.partial(_embed_plain, self.tokenizer, self._encode_77))
+        self.embed_text_weighted = functools.lru_cache(maxsize=256)(
+            functools.partial(_embed_weighted, self.tokenizer, self._encode_77))
         self._converters: T.Dict[SpectrogramParams, SpectrogramConverter] = {}
         # One program is queued on the device at a time (see _dispatch).
         self._dispatch_lock = threading.Lock()
@@ -160,32 +204,6 @@ class RiffusionPipeline:
         return cls(bundle, device=str(resolved))
 
     # ---------------------------------------------------------- text encoding
-
-    @torch.inference_mode()
-    def _encode_77(self, ids: np.ndarray) -> torch.Tensor:
-        return self.text_encoder(torch.as_tensor(ids, dtype=torch.long, device=self.device))
-
-    @functools.lru_cache(maxsize=256)
-    def embed_text(self, text: str) -> torch.Tensor:
-        """Plain CLIP embedding of `text`, (1, 77, hidden)."""
-        ids = np.asarray(
-            self.tokenizer(
-                text,
-                padding="max_length",
-                max_length=self.tokenizer.model_max_length,
-                truncation=True,
-            )["input_ids"],
-            dtype=np.int64,
-        )
-        return self._encode_77(ids)
-
-    @functools.lru_cache(maxsize=256)
-    def embed_text_weighted(self, text: str) -> torch.Tensor:
-        """Attention-weighted embedding (`(word:1.5)` syntax), (1, L, hidden)."""
-        emb, _ = prompt_weighting.get_weighted_text_embeddings(
-            self._encode_77, self.tokenizer, text, uncond_prompt=None, max_embeddings_multiples=3
-        )
-        return emb
 
     def _uncond_embedding(self, negative_prompt: T.Optional[str], seq_len: int) -> torch.Tensor:
         """Unconditional/negative embedding matched to the cond seq length."""
@@ -255,14 +273,17 @@ class RiffusionPipeline:
         text_emb: torch.Tensor,
         guidance: torch.Tensor,
         mask: T.Optional[torch.Tensor],
-        init_latents: torch.Tensor,
-        noise: torch.Tensor,
+        init_latents: T.Optional[torch.Tensor],
+        noise: T.Optional[torch.Tensor],
+        ancestral: T.Optional[torch.Tensor],
     ) -> torch.Tensor:
         """The classifier-free-guidance denoise loop over N latents: one UNet
         call at batch 2N ([unconditionals..., conditionals...]) per plan
-        step, with per-item guidance (N, 1, 1, 1) in fp32."""
+        step, with per-item guidance (N, 1, 1, 1) in fp32. `ancestral` is an
+        ancestral sampler's per-step noise, (S, N, C, h, w)."""
         n = latents.shape[0]
-        state = sched.init_state(plan, latents.shape, latents.dtype, self.device)
+        state = sched.init_state(plan, latents.shape, latents.dtype, self.device,
+                                 ancestral=ancestral)
         for i in range(plan.num_steps):
             lat_in = sched.scale_model_input(plan, torch.cat([latents, latents], dim=0), i)
             t = torch.full((2 * n,), int(plan.timesteps[i]), dtype=torch.int64, device=self.device)
@@ -355,9 +376,14 @@ class RiffusionPipeline:
             latents = sched.add_noise_sigma(plan, init_latents, seed_noise, 0)
         else:
             latents = sched.add_noise(self.noise_config, init_latents, seed_noise, noise_timestep)
+        ancestral = None
+        if sched.draws_noise(plan):
+            ancestral = torch.cat(
+                [nz(ANCESTRAL, (plan.num_steps,) + shape, dev) for nz in noises], dim=1
+            )
         with record_function("riffusion.denoise"):
             latents = self._denoise(
-                plan, latents, text_emb, guidance, mask, init_latents, seed_noise
+                plan, latents, text_emb, guidance, mask, init_latents, seed_noise, ancestral
             )
 
         with record_function("riffusion.vae_decode"):
@@ -516,6 +542,76 @@ class RiffusionPipeline:
             return results
 
         return finalize if async_dispatch else finalize()
+
+    # --------------------------------------------------------- txt2img/img2img
+
+    def _txt2img(
+        self, prompt: str, negative_prompt: T.Optional[str], num_steps: int, guidance: float,
+        width: int, height: int, scheduler: str, noise: NoiseSource,
+    ) -> torch.Tensor:
+        """One text-to-image program: the (H, W, 3) uint8 image on the device."""
+        plan = sched.make_plan(scheduler, num_steps, 0, self.noise_config)
+        dev = self.device
+        with record_function("riffusion.text"):
+            cond = self.embed_text_weighted(prompt)
+            uncond = self._uncond_embedding(negative_prompt, cond.shape[1]).to(cond.dtype)
+            text_emb = torch.cat([uncond, cond], dim=0)
+        shape = (1, self.unet.cfg.in_channels, height // 8, width // 8)
+        latents = noise(LATENTS, shape, dev).to(torch.float32) * plan.init_noise_sigma
+        ancestral = noise(ANCESTRAL, (plan.num_steps,) + shape, dev) \
+            if sched.draws_noise(plan) else None
+        g = torch.full((1, 1, 1, 1), float(guidance), dtype=torch.float32, device=dev)
+        with record_function("riffusion.denoise"):
+            latents = self._denoise(plan, latents, text_emb, g, None, None, None, ancestral)
+        with record_function("riffusion.vae_decode"):
+            decoded = self.vae.decode(latents / self.bundle.vae_config.scaling_factor)
+            return codec.image_u8_from_vae_output(decoded)
+
+    def txt2img(
+        self,
+        prompt: str,
+        negative_prompt: T.Optional[str] = None,
+        seed: int = 42,
+        num_inference_steps: int = 30,
+        guidance: float = 7.0,
+        width: int = 512,
+        height: int = 512,
+        scheduler: T.Optional[str] = None,
+        *,
+        noise: T.Optional[NoiseSource] = None,
+    ) -> Image.Image:
+        """Plain text-to-image generation: the denoise loop from pure noise
+        at the plan's init_noise_sigma, the weighted prompt against the
+        negative one. `noise` draws "latents" (and euler_a's "ancestral");
+        by default GeneratorNoise of `seed`."""
+        noise = noise or GeneratorNoise(seed, seed, self.device)
+        with self._dispatch_lock, torch.inference_mode():
+            image = self._txt2img(
+                prompt, negative_prompt, num_inference_steps, guidance, width, height,
+                scheduler or self.bundle.scheduler_name, noise,
+            ).cpu().numpy()
+        return Image.fromarray(image, mode="RGB")
+
+    def img2img(
+        self,
+        prompt: str,
+        init_image: Image.Image,
+        denoising_strength: float = 0.5,
+        negative_prompt: T.Optional[str] = None,
+        seed: int = 42,
+        num_inference_steps: int = 30,
+        guidance: float = 7.0,
+        scheduler: T.Optional[str] = None,
+        *,
+        noise: T.Optional[NoiseSource] = None,
+    ) -> Image.Image:
+        """Single-prompt img2img: `riffuse` at alpha 0 with the same prompt at
+        both ends (slerp(0, a, b) is a)."""
+        prompt_input = PromptInput(prompt=prompt, seed=seed, negative_prompt=negative_prompt,
+                                   denoising=denoising_strength, guidance=guidance)
+        inputs = InferenceInput(start=prompt_input, end=prompt_input, alpha=0.0,
+                                num_inference_steps=num_inference_steps)
+        return self.riffuse(inputs, init_image, scheduler=scheduler, noise=noise)
 
 
 # -------------------------------------------------------------- preprocessing

@@ -25,6 +25,10 @@ the batcher's worker.
 
     python -m riffusion_tpu_torch.server --checkpoint random:full --device cuda \\
         --dynamic-batching --max-batch 16
+
+--checkpoint also takes a local diffusers-layout directory (riffusion-model-v1's
+layout; its scheduler config names the default sampler) or a directory
+written by either package's save_native (models/weights.py:load_bundle).
 """
 
 from __future__ import annotations
@@ -310,7 +314,7 @@ def _warmup(pipeline: RiffusionPipeline, seed_images_dir: T.Union[str, Path], st
     logger.info("warmup complete")
 
 
-def run_app(
+def create_app(
     *,
     checkpoint: str = "random:full",
     device: str = "cuda",
@@ -324,14 +328,13 @@ def run_app(
     batch_window_ms: float = 150.0,
     max_batch: int = 8,
     serving_preset: str = "fast",
-) -> None:
-    """Load the model and serve until interrupted. `scheduler` replaces the
-    bundle's default ("pndm"); with `dynamic_batching`, concurrent requests
-    are coalesced (serving.DynamicBatcher), at the strength-gated FAST
-    preset when `serving_preset` is "fast" or as each request asks when it
-    is "parity"."""
-    logging.basicConfig(level=logging.INFO)
-
+) -> RiffusionServer:
+    """Load the model into PIPELINE and bind the server (port 0 picks a free
+    one). `scheduler` replaces the bundle's default (the checkpoint's, or
+    "pndm"); with `dynamic_batching`, concurrent requests are coalesced
+    (serving.DynamicBatcher), at the strength-gated FAST preset when
+    `serving_preset` is "fast" or as each request asks when it is
+    "parity"."""
     global PIPELINE
     PIPELINE = RiffusionPipeline.load_checkpoint(
         checkpoint=checkpoint, device=device, scheduler=scheduler
@@ -361,7 +364,15 @@ def run_app(
         )
     else:
         server = RiffusionServer((host, port), seed_images_dir=seed_images_dir)
-    logger.info(f"Serving on http://{host}:{port} (checkpoint={checkpoint})")
+    return server
+
+
+def run_app(**kwargs) -> None:
+    """`create_app(**kwargs)`, then serve until interrupted."""
+    logging.basicConfig(level=logging.INFO)
+    server = create_app(**kwargs)
+    host, port = server.server_address[:2]
+    logger.info(f"Serving on http://{host}:{port} (checkpoint={kwargs.get('checkpoint')})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -371,17 +382,20 @@ def run_app(
             server.batcher.shutdown()
 
 
-def main(argv: T.Optional[T.Sequence[str]] = None) -> None:
+def parse_args(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
+    """The command line as create_app's keyword arguments."""
     parser = argparse.ArgumentParser(description="riffusion_tpu_torch inference server")
     parser.add_argument("--checkpoint", default="random:full",
-                        help="'random:full' or 'random:tiny' (random weights), or a directory "
-                             "written by models.weights.save_native (a fine-tune's export)")
+                        help="'random:full' or 'random:tiny' (random weights), a local "
+                             "diffusers-layout directory, or a directory written by either "
+                             "package's save_native (a fine-tune's export among them)")
     parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=3013)
     parser.add_argument("--seed-images-dir", default=str(SEED_IMAGES_DIR))
     parser.add_argument("--scheduler", default=None,
-                        help="default sampler, e.g. pndm, dpmpp, unipc_k:rho=2")
+                        help="default sampler (else the checkpoint's), e.g. pndm, ddim, "
+                             "lms, euler, euler_a, dpmpp, unipc_k:rho=2")
     parser.add_argument("--warmup", action="store_true",
                         help="run the standard request (and each batch size) at startup")
     parser.add_argument("--warmup-steps", type=int, default=50)
@@ -394,7 +408,7 @@ def main(argv: T.Optional[T.Sequence[str]] = None) -> None:
                              "strength-gated FAST preset (serving.FAST_PRESET); "
                              "'parity' honors each request's steps and scheduler")
     args = parser.parse_args(argv)
-    run_app(
+    return dict(
         checkpoint=args.checkpoint,
         device=args.device,
         host=args.host,
@@ -408,6 +422,10 @@ def main(argv: T.Optional[T.Sequence[str]] = None) -> None:
         max_batch=args.max_batch,
         serving_preset=args.serving_preset,
     )
+
+
+def main(argv: T.Optional[T.Sequence[str]] = None) -> None:
+    run_app(**parse_args(argv))
 
 
 if __name__ == "__main__":

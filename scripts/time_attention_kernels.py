@@ -12,7 +12,8 @@ and K1 at (32, 4096, 8*40), the batched path's seq-4096 sites (K2's); the
 library's forward (torch's scaled_dot_product_attention on heads-first
 copies, a yardstick the port never calls) at each of these shapes. At the
 fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80): K1 writing the
-log-sum-exp and the library's forward on operands that need gradients (so
+log-sum-exp, the plain PyTorch forward (ops.attention.attention_reference)
+and the library's forward on operands that need gradients (so
 that it too keeps its log-sum-exp); the dK/dV and dQ kernels alone,
 the port's whole `attention_backward`
 (delta, then both kernels: the row to hold against the library), and the
@@ -49,7 +50,8 @@ SHAPES = (  # (kernel, batch, seq, heads, head_dim)
     ("library forward", 32, 4096, 8, 40),
 )
 TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # (batch, seq, heads, head_dim)
-FLOP = {"attention with LSE": 4, "library forward": 4, "attention_dkv": 8, "attention_dq": 6,
+FLOP = {"attention with LSE": 4, "library forward": 4, "plain forward": 4,
+        "attention_dkv": 8, "attention_dq": 6,
         "attention_backward": 14, "library backward": 10}  # times b*h*s*s*d
 
 
@@ -119,6 +121,7 @@ def main() -> int:
             "attention with LSE": lambda: attn._launch("attention", q, k, v, h, scale, lse=lse),
             "library forward": lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, scale=scale),
+            "plain forward": lambda: attn.attention_reference(q, k, v, num_heads=h, scale=scale),
             "attention_dkv": lambda: attn._launch_backward("attention_dkv", q, k, v, dout, lse,
                                                            delta, h, scale),
             "attention_dq": lambda: attn._launch_backward("attention_dq", q, k, v, dout, lse,

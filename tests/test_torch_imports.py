@@ -1,11 +1,13 @@
 """
 The port never imports jax, flax or the JAX package (riffusion_tpu), not
-even its modules that are free of JAX: a fresh interpreter imports every
-riffusion_tpu_torch module (serving and server among them), runs the tiny
-slice on the CPU, single and batched, then a fine-tune of two steps with
-its export reloaded, and checks sys.modules. Also a static check that no
-source of the port, nor chip_smoke.py or scripts/profile_torch_request.py,
-imports them, and that the port calls no library attention or compiler.
+even its modules that are free of JAX, nor the weight-file libraries the
+card machine lacks (safetensors, msgpack, transformers): a fresh
+interpreter imports every riffusion_tpu_torch module (serving and server
+among them), runs the tiny slice on the CPU, single and batched, then a
+fine-tune of two steps with its export reloaded, and checks sys.modules.
+Also a static check that no source of the port, nor chip_smoke.py or
+scripts/profile_torch_request.py, imports them, and that the port calls no
+library attention or compiler.
 """
 
 import ast
@@ -17,6 +19,8 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "riffusion_tpu_torch"
+BANNED_IMPORTS = {"jax", "jaxlib", "flax", "riffusion_tpu", "safetensors", "msgpack",
+                  "transformers"}
 
 _PROGRAM = r"""
 import importlib, pkgutil, sys
@@ -60,7 +64,8 @@ with tempfile.TemporaryDirectory() as tmp:
     tuned = RiffusionPipeline.load_checkpoint(stats["export_dir"], device="cpu")
     assert tuned.riffuse(inputs, image).size == (64, 64)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu", "safetensors",
+                                    "msgpack", "transformers"))
 print("LOADED", bad)
 """
 
@@ -92,7 +97,7 @@ def test_sources_import_no_jax_and_no_library_attention():
     for path in sources + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_request.py"]:
         text = path.read_text()
         # the top-level name exactly: riffusion_tpu_torch is the port itself
-        assert not _imported_top_levels(text) & {"jax", "jaxlib", "flax", "riffusion_tpu"}, path
+        assert not _imported_top_levels(text) & BANNED_IMPORTS, path
         if path.is_relative_to(PACKAGE):
             assert not banned.search(text), path
     assert _imported_top_levels("from riffusion_tpu.datatypes import InferenceInput\n"

@@ -5,10 +5,14 @@ against the JAX package's, on the CPU at the tiny geometry: the JAX
 port built from the same parameters, with the JAX program's random draws
 (VAE eps, noise_a, noise_b, the Griffin-Lim phase) handed to the port.
 Also the pieces around it: prompt weighting, text embeddings, slerp, device
-selection, preprocessing, the int16 conversion and the default noise.
+selection, preprocessing, the int16 conversion and the default noise; and
+each sampler on the single and the batched path (euler_a with the JAX
+stepper's own per-step noise). txt2img and img2img: tests/test_torch_modes.py.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +21,7 @@ import pytest
 import torch
 from PIL import Image
 
-from torch_port_util import jax_twin, torch_one_thread  # noqa: F401  (autouse)
+from torch_port_util import jax_ancestral_draws, jax_twin, torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu import riffusion_pipeline as jax_pipeline
 from riffusion_tpu.external import prompt_weighting as jax_pw
 from riffusion_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
@@ -68,9 +72,17 @@ def _inputs(**overrides):
     return InferenceInput(**kw)
 
 
-def _jax_draws(start_seed, end_seed, latent_hw, phase_shape):
+def _ancestral(key, num_steps, latent_hw):
+    """euler_a's per-step noise as the JAX stepper draws it from one
+    request's key, (S, 1, 4, h, w)."""
+    draws = jax_ancestral_draws(key[None], num_steps, (*latent_hw, 4))
+    return draws.transpose(0, 1, 4, 2, 3)
+
+
+def _jax_draws(start_seed, end_seed, latent_hw, phase_shape, ancestral_steps=None):
     """The draws the JAX program makes from request_keys, in the port's
-    layouts (latents NCHW)."""
+    layouts (latents NCHW); with `ancestral_steps`, euler_a's noise from the
+    scheduler key (the phase's key, keys[3])."""
     keys = jax_pipeline.request_keys(start_seed, end_seed)
 
     def latent(key):
@@ -78,13 +90,22 @@ def _jax_draws(start_seed, end_seed, latent_hw, phase_shape):
         return np.array(x).transpose(0, 3, 1, 2)
 
     kr, ki = jax.random.split(keys[3])
-    return pipeline.FixedNoise({
+    draws = {
         "vae_eps": latent(keys[0]),
         "noise_a": latent(keys[1]),
         "noise_b": latent(keys[2]),
         "gl_real": np.array(jax.random.uniform(kr, phase_shape, jnp.float32)),
         "gl_imag": np.array(jax.random.uniform(ki, phase_shape, jnp.float32)),
-    })
+    }
+    if ancestral_steps is not None:
+        draws["ancestral"] = _ancestral(keys[3], ancestral_steps, latent_hw)
+    return pipeline.FixedNoise(draws)
+
+
+def _evaluations(tp, scheduler, inputs):
+    """The plan length of a request (what euler_a draws noise for)."""
+    strength = (1 - inputs.alpha) * inputs.start.denoising + inputs.alpha * inputs.end.denoising
+    return tp._plan(scheduler, inputs.num_inference_steps, strength)[0].num_steps
 
 
 # The slice. The UNet, VAE and DSP agree to ~1e-5 in float32 (the model and
@@ -153,6 +174,25 @@ def test_text_embeddings_match_jax(pipes, seed_image, use_reweighting):
     out = tp.text_embeddings(inputs, use_reweighting).numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_embedding_caches_are_per_pipeline():
+    """Each pipeline caches its own prompt embeddings, and a pipeline that
+    has served prompts is freed as soon as it is dropped, without waiting
+    for the cycle collector."""
+    a = pipeline.RiffusionPipeline.load_checkpoint("random:tiny", device="cpu")
+    b = pipeline.RiffusionPipeline.load_checkpoint("random:tiny", device="cpu")
+    a.embed_text("church bells")
+    a.embed_text_weighted("(church bells:1.3)")
+    assert a.embed_text.cache_info().currsize == a.embed_text_weighted.cache_info().currsize == 1
+    assert b.embed_text.cache_info().currsize == b.embed_text_weighted.cache_info().currsize == 0
+    unet = weakref.ref(a.unet)
+    gc.disable()
+    try:
+        del a
+        assert unet() is None
+    finally:
+        gc.enable()
 
 
 def _table_encoder():
@@ -266,8 +306,11 @@ def test_generator_noise_seeding():
     assert not torch.equal(eps, pipeline.GeneratorNoise(1, 2, dev)("noise_a", shape, dev))
     phase = a("gl_real", (1, 8, 4), dev)
     assert float(phase.min()) >= 0.0 and float(phase.max()) < 1.0
-    with pytest.raises(ValueError, match="needs draws"):
-        pipeline.FixedNoise({"vae_eps": np.zeros(1)})
+    # a draw that FixedNoise lacks is refused, by name, when it is asked for
+    fixed = pipeline.FixedNoise({"vae_eps": np.zeros(shape, np.float32)})
+    assert torch.equal(fixed("vae_eps", shape, dev), torch.zeros(shape))
+    with pytest.raises(ValueError, match="no draw 'noise_a'"):
+        fixed("noise_a", shape, dev)
 
 
 # ----------------------------------------------------- samplers on the slice
@@ -316,16 +359,21 @@ def _assert_mels_agree(a_img, b_img):
     np.testing.assert_allclose(mel_a[same], mel_b[same], rtol=1e-6)
 
 
-@pytest.mark.parametrize("scheduler", ["unipc_k:rho=2", "dpmpp"])
+NEW_SAMPLERS = ["ddim", "lms", "euler", "euler_a"]
+
+
+@pytest.mark.parametrize("scheduler", ["unipc_k:rho=2", "dpmpp"] + NEW_SAMPLERS)
 def test_riffuse_audio_scheduler_matches_jax(pipes, seed_image, scheduler):
-    """The single path with a sigma-space sampler: the scheduler argument
-    and the sigma-space start noising (x0 + sigma_0 * eps)."""
+    """The single path with another sampler: the scheduler argument, the
+    start noising in the sampler's space (x0 + sigma_0 * eps for the sigma
+    samplers, DDPM for ddim) and, for euler_a, the per-step noise."""
     jp, tp = pipes
     inputs = _low_guidance(_inputs(num_inference_steps=6))
     image_j, _ = jp.riffuse_audio(jax_twin(inputs), seed_image, params=JAX_PARAMS,
                                   apply_filters=False, scheduler=scheduler)
     n_active = tp.converter(PARAMS).n_active
-    noise = _jax_draws(42, 123, (SIZE // 8, SIZE // 8), (1, n_active, SIZE))
+    steps = _evaluations(tp, scheduler, inputs) if scheduler == "euler_a" else None
+    noise = _jax_draws(42, 123, (SIZE // 8, SIZE // 8), (1, n_active, SIZE), steps)
     image_t, audio_t = tp.riffuse_audio(inputs, seed_image, params=PARAMS, apply_filters=False,
                                         scheduler=scheduler, noise=noise)
     _assert_images_agree(image_j, image_t)
@@ -352,9 +400,10 @@ def _batch_inputs(num_inference_steps):
     ]
 
 
-def _draws_for(tp, inputs_list):
+def _draws_for(tp, inputs_list, scheduler="pndm"):
     n_active = tp.converter(PARAMS).n_active
-    return [_jax_draws(i.start.seed, i.end.seed, (SIZE // 8, SIZE // 8), (1, n_active, SIZE))
+    return [_jax_draws(i.start.seed, i.end.seed, (SIZE // 8, SIZE // 8), (1, n_active, SIZE),
+                       _evaluations(tp, scheduler, i) if scheduler == "euler_a" else None)
             for i in inputs_list]
 
 
@@ -363,8 +412,10 @@ def _mask():
 
 
 @pytest.mark.parametrize(
-    "scheduler,masked", [("pndm", False), ("unipc_k:rho=2", False), ("unipc_k:rho=2", True)],
-    ids=["pndm", "unipc_k", "unipc_k-mask"],
+    "scheduler,masked",
+    [("pndm", False), ("unipc_k:rho=2", False), ("unipc_k:rho=2", True)]
+    + [(name, False) for name in NEW_SAMPLERS],
+    ids=["pndm", "unipc_k", "unipc_k-mask"] + NEW_SAMPLERS,
 )
 def test_riffuse_audio_batch_matches_jax(pipes, seed_image, scheduler, masked):
     """N = 3 through the port's batch and the JAX package's batch program,
@@ -377,7 +428,7 @@ def test_riffuse_audio_batch_matches_jax(pipes, seed_image, scheduler, masked):
                                    scheduler=scheduler)
     out_t = tp.riffuse_audio_batch(inputs_list, seed_image, params=PARAMS, apply_filters=False,
                                    mask_image=mask, scheduler=scheduler,
-                                   noises=_draws_for(tp, inputs_list))
+                                   noises=_draws_for(tp, inputs_list, scheduler))
     assert len(out_t) == 3
     for (image_j, audio_j), (image_t, audio_t) in zip(out_j, out_t):
         _assert_images_agree(image_j, image_t)

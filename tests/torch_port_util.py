@@ -35,3 +35,21 @@ def jax_twin(obj):
         "SpectrogramParams": spectrogram_params.SpectrogramParams,
     }[type(obj).__name__]
     return from_dict(cls, dataclasses.asdict(obj))
+
+
+def jax_ancestral_draws(keys, num_steps, item_shape):
+    """The noise the JAX package's euler_a stepper draws from per-item keys
+    (N, 2): at each step every key splits into (next key, subkey) and the
+    subkey draws at (1,) + item_shape. Returns (num_steps, N) + item_shape
+    float32 numpy, in the layout drawn."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    draws = []
+    for _ in range(num_steps):
+        splits = jax.vmap(jax.random.split)(keys)
+        keys, subs = splits[:, 0], splits[:, 1]
+        draws.append(np.asarray(jax.vmap(
+            lambda k: jax.random.normal(k, (1,) + tuple(item_shape), jnp.float32))(subs)[:, 0]))
+    return np.stack(draws)
