@@ -49,13 +49,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the CPU, with the same injected noise, at a 256 px seed (K1 sites
    reached, K2 not); images agree within one uint8 level on >= 99% of pixels.
    Then the same request with ddim, lms, euler and euler_a (its per-step
-   noise injected too), a txt2img (euler_a) and an img2img (lms), each held
-   to the same image bound.
+   noise injected too), a txt2img (euler_a), an img2img (lms) and
+   img2img_magic_mix with pndm and euler (its VAE eps and q-sample noise
+   injected), each held to the same image bound with K1 alone reached.
 7. tiny batch: 5 requests through riffuse_audio_batch, the tiny model in fp32
    at a 512 px seed (UNet batch 10, the 64x64 level is lq 4096 at d=16, so K2
    is reached), on the card against the CPU with the same noise per request,
    with unipc_k:rho=2, ddim, lms, euler and euler_a; the same image bound, K2
    launched in each (euler_a's batch among them), no plain-version call.
+   Then txt2img_audio_batch of 5 prompts at 512 px (pndm-10, UNet batch 10,
+   fused through the audio tail) with the same noise per prompt: the same
+   image bound, K2 launched, no plain call.
 8. tiny train: three trainer steps of the tiny UNet in fp32 (32x32
    latents, so K1 and its backward are reached) on the card against the
    same steps on the CPU with the same t and noise: the losses, and the
@@ -73,6 +77,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    batching window closed so that it does not wait 3 s for company. One
    /run_inference_batch/ of 16 at 50-step PNDM: K2 and K1 190 times each.
    E comes from the port's plans. Every response passes the checks of 9.
+modes: the same model's other generating modes, each twice.
+   txt2img_audio_batch of 16 prompts, 512x512, pndm-30 (E = 31 at UNet
+   batch 32), fused through the audio tail: K2 5*E and K1 5*E times, and
+   every item a non-flat 512x512 image with 5.11 s of non-silent audio.
+   img2img_magic_mix on og_beat, pndm-50, kmin 0.3, kmax 0.5 (E = 25 at
+   UNet batch 2): K1 10*E times, K2 never, a non-flat image. Each one's
+   seconds; E comes from the plans.
 checkpoint: a diffusers-layout directory (under .chipwork/, deleted at the
    end) written from random:full's fp32 weights by this script's own writer
    and its own inverse of the loader's key renames, checked to round-trip on
@@ -101,14 +112,26 @@ checkpoint: a diffusers-layout directory (under .chipwork/, deleted at the
    its own process) within TRAIN_GRAD_BOUND; the export reloaded with
    RiffusionPipeline.load_checkpoint and one request riffused with the
    sampler it carries from the checkpoint (ddim, 10 x E K1 launches).
+cli: the command line on the checkpoint directory, in this process, with
+   the text-embedding disk cache in a fresh directory under .chipwork/.
+   text-to-audio (pndm-30, K1 10*E) writes 5.11 s of non-silent audio and a
+   512x512 PNG; stream --num-clips 16 --batch 8 --fast runs 3 launches (one
+   warm-up, two timed) of E = 12 at UNet batch 16, K2 and K1 each 3*5*E
+   times, and writes 16 clips less 15 crossfades; its realtime factor is
+   printed. Then warmstart_report on two fresh loads of the directory, each
+   stage's seconds printed: the second load reads every embedding from the
+   disk cache (hits > 0, no miss) and its kernels from csrc/build/
+   (kernel_source "cached").
 
 `--mutants` instead builds each planted fault of MUTANTS into a copy of
 the kernel sources and shows that the checks of every kernel it touches
 reject it (tests/test_torch_kernel_sources.py holds each fault's text to
 its source on the CPU).
 
-Each phase's seconds are printed ("[time]"). The last two lines are the
-kernel table and {"ok": true, "device": {"platform": "gpu", ...}}.
+Each phase's seconds are printed ("[time]"). The pipelines' text-embedding
+disk cache lives under .chipwork/ and is deleted at the end. The last two
+lines are the kernel table and {"ok": true, "device": {"platform": "gpu",
+...}}.
 """
 
 from __future__ import annotations
@@ -118,6 +141,7 @@ import copy
 import gc
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -694,6 +718,11 @@ def phase_tiny(torch, attn) -> None:
     both("img2img lms-10", lambda p: p.img2img(
         "techno", image, denoising_strength=0.6, num_inference_steps=10, guidance=1.75,
         scheduler="lms", noise=noise))
+    mix = FixedNoise({"vae_eps": draws["vae_eps"], "noise": rng.standard_normal(latent)})
+    for name in ("pndm", "euler"):
+        both(f"img2img_magic_mix {name}-10", lambda p: p.img2img_magic_mix(
+            "techno", image, num_inference_steps=10, guidance_scale=1.75, kmin=0.3, kmax=0.7,
+            scheduler=name, noise=mix))
 
 
 def _image_agreement(a_img, b_img):
@@ -762,6 +791,31 @@ def phase_tiny_batch(torch, attn) -> None:
                                  "both kernels")
         if any(m > 1 or e < 0.99 for e, m in agreement):
             raise AssertionError(f"the card's tiny batch ({scheduler}) disagrees with the CPU's")
+
+    # txt2img_audio_batch of 5 prompts (UNet batch 10), fused through the audio
+    t2i = [FixedNoise({"latents": rng.standard_normal(latent), "gl_real": d["gl_real"],
+                       "gl_imag": d["gl_imag"]}) for d in draws]
+    kw = dict(negative_prompts=["noise"] * n, seeds=list(range(n)), num_inference_steps=10,
+              guidances=[1.5 + 0.1 * i for i in range(n)], width=size, height=size,
+              scheduler="pndm", params=params, apply_filters=False, noises=t2i)
+    prompts = [f"church bells {i}" for i in range(n)]
+    attn.COUNTS.reset()
+    out_g = gpu_pipe.txt2img_audio_batch(prompts, **kw)
+    torch.cuda.synchronize()
+    launches, rows, plain = attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls
+    out_c = cpu_pipe.txt2img_audio_batch(prompts, **kw)
+    agreement = [_image_agreement(g[0], c[0]) for g, c in zip(out_g, out_c)]
+    log(f"[tiny batch] txt2img_audio_batch of {n} prompts at {size}px (pndm-10, UNet batch "
+        f"{2 * n}), cuda fp32 vs cpu fp32, (pixels equal, max diff) per prompt: "
+        f"{[(f'{e:.4%}', m) for e, m in agreement]}; K1 launches {launches}, K2 launches "
+        f"{rows}, plain calls {plain}")
+    if rows == 0 or plain != 0:
+        raise AssertionError("the tiny txt2img batch on the card did not go through K2")
+    if any(m > 1 or e < 0.99 for e, m in agreement):
+        raise AssertionError("the card's tiny txt2img batch disagrees with the CPU's")
+    if any(a is None or a.raw_data.shape != b.raw_data.shape for (_, a), (_, b) in
+           zip(out_g, out_c)):
+        raise AssertionError("the card's tiny txt2img batch lost its audio")
 
 
 # ------------------------------------------------------------- the checkpoint
@@ -1370,6 +1424,165 @@ def phase_batch(torch, attn, pipe) -> dict:
     return {"counts": counts, "results": results}
 
 
+def _check_clip(what: str, image, segment) -> None:
+    """A generated clip: a non-flat 512x512 image and 5.11 s of audio that is
+    not silent."""
+    import numpy as np
+
+    pixels = np.asarray(image, np.float64)
+    if image.size != (512, 512) or not (np.isfinite(pixels).all() and pixels.std() > 0):
+        raise AssertionError(f"{what}: bad image {image.size}, std {pixels.std()}")
+    if segment is not None:
+        samples = segment.raw_data.astype(np.float64)
+        if abs(segment.duration_seconds - 5.11) > 0.02 or not samples.std() > 100:
+            raise AssertionError(f"{what}: {segment.duration_seconds} s of audio, std "
+                                 f"{samples.std()}")
+
+
+def phase_modes(torch, attn, pipe) -> dict:
+    """The other generating modes at full width: txt2img_audio_batch of 16
+    prompts (pndm-30, UNet batch 32, fused through the audio tail) and
+    img2img_magic_mix on og_beat (pndm-50, kmin 0.3, kmax 0.5, UNet batch
+    2), with exact launch counts from the plans."""
+    from riffusion_tpu_torch.diffusion import schedulers as sched
+    from riffusion_tpu_torch.serving import load_seed_image
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
+
+    counts = {"attention": 0, "row_attention": 0}
+    seconds = {}
+
+    def run(what: str, k1: int, k2: int, fn):
+        attn.COUNTS.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[what] = time.perf_counter() - t0
+        log(f"[modes] {what}: {seconds[what]:.3f} s, K1 launches {attn.COUNTS.launches}, K2 "
+            f"launches {attn.COUNTS.row_launches}, plain calls {attn.COUNTS.plain_calls}")
+        _expect_counts(attn, what, k1, k2)
+        counts["attention"] += attn.COUNTS.launches
+        counts["row_attention"] += attn.COUNTS.row_launches
+        return out
+
+    e_t2i = sched.make_plan("pndm", 30).num_steps
+    prompts = [f"funky synth solo {i}" for i in range(16)]
+    for turn in (1, 2):  # the first call of a batch size sets up cuDNN's plans
+        results = run(f"txt2img_audio_batch of 16, pndm-30, 512x512 ({turn})", 5 * e_t2i,
+                      5 * e_t2i, lambda: pipe.txt2img_audio_batch(
+                          prompts, seeds=list(range(16)), num_inference_steps=30,
+                          scheduler="pndm", params=SpectrogramParams()))
+        for i, (image, segment) in enumerate(results):
+            _check_clip(f"txt2img_audio_batch item {i}", image, segment)
+
+    seed = load_seed_image(REPO / "seed_images", "og_beat")
+    t_start = pipe._magic_mix_start("pndm", 50, 0.3, 0.5)[0]
+    e_mix = sched.make_plan("pndm", 50, t_start).num_steps
+    log(f"[modes] UNet evaluations: txt2img pndm-30 {e_t2i}, magic mix pndm-50 from position "
+        f"{t_start}: {e_mix}")
+    for turn in (1, 2):
+        image = run(f"img2img_magic_mix on og_beat, pndm-50 ({turn})", 10 * e_mix, 0,
+                    lambda: pipe.img2img_magic_mix("jazzy saxophone", seed,
+                                                   num_inference_steps=50, scheduler="pndm"))
+        _check_clip("img2img_magic_mix", image, None)
+    return {"counts": counts, "seconds": seconds}
+
+
+def phase_cli(torch, attn, checkpoint: Path) -> dict:
+    """The command line on the checkpoint directory, in this process, with
+    the embedding disk cache in a directory of its own: text-to-audio, then
+    stream --fast (16 clips in batches of 8), then warmstart_report on two
+    fresh loads of the directory."""
+    import contextlib
+    import os
+
+    import numpy as np
+
+    from riffusion_tpu_torch import cli
+    from riffusion_tpu_torch.audio.segment import AudioSegment
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+    from riffusion_tpu_torch.diffusion import schedulers as sched
+    from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline, img2img_plan
+    from riffusion_tpu_torch.serving import FAST_PRESET, load_seed_image
+    from PIL import Image
+
+    out_dir = Path(tempfile.mkdtemp(prefix="cli-", dir=REPO / ".chipwork"))
+    cache_before = os.environ.get("RIFFUSION_TPU_EMBED_CACHE_DIR")
+    os.environ["RIFFUSION_TPU_EMBED_CACHE_DIR"] = str(out_dir / "embeds")
+    counts = {"attention": 0, "row_attention": 0}
+    seconds = {}
+
+    def run(what: str, k1: int, k2: int, argv) -> str:
+        attn.COUNTS.reset()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        seconds[what] = time.perf_counter() - t0
+        log(f"[cli] {what}: {seconds[what]:.3f} s with the load, K1 launches "
+            f"{attn.COUNTS.launches}, K2 launches {attn.COUNTS.row_launches}, plain calls "
+            f"{attn.COUNTS.plain_calls}; it printed: {printed.getvalue().strip()!r}")
+        _expect_counts(attn, what, k1, k2)
+        counts["attention"] += attn.COUNTS.launches
+        counts["row_attention"] += attn.COUNTS.row_launches
+        return printed.getvalue()
+
+    try:
+        wav, png = out_dir / "text.wav", out_dir / "text.png"
+        e_t2i = sched.make_plan("pndm", 30).num_steps
+        run("text-to-audio (pndm-30)", 10 * e_t2i, 0,
+            ["text-to-audio", "--prompt", "funky synth solo", "--audio", str(wav), "--image",
+             str(png), "--checkpoint", str(checkpoint)])
+        _check_clip("text-to-audio", Image.open(png), AudioSegment.from_file(str(wav)))
+
+        e_fast = img2img_plan(FAST_PRESET["scheduler"], FAST_PRESET["steps"], 0.75)[0].num_steps
+        stream_wav = out_dir / "stream.wav"
+        printed = run(f"stream --num-clips 16 --batch 8 --fast (3 launches of {e_fast} "
+                      "evaluations at UNet batch 16)", 3 * 5 * e_fast, 3 * 5 * e_fast,
+                      ["stream", "--prompt-start", "funky synth solo", "--prompt-end",
+                       "jazzy saxophone", "--audio", str(stream_wav), "--num-clips", "16",
+                       "--batch", "8", "--fast", "--checkpoint", str(checkpoint)])
+        track = AudioSegment.from_file(str(stream_wav))
+        expect_s = 16 * 5.11 - 15 * 0.2
+        samples = track.raw_data.astype(np.float64)
+        rate = re.search(r"\(([0-9.]+)x realtime", printed)
+        log(f"[cli] stream: {track.duration_seconds:.3f} s of audio (16 clips less 15 "
+            f"crossfades: {expect_s:.2f} s), realtime factor {rate and rate.group(1)}")
+        if abs(track.duration_seconds - expect_s) > 0.05 or not samples.std() > 100 or not rate:
+            raise AssertionError("stream: wrong length, silent, or no realtime factor")
+
+        seed = load_seed_image(REPO / "seed_images", "og_beat")
+        inputs = InferenceInput(start=PromptInput(prompt="organ chords", seed=3),
+                                end=PromptInput(prompt="church bells", seed=4), alpha=0.5,
+                                num_inference_steps=50)
+        reports = []
+        for load in (1, 2):
+            t0 = time.perf_counter()
+            warm = RiffusionPipeline.load_checkpoint(str(checkpoint), device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            evals = warm._plan(warm.bundle.scheduler_name, 50, 0.75)[0].num_steps
+            attn.COUNTS.reset()
+            report = warm.warmstart_report(inputs, seed)
+            log(f"[cli] warmstart_report, load {load} of the directory ({load_s:.2f} s to "
+                f"load): {json.dumps(report)}; K1 launches {attn.COUNTS.launches}")
+            _expect_counts(attn, f"warmstart_report {load}", 10 * evals, 0)
+            counts["attention"] += attn.COUNTS.launches
+            reports.append(dict(report, load_s=load_s))
+            del warm
+            gc.collect()
+        second = reports[1]
+        if not (second["embed_cache_hits"] > 0 and second["embed_cache_misses"] == 0
+                and second["kernel_source"] == "cached"):
+            raise AssertionError(f"the second warm start did not read its embeddings and "
+                                 f"kernels from disk: {second}")
+    finally:
+        os.environ["RIFFUSION_TPU_EMBED_CACHE_DIR"] = cache_before
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"counts": counts, "seconds": seconds, "warmstart": reports}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1384,7 +1597,6 @@ def main(argv=None) -> int:
     smi, clock_hz = phase_card(torch)
     sys.path.insert(0, str(REPO))
     from riffusion_tpu_torch.ops import attention as attn
-    from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
     from riffusion_tpu_torch.util import torch_util
 
     torch_util.configure_numerics()
@@ -1394,11 +1606,30 @@ def main(argv=None) -> int:
         log(f"[mutants] every one of {len(MUTANTS)} mutants was rejected by the checks of every "
             "kernel it touches")
         return 0
-    def phase(name: str, fn, *args):
-        start = time.perf_counter()
-        result = fn(*args)
-        log(f"[time] {name}: {time.perf_counter() - start:.1f} s")
-        return result
+
+    # the text-embedding disk cache of every pipeline below stays in the
+    # checkout and goes at the end
+    work = REPO / ".chipwork"
+    work.mkdir(exist_ok=True)
+    embeds = Path(tempfile.mkdtemp(prefix="embeds-", dir=work))
+    os.environ["RIFFUSION_TPU_EMBED_CACHE_DIR"] = str(embeds)
+    try:
+        return _smoke(torch, attn, smi, clock_hz, work)
+    finally:
+        shutil.rmtree(embeds, ignore_errors=True)
+
+
+def phase(name: str, fn, *args):
+    """fn(*args), with its seconds printed."""
+    start = time.perf_counter()
+    result = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - start:.1f} s")
+    return result
+
+
+def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
+    """Every phase after the build, then the kernels line and the result."""
+    from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 
     kernel = phase("kernel", phase_kernel, torch, attn, clock_hz)
     grad = phase("kernel-grad", phase_kernel_grad, torch, attn, clock_hz)
@@ -1414,8 +1645,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - start:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     single = phase("slice", phase_slice, torch, attn, pipe)
     batch = phase("batch", phase_batch, torch, attn, pipe)
-    work = REPO / ".chipwork"
-    work.mkdir(exist_ok=True)
+    modes = phase("modes", phase_modes, torch, attn, pipe)
     ckpt_dir = Path(tempfile.mkdtemp(prefix="checkpoint-", dir=work))
     try:
         ckpt = phase("checkpoint", phase_checkpoint, torch, attn, pipe, ckpt_dir)
@@ -1433,6 +1663,9 @@ def main(argv=None) -> int:
         if freed < held:
             raise AssertionError("random:full's pipeline was not freed when it was dropped")
         train = phase("train", phase_train, torch, attn, ckpt["pipe"], ckpt_dir)
+        del ckpt["pipe"]
+        gc.collect()
+        cli_run = phase("cli", phase_cli, torch, attn, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -1445,13 +1678,14 @@ def main(argv=None) -> int:
          f"{flash}:589 _flash_attention_impl (called from riffusion_tpu/models/layers.py:251)",
          times[("attention", 2, 4096, 40)], times[("plain", 2, 4096, 40)],
          times[("bound", 2, 4096, 40)], times[("library", 2, 4096, 40)],
-         single["attention"] + batch["counts"]["attention"] + ckpt["launches"]
-         + train["launches"]["attention"]),
+         single["attention"] + batch["counts"]["attention"] + modes["counts"]["attention"]
+         + ckpt["launches"] + train["launches"]["attention"] + cli_run["counts"]["attention"]),
         ("row_attention", "row_attention.cu",
          "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
          times[("row_attention", b, s, d)], times[("plain", b, s, d)],
          times[("bound", b, s, d)], times[("library", b, s, d)],
-         single["row_attention"] + batch["counts"]["row_attention"]),
+         single["row_attention"] + batch["counts"]["row_attention"]
+         + modes["counts"]["row_attention"] + cli_run["counts"]["row_attention"]),
     ] + [
         # the plain and library times are of the whole backward (dQ, dK, dV)
         (name, f"{name}.cu", f"{flash}:{line} {fn}", grad_times[(name, tb, ts, td)],

@@ -611,6 +611,21 @@ def make_plan(
     return _MAKERS[base](noise, num_steps, t_start, **kwargs)
 
 
+def slice_anchor_timesteps(
+    name: str, num_steps: int, noise: NoiseConfig = NoiseConfig()
+) -> np.ndarray:
+    """Timesteps in the space that `t_start` slices for `name`. Karras-grid
+    schedulers re-anchor the sliced suffix to the linear grid's sigma at
+    t_start, so a caller choosing t_start from a timestep bound (MagicMix's
+    kmax) must search the LINEAR grid; every other plan slices its own
+    timesteps."""
+    base = parse_scheduler(name)[0]
+    if base in KARRAS_GRID:
+        t, _ = _interp_sigmas(noise, num_steps)
+        return np.round(t).astype(np.int32)
+    return np.asarray(make_plan(base, num_steps, 0, noise).timesteps)
+
+
 def draws_noise(plan: SchedulerPlan) -> bool:
     """Whether the plan's steps add fresh noise (an ancestral sampler, whose
     plan splits each step's sigma into sigma_down and sigma_up)."""

@@ -38,6 +38,7 @@ the tests.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -65,10 +66,43 @@ class ModelBundle:
     text_encoder: CLIPTextModel
     tokenizer: T.Any
     scheduler_name: str = "pndm"
+    #: Content identity of the loaded weights (spec and seed for a random
+    #: bundle, a stat digest for a checkpoint directory), in the JAX
+    #: package's forms. It keys the text-embedding disk cache
+    #: (embed_cache.py); "" disables that cache for a bundle built directly.
+    checkpoint_id: str = ""
 
     @property
     def vae_config(self) -> VAEConfig:
         return self.vae.cfg
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The text encoder's (and the UNet's) compute dtype."""
+        return next(self.text_encoder.parameters()).dtype
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name for a torch floating dtype: float32, bfloat16, float16."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _dir_identity(root: T.Union[str, Path], dtype: torch.dtype) -> str:
+    """Cheap content identity for a checkpoint directory: its path plus every
+    file's (relative path, size, mtime_ns). A rewritten weight file changes
+    it; serving the same files again keeps it across restarts."""
+    root = str(root)
+    h = hashlib.sha256(os.path.abspath(root).encode())
+    for dirpath, dirnames, filenames in sorted(os.walk(root)):
+        dirnames.sort()
+        for name in sorted(filenames):
+            p = os.path.join(dirpath, name)
+            try:
+                st = os.stat(p)
+            except OSError:
+                continue
+            h.update(f"{os.path.relpath(p, root)}|{st.st_size}|{st.st_mtime_ns}".encode())
+    return f"dir:{h.hexdigest()[:24]}:{dtype_name(dtype)}"
 
 
 def configs(size: str) -> T.Tuple[UNetConfig, VAEConfig, CLIPTextConfig]:
@@ -136,6 +170,7 @@ def random_bundle(
         vae=vae.eval(),
         text_encoder=clip.eval(),
         tokenizer=HashTokenizer(vocab_size=clip.cfg.vocab_size),
+        checkpoint_id=f"random:{size}:s{seed}:{dtype_name(dtype)}",
     )
 
 
@@ -228,7 +263,7 @@ def _assemble(
     return ModelBundle(
         unet=unet.to(dtype).eval(), vae=vae.to(torch.float32).eval(),
         text_encoder=clip.to(dtype).eval(), tokenizer=tokenizer,
-        scheduler_name=scheduler_name,
+        scheduler_name=scheduler_name, checkpoint_id=_dir_identity(root, dtype),
     )
 
 
@@ -532,7 +567,8 @@ def bundle_from_jax_params(
     unet: T.Mapping[str, T.Any],
     vae: T.Mapping[str, T.Any],
     clip: T.Mapping[str, T.Any],
-    device: T.Union[str, torch.device] = "cpu",
+    *,
+    device: T.Union[str, torch.device],
 ) -> ModelBundle:
     """A float32 bundle holding the JAX package's weights (strict: every
     parameter must be matched by name and shape)."""

@@ -64,8 +64,8 @@ import torch
 
 __all__ = [
     "attention", "row_attention", "attention_backward", "attention_reference",
-    "attention_backward_reference", "build_kernels", "compare_to_plain", "backward_delta",
-    "compare_grads_to_plain", "kernel_takes_head_dim", "ptxas_instances", "route", "COUNTS",
+    "attention_backward_reference", "build_kernels", "built_on_disk", "compare_to_plain",
+    "backward_delta", "compare_grads_to_plain", "kernel_takes_head_dim", "ptxas_instances", "route", "COUNTS",
     "TOLERANCE", "GRAD_TOLERANCE",
 ]
 
@@ -78,6 +78,7 @@ KERNELS = {
     "attention_dkv": (_CSRC / "attention_dkv.cu", "riff_attention_bwd_dkv"),
     "attention_dq": (_CSRC / "attention_dq.cu", "riff_attention_bwd_dq"),
 }
+FORWARD_KERNELS = ("attention", "row_attention")  # what inference launches
 # C entry point -> its argument types (pointers, element strides, ints,
 # scale, dtype, device, stream)
 _ARGTYPES = {
@@ -174,6 +175,16 @@ def _digest(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _stem(name: str) -> Path:
+    """The build's path without its suffix, keyed by the source's digest."""
+    return BUILD_DIR / f"{name}-{_digest(KERNELS[name][0])}"
+
+
+def built_on_disk(names: T.Sequence[str]) -> bool:
+    """Whether csrc/build/ already holds a build of each named source."""
+    return all(_stem(name).with_suffix(".so").is_file() for name in names)
+
+
 def build_kernels(
     names: T.Sequence[str] = tuple(KERNELS), rebuild: bool = False
 ) -> T.Dict[str, BuiltKernel]:
@@ -186,7 +197,7 @@ def build_kernels(
         jobs = {}
         for name in todo:
             source = KERNELS[name][0]
-            stem = BUILD_DIR / f"{name}-{_digest(source)}"
+            stem = _stem(name)
             so_path, log_path = stem.with_suffix(".so"), stem.with_suffix(".log")
             proc = tmp = None
             if rebuild or not so_path.is_file():

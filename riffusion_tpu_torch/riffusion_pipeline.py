@@ -5,17 +5,22 @@ CUDA device (or the CPU, when asked for).
 The counterpart of the riffuse paths of riffusion_tpu/riffusion_pipeline.py:
 `load_checkpoint`, `embed_text`, `embed_text_weighted`, `riffuse`
 (`interpolate_img2img`), `riffuse_audio`, `riffuse_audio_batch`, `txt2img`,
-`img2img`, `preprocess_image`, `preprocess_mask`. Where the JAX package traces one
+`txt2img_audio_batch`, `img2img`, `img2img_magic_mix`, `warmstart_report`,
+`preprocess_image`, `preprocess_mask`. Where the JAX package traces one
 program (VAE encode -> seed-noise slerp -> noising -> CFG denoise scan ->
 VAE decode -> codec -> inverse mel -> Griffin-Lim), this runs the same steps
 eagerly, with the denoise loop as a Python loop over `schedulers.step`. A
-single request is a batch of one: `_generate` runs N requests with the UNet
-at batch 2N, and every entry point goes through it.
+single request is a batch of one: `_generate` runs N riffuse requests with
+the UNet at batch 2N, `_txt2img_program` N prompts from pure noise, and
+both share the denoise loop, the VAE decode and the audio tail (codec,
+inverse mel, Griffin-Lim, int16).
 
 Randomness. A request draws five tensors: the VAE reparameterization eps,
 the two seed noises `noise_a` / `noise_b`, and the two uniform Griffin-Lim
 phase tensors; with euler_a also "ancestral", every step's noise at once,
-(S, 1, C, h, w). `txt2img` draws "latents" (and "ancestral"). All of them
+(S, 1, C, h, w). `txt2img` draws "latents" (and "ancestral"), and with
+audio the phase; MagicMix draws "vae_eps", "noise" (the q-sample noise of
+the original) and "ancestral". All of them
 come from one `NoiseSource` per request, a callable `(name, shape, device)
 -> tensor`. The default, `GeneratorNoise`, uses device torch.Generators
 seeded from (start.seed, end.seed); a test passes `FixedNoise` with the
@@ -24,6 +29,11 @@ batch, request i draws what it would draw alone.
 
 The UNet and CLIP run in bfloat16 on CUDA and float32 on the CPU; the VAE
 and the DSP always run in float32 (TF32 off, torch_util.configure_numerics).
+
+Text embeddings are cached twice: per pipeline (an lru cache per kind) and
+across processes on disk (embed_cache.py, keyed on the bundle's
+checkpoint_id), so a restarted server reads its boot prompts off disk.
+`embed_cache_counts` gives the disk cache's hits and misses.
 
 Each stage of a request runs inside a `torch.profiler.record_function` span
 (riffusion.text, .vae_encode, .denoise, .vae_decode, .audio), which a
@@ -35,6 +45,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
 import typing as T
 
 import numpy as np
@@ -42,6 +53,7 @@ import torch
 from PIL import Image
 from torch.profiler import record_function
 
+from riffusion_tpu_torch import embed_cache
 from riffusion_tpu_torch.audio.segment import AudioSegment
 from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
@@ -52,9 +64,9 @@ from riffusion_tpu_torch.spectrogram_converter import SpectrogramConverter
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 from riffusion_tpu_torch.util import audio_util, torch_util
 
-#: euler_a's per-step noise, and txt2img's starting latents: drawn only by
-#: the paths that use them.
-ANCESTRAL, LATENTS = "ancestral", "latents"
+#: euler_a's per-step noise, txt2img's starting latents and MagicMix's
+#: q-sample noise: drawn only by the paths that use them.
+ANCESTRAL, LATENTS, MIX_NOISE = "ancestral", "latents", "noise"
 NoiseSource = T.Callable[[str, T.Tuple[int, ...], torch.device], torch.Tensor]
 
 
@@ -71,9 +83,9 @@ class GeneratorNoise:
     noise_a depends on start.seed only and noise_b on end.seed only, so two
     requests that share a seed share that noise (what makes consecutive
     interpolation clips continuous). The VAE eps, the phase, euler_a's
-    per-step noise and txt2img's latents come from generators derived from
-    start.seed with salts of their own, independent of noise_a and of one
-    another."""
+    per-step noise, txt2img's latents and MagicMix's noise come from
+    generators derived from start.seed with salts of their own, independent
+    of noise_a and of one another."""
 
     def __init__(self, start_seed: int, end_seed: int, device: torch.device):
         def gen(seed: int) -> torch.Generator:
@@ -86,6 +98,7 @@ class GeneratorNoise:
             "gl": gen(_derived_seed(start_seed, 7)),
             ANCESTRAL: gen(_derived_seed(start_seed, 13)),
             LATENTS: gen(_derived_seed(start_seed, 17)),
+            MIX_NOISE: gen(_derived_seed(start_seed, 19)),
         }
 
     def __call__(self, name: str, shape: T.Tuple[int, ...], device: torch.device) -> torch.Tensor:
@@ -129,26 +142,69 @@ def _encode_ids(text_encoder: torch.nn.Module, device: torch.device,
     return text_encoder(torch.as_tensor(ids, dtype=torch.long, device=device))
 
 
-def _embed_plain(tokenizer, encode: T.Callable, text: str) -> torch.Tensor:
+class _DiskCachedEmbeddings:
+    """Routes an embedding through the cross-process disk cache
+    (embed_cache.py): a fresh process reads its boot prompts off disk
+    instead of running the text encoder. Keyed on the checkpoint's identity
+    and the environment's fingerprint, so a weight or code change is a clean
+    miss. A hit comes back on `device` in `dtype`. Counts the lookups that
+    hit and missed; a bundle without a checkpoint_id (built directly) is
+    not cached."""
+
+    def __init__(self, checkpoint_id: str, dtype: torch.dtype, device: torch.device):
+        self.checkpoint_id, self.dtype, self.device = checkpoint_id, dtype, device
+        self.hits = self.misses = 0
+        self._count_lock = threading.Lock()  # server threads embed concurrently
+
+    def __call__(self, kind: str, text: str, compute: T.Callable[[], torch.Tensor]) -> torch.Tensor:
+        key = None
+        if self.checkpoint_id and embed_cache.enabled():
+            key = embed_cache.entry_key(self.checkpoint_id, self.dtype, kind, text,
+                                        device=self.device)
+            hit = embed_cache.get(key)
+            with self._count_lock:
+                if hit is not None:
+                    self.hits += 1
+                else:
+                    self.misses += 1
+            if hit is not None:
+                return hit.to(self.device, self.dtype)
+        emb = compute()
+        if key is not None:
+            embed_cache.put(key, emb)
+        return emb
+
+
+def _embed_plain(tokenizer, encode: T.Callable, disk: _DiskCachedEmbeddings,
+                 text: str) -> torch.Tensor:
     """Plain CLIP embedding of `text`, (1, 77, hidden)."""
-    ids = np.asarray(
-        tokenizer(
-            text,
-            padding="max_length",
-            max_length=tokenizer.model_max_length,
-            truncation=True,
-        )["input_ids"],
-        dtype=np.int64,
-    )
-    return encode(ids)
+
+    def compute() -> torch.Tensor:
+        ids = np.asarray(
+            tokenizer(
+                text,
+                padding="max_length",
+                max_length=tokenizer.model_max_length,
+                truncation=True,
+            )["input_ids"],
+            dtype=np.int64,
+        )
+        return encode(ids)
+
+    return disk("plain", text, compute)
 
 
-def _embed_weighted(tokenizer, encode: T.Callable, text: str) -> torch.Tensor:
+def _embed_weighted(tokenizer, encode: T.Callable, disk: _DiskCachedEmbeddings,
+                    text: str) -> torch.Tensor:
     """Attention-weighted embedding (`(word:1.5)` syntax), (1, L, hidden)."""
-    emb, _ = prompt_weighting.get_weighted_text_embeddings(
-        encode, tokenizer, text, uncond_prompt=None, max_embeddings_multiples=3
-    )
-    return emb
+
+    def compute() -> torch.Tensor:
+        emb, _ = prompt_weighting.get_weighted_text_embeddings(
+            encode, tokenizer, text, uncond_prompt=None, max_embeddings_multiples=3
+        )
+        return emb
+
+    return disk("weighted", text, compute)
 
 
 class RiffusionPipeline:
@@ -170,13 +226,15 @@ class RiffusionPipeline:
         self.text_encoder = bundle.text_encoder.to(self.device).eval()
         self.tokenizer = bundle.tokenizer
         # embed_text and embed_text_weighted: each pipeline's own caches of
-        # prompt embeddings. They hold the text encoder, not the pipeline, so
-        # a pipeline that is dropped frees its weights.
+        # prompt embeddings, over the disk cache. They hold the text encoder,
+        # not the pipeline, so a pipeline that is dropped frees its weights.
         self._encode_77 = functools.partial(_encode_ids, self.text_encoder, self.device)
-        self.embed_text = functools.lru_cache(maxsize=256)(
-            functools.partial(_embed_plain, self.tokenizer, self._encode_77))
-        self.embed_text_weighted = functools.lru_cache(maxsize=256)(
-            functools.partial(_embed_weighted, self.tokenizer, self._encode_77))
+        self._embed_disk_cached = _DiskCachedEmbeddings(
+            bundle.checkpoint_id, bundle.dtype, self.device)
+        self.embed_text = functools.lru_cache(maxsize=256)(functools.partial(
+            _embed_plain, self.tokenizer, self._encode_77, self._embed_disk_cached))
+        self.embed_text_weighted = functools.lru_cache(maxsize=256)(functools.partial(
+            _embed_weighted, self.tokenizer, self._encode_77, self._embed_disk_cached))
         self._converters: T.Dict[SpectrogramParams, SpectrogramConverter] = {}
         # One program is queued on the device at a time (see _dispatch).
         self._dispatch_lock = threading.Lock()
@@ -205,16 +263,25 @@ class RiffusionPipeline:
 
     # ---------------------------------------------------------- text encoding
 
+    @property
+    def embed_cache_counts(self) -> T.Dict[str, int]:
+        """The disk cache's lookups by this pipeline that hit and missed."""
+        return {"hits": self._embed_disk_cached.hits, "misses": self._embed_disk_cached.misses}
+
     def _uncond_embedding(self, negative_prompt: T.Optional[str], seq_len: int) -> torch.Tensor:
         """Unconditional/negative embedding matched to the cond seq length."""
         text = negative_prompt or ""
         if seq_len == self.tokenizer.model_max_length:
             return self.embed_text(text)
         multiples = (seq_len - 2) // (self.tokenizer.model_max_length - 2)
-        emb, _ = prompt_weighting.get_weighted_text_embeddings(
-            self._encode_77, self.tokenizer, text, max_embeddings_multiples=multiples
-        )
-        return self._pad_seq(emb, seq_len)
+
+        def compute() -> torch.Tensor:
+            emb, _ = prompt_weighting.get_weighted_text_embeddings(
+                self._encode_77, self.tokenizer, text, max_embeddings_multiples=multiples
+            )
+            return emb
+
+        return self._pad_seq(self._embed_disk_cached(f"uncond:{multiples}", text, compute), seq_len)
 
     @staticmethod
     def _pad_seq(emb: torch.Tensor, seq: int) -> torch.Tensor:
@@ -257,14 +324,7 @@ class RiffusionPipeline:
     def _plan(
         self, scheduler_name: str, num_steps: int, strength: float
     ) -> T.Tuple[sched.SchedulerPlan, int]:
-        """The img2img plan for a denoising strength, and the DDPM timestep
-        that PNDM's start noising uses."""
-        offset = self.noise_config.steps_offset
-        init_timestep = min(int(num_steps * strength) + offset, num_steps)
-        t_start = max(num_steps - init_timestep + offset, 0)
-        full_plan = sched.make_plan(scheduler_name, num_steps, 0, self.noise_config)
-        noise_timestep = int(full_plan.timesteps[-init_timestep])
-        return sched.make_plan(scheduler_name, num_steps, t_start, self.noise_config), noise_timestep
+        return img2img_plan(scheduler_name, num_steps, strength, self.noise_config)
 
     def _denoise(
         self,
@@ -276,15 +336,19 @@ class RiffusionPipeline:
         init_latents: T.Optional[torch.Tensor],
         noise: T.Optional[torch.Tensor],
         ancestral: T.Optional[torch.Tensor],
+        blend: T.Optional[T.Callable[[int, torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """The classifier-free-guidance denoise loop over N latents: one UNet
         call at batch 2N ([unconditionals..., conditionals...]) per plan
         step, with per-item guidance (N, 1, 1, 1) in fp32. `ancestral` is an
-        ancestral sampler's per-step noise, (S, N, C, h, w)."""
+        ancestral sampler's per-step noise, (S, N, C, h, w); `blend(i,
+        latents)` edits the latents before step i (MagicMix)."""
         n = latents.shape[0]
         state = sched.init_state(plan, latents.shape, latents.dtype, self.device,
                                  ancestral=ancestral)
         for i in range(plan.num_steps):
+            if blend is not None:
+                latents = blend(i, latents)
             lat_in = sched.scale_model_input(plan, torch.cat([latents, latents], dim=0), i)
             t = torch.full((2 * n,), int(plan.timesteps[i]), dtype=torch.int64, device=self.device)
             eps = self.unet(lat_in, t, text_emb)
@@ -385,9 +449,20 @@ class RiffusionPipeline:
             latents = self._denoise(
                 plan, latents, text_emb, guidance, mask, init_latents, seed_noise, ancestral
             )
+        return self._decode_and_audio(latents, fused_params, noises)
 
+    def _decode_and_audio(
+        self, latents: torch.Tensor, fused_params: T.Optional[SpectrogramParams],
+        noises: T.Sequence[NoiseSource],
+    ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
+        """The tail every generating program shares: the VAE decode of N
+        latents to (N, H, W, 3) uint8 images and, with `fused_params`, the
+        codec -> inverse mel -> Griffin-Lim -> int16 waveforms (N, C, L),
+        request i's Griffin-Lim phase drawn from noises[i]."""
+        n = latents.shape[0]
+        dev = self.device
         with record_function("riffusion.vae_decode"):
-            decoded = self.vae.decode(latents / scale)
+            decoded = self.vae.decode(latents / self.bundle.vae_config.scaling_factor)
             images_u8 = torch.stack(
                 [codec.image_u8_from_vae_output(decoded[i:i + 1]) for i in range(n)]
             )
@@ -411,10 +486,17 @@ class RiffusionPipeline:
             )
             return images_u8, _waveform_to_int16(waveforms.view(n, channels, -1))
 
-    @torch.inference_mode()
     def _dispatch(self, *args) -> T.Callable[[], T.Tuple[np.ndarray, T.Optional[np.ndarray]]]:
-        """Queue `_generate(*args)` on the device and the copies of its
-        results to the host; return a function that waits for the copies.
+        """`_dispatch_program` of `_generate(*args)`."""
+        return self._dispatch_program(self._generate, *args)
+
+    @torch.inference_mode()
+    def _dispatch_program(
+        self, program: T.Callable, *args
+    ) -> T.Callable[[], T.Tuple[np.ndarray, T.Optional[np.ndarray]]]:
+        """Queue `program(*args)` on the device and the copies of its
+        results (images, waveforms or None) to the host; return a function
+        that waits for the copies.
 
         On CUDA the copies go into pinned host memory behind an event, so
         the waiting function (the DynamicBatcher calls it from its finalizer
@@ -426,7 +508,7 @@ class RiffusionPipeline:
         device holds one program's memory at a time and the kernel counters
         (ops.attention.COUNTS) count one program's launches together."""
         with self._dispatch_lock:
-            outputs = self._generate(*args)
+            outputs = program(*args)
             if self.device.type != "cuda":
                 return lambda: tuple(None if x is None else x.numpy() for x in outputs)
             host = tuple(
@@ -545,27 +627,85 @@ class RiffusionPipeline:
 
     # --------------------------------------------------------- txt2img/img2img
 
-    def _txt2img(
-        self, prompt: str, negative_prompt: T.Optional[str], num_steps: int, guidance: float,
-        width: int, height: int, scheduler: str, noise: NoiseSource,
-    ) -> torch.Tensor:
-        """One text-to-image program: the (H, W, 3) uint8 image on the device."""
+    def _txt2img_program(
+        self, prompts: T.Sequence[str], negative_prompts: T.Sequence[T.Optional[str]],
+        guidances: T.Sequence[float], num_steps: int, width: int, height: int, scheduler: str,
+        fused_params: T.Optional[SpectrogramParams], noises: T.Sequence[NoiseSource],
+    ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
+        """N text-to-image generations as one program on the device: each
+        weighted prompt against its negative one, the UNet at batch 2N with
+        per-item guidance; the (N, H, W, 3) uint8 images and, with
+        `fused_params`, the (N, C, L) int16 waveforms. Request i draws
+        "latents" (and euler_a's "ancestral", and the phase) from noises[i]
+        with a single request's shapes."""
+        n = len(prompts)
         plan = sched.make_plan(scheduler, num_steps, 0, self.noise_config)
         dev = self.device
         with record_function("riffusion.text"):
-            cond = self.embed_text_weighted(prompt)
-            uncond = self._uncond_embedding(negative_prompt, cond.shape[1]).to(cond.dtype)
-            text_emb = torch.cat([uncond, cond], dim=0)
+            conds = [self.embed_text_weighted(p) for p in prompts]
+            seq = max(c.shape[1] for c in conds)
+            conds = [self._pad_seq(c, seq) for c in conds]
+            unconds = [self._uncond_embedding(neg, seq).to(conds[0].dtype)
+                       for neg in negative_prompts]
+            text_emb = torch.cat(unconds + conds, dim=0)
         shape = (1, self.unet.cfg.in_channels, height // 8, width // 8)
-        latents = noise(LATENTS, shape, dev).to(torch.float32) * plan.init_noise_sigma
-        ancestral = noise(ANCESTRAL, (plan.num_steps,) + shape, dev) \
-            if sched.draws_noise(plan) else None
-        g = torch.full((1, 1, 1, 1), float(guidance), dtype=torch.float32, device=dev)
+        latents = torch.cat([nz(LATENTS, shape, dev) for nz in noises]).to(torch.float32)
+        latents = latents * plan.init_noise_sigma
+        ancestral = None
+        if sched.draws_noise(plan):
+            ancestral = torch.cat([nz(ANCESTRAL, (plan.num_steps,) + shape, dev) for nz in noises],
+                                  dim=1)
+        guidance = torch.tensor([float(g) for g in guidances], dtype=torch.float32,
+                                device=dev).view(n, 1, 1, 1)
         with record_function("riffusion.denoise"):
-            latents = self._denoise(plan, latents, text_emb, g, None, None, None, ancestral)
-        with record_function("riffusion.vae_decode"):
-            decoded = self.vae.decode(latents / self.bundle.vae_config.scaling_factor)
-            return codec.image_u8_from_vae_output(decoded)
+            latents = self._denoise(plan, latents, text_emb, guidance, None, None, None, ancestral)
+        return self._decode_and_audio(latents, fused_params, noises)
+
+    def txt2img_audio_batch(
+        self,
+        prompts: T.Sequence[str],
+        negative_prompts: T.Optional[T.Sequence[T.Optional[str]]] = None,
+        seeds: T.Optional[T.Sequence[int]] = None,
+        num_inference_steps: int = 30,
+        guidances: T.Optional[T.Sequence[float]] = None,
+        width: int = 512,
+        height: int = 512,
+        scheduler: T.Optional[str] = None,
+        params: T.Optional[SpectrogramParams] = None,
+        apply_filters: bool = True,
+        *,
+        noises: T.Optional[T.Sequence[NoiseSource]] = None,
+    ) -> T.List[T.Tuple[Image.Image, T.Optional[AudioSegment]]]:
+        """N text-to-audio generations as one program (the UNet at batch
+        2N): images, and with `params` the audio through the fused codec ->
+        inverse mel -> Griffin-Lim tail; with `params=None` only images (the
+        audio slot is None). Seeds default to 42, 43, ...; guidances to 7.
+        `noises` gives each request its noise source (default:
+        GeneratorNoise of its seed), so request i of a batch is prompt i
+        alone."""
+        n = len(prompts)
+        negative_prompts = list(negative_prompts) if negative_prompts is not None else [None] * n
+        seeds = list(seeds) if seeds is not None else list(range(42, 42 + n))
+        guidances = list(guidances) if guidances is not None else [7.0] * n
+        if not (len(negative_prompts) == len(seeds) == len(guidances) == n):
+            raise ValueError("need one negative prompt, seed and guidance per prompt")
+        if noises is None:
+            noises = [GeneratorNoise(s, s, self.device) for s in seeds]
+        if len(noises) != n:
+            raise ValueError(f"need one noise source per prompt: {len(noises)} for {n}")
+        images_np, waveforms_np = self._dispatch_program(
+            self._txt2img_program, prompts, negative_prompts, guidances, num_inference_steps,
+            width, height, scheduler or self.bundle.scheduler_name, params, noises,
+        )()
+        if waveforms_np is None:
+            return [(Image.fromarray(im, mode="RGB"), None) for im in images_np]
+        results: T.List[T.Tuple[Image.Image, T.Optional[AudioSegment]]] = []
+        for image_np, waveform_np in zip(images_np, waveforms_np):
+            segment = AudioSegment(waveform_np.T, params.sample_rate)
+            if apply_filters:
+                segment = audio_util.apply_filters(segment, compression=False)
+            results.append((Image.fromarray(image_np, mode="RGB"), segment))
+        return results
 
     def txt2img(
         self,
@@ -583,14 +723,11 @@ class RiffusionPipeline:
         """Plain text-to-image generation: the denoise loop from pure noise
         at the plan's init_noise_sigma, the weighted prompt against the
         negative one. `noise` draws "latents" (and euler_a's "ancestral");
-        by default GeneratorNoise of `seed`."""
-        noise = noise or GeneratorNoise(seed, seed, self.device)
-        with self._dispatch_lock, torch.inference_mode():
-            image = self._txt2img(
-                prompt, negative_prompt, num_inference_steps, guidance, width, height,
-                scheduler or self.bundle.scheduler_name, noise,
-            ).cpu().numpy()
-        return Image.fromarray(image, mode="RGB")
+        by default GeneratorNoise of `seed`. A batch of one, without audio."""
+        return self.txt2img_audio_batch(
+            [prompt], [negative_prompt], [seed], num_inference_steps, [guidance], width, height,
+            scheduler, params=None, noises=None if noise is None else [noise],
+        )[0][0]
 
     def img2img(
         self,
@@ -612,6 +749,170 @@ class RiffusionPipeline:
         inputs = InferenceInput(start=prompt_input, end=prompt_input, alpha=0.0,
                                 num_inference_steps=num_inference_steps)
         return self.riffuse(inputs, init_image, scheduler=scheduler, noise=noise)
+
+    # ------------------------------------------------------------- magic mix
+
+    def _magic_mix_program(
+        self, prompt: str, init_image: Image.Image, num_steps: int, guidance: float,
+        scheduler: str, t_start: int, noise_timestep: int, kmin_t: int, mix_factor: float,
+        noise: NoiseSource,
+    ) -> T.Tuple[torch.Tensor, None]:
+        """One MagicMix program: the (1, H, W, 3) uint8 image on the device."""
+        plan = sched.make_plan(scheduler, num_steps, t_start, self.noise_config)
+        dev = self.device
+        with record_function("riffusion.text"):
+            cond = self.embed_text_weighted(prompt)
+            uncond = self._uncond_embedding(None, cond.shape[1]).to(cond.dtype)
+            text_emb = torch.cat([uncond, cond], dim=0)
+        image = torch.from_numpy(preprocess_image(init_image)).to(dev).permute(0, 3, 1, 2)
+        with record_function("riffusion.vae_encode"):
+            mean, logvar = self.vae.encode_moments(image)
+            shape = tuple(mean.shape)
+            orig = self.bundle.vae_config.scaling_factor * self.vae.sample(
+                mean, logvar, noise("vae_eps", shape, dev))
+            orig = orig.to(torch.float32)
+        q_noise = noise(MIX_NOISE, shape, dev)
+        if plan.name in sched.SIGMA_BASED:
+            latents = sched.add_noise_sigma(plan, orig, q_noise, 0)
+        else:
+            latents = sched.add_noise(self.noise_config, orig, q_noise, noise_timestep)
+        ancestral = noise(ANCESTRAL, (plan.num_steps,) + shape, dev) \
+            if sched.draws_noise(plan) else None
+
+        def blend(i: int, lat: torch.Tensor) -> torch.Tensor:
+            # layout from the image while t > kmin: the q-sampled original
+            if int(plan.timesteps[i]) <= kmin_t:
+                return lat
+            q_sampled = sched.add_noise_at_index(plan, self.noise_config, orig, q_noise, i)
+            return q_sampled * (1.0 - mix_factor) + lat * mix_factor
+
+        g = torch.full((1, 1, 1, 1), float(guidance), dtype=torch.float32, device=dev)
+        with record_function("riffusion.denoise"):
+            latents = self._denoise(plan, latents, text_emb, g, None, None, None, ancestral,
+                                    blend=blend)
+        return self._decode_and_audio(latents, None, [noise])
+
+    def img2img_magic_mix(
+        self,
+        prompt: str,
+        init_image: Image.Image,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.0,
+        seed: int = 42,
+        kmin: float = 0.3,
+        kmax: float = 0.5,
+        mix_factor: float = 0.5,
+        scheduler: T.Optional[str] = None,
+        *,
+        noise: T.Optional[NoiseSource] = None,
+    ) -> Image.Image:
+        """MagicMix (Liew et al. 2022): the layout from the image, the
+        semantics from the prompt. The trajectory starts at the first plan
+        position whose timestep is <= kmax * 1000 (searched in the space
+        that position slices, schedulers.slice_anchor_timesteps), from the
+        original's latent noised there; while a step's timestep is above
+        kmin * 1000 the q-sampled original is blended in with weight
+        1 - mix_factor. CFG at UNet batch 2. `noise` draws "vae_eps",
+        "noise" (the q-sample noise) and euler_a's "ancestral"; by default
+        GeneratorNoise of `seed`."""
+        scheduler = scheduler or self.bundle.scheduler_name
+        t_start, noise_timestep, kmin_t = self._magic_mix_start(
+            scheduler, num_inference_steps, kmin, kmax)
+        noise = noise or GeneratorNoise(seed, seed, self.device)
+        images, _ = self._dispatch_program(
+            self._magic_mix_program, prompt, init_image, num_inference_steps, guidance_scale,
+            scheduler, t_start, noise_timestep, kmin_t, float(mix_factor), noise,
+        )()
+        return Image.fromarray(images[0], mode="RGB")
+
+    def _magic_mix_start(
+        self, scheduler: str, num_steps: int, kmin: float, kmax: float
+    ) -> T.Tuple[int, int, int]:
+        """(t_start, the timestep the start noise is at, kmin's timestep):
+        the first plan position whose timestep is <= kmax * 1000, searched in
+        the space that t_start slices."""
+        n_train = self.noise_config.num_train_timesteps
+        kmin_t, kmax_t = int(kmin * n_train), int(kmax * n_train)
+        ts = sched.slice_anchor_timesteps(scheduler, num_steps, self.noise_config)
+        t_start = int(np.argmax(ts <= kmax_t)) if np.any(ts <= kmax_t) else len(ts) - 1
+        return t_start, int(ts[t_start]), kmin_t
+
+    # ------------------------------------------------------------ warm start
+
+    def warmstart_report(
+        self,
+        inputs: InferenceInput,
+        init_image: Image.Image,
+        params: T.Optional[SpectrogramParams] = None,
+    ) -> T.Dict[str, T.Any]:
+        """A first request timed by stage, for restart diagnostics:
+
+        - host_prep_s: the text encode (the disk cache's hits and misses are
+          `embed_cache_hits` / `embed_cache_misses`) and the plan;
+        - weights_ready_s: a synchronised read of one element of the
+          largest UNet and VAE tensors;
+        - kernel_build_s: what ops/attention.py's loader spent on the
+          forward kernels (nvcc, or loading an earlier build), with
+          kernel_source "built" or "cached" by whether csrc/build/ already
+          held them ("none" on the CPU, which runs no kernel);
+        - execute_s: the request through readback.
+
+        Eager torch has no trace, lower, compile or executable-load stage,
+        so the JAX report's trace_lower_s, compile_s and aot_load_s have no
+        counterpart here."""
+        from riffusion_tpu_torch.ops import attention
+
+        params = params or SpectrogramParams()
+        report: T.Dict[str, T.Any] = {}
+        disk = self._embed_disk_cached
+        hits, misses = disk.hits, disk.misses
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            self._embedding_pair(inputs, True)
+            strength = ((1.0 - float(inputs.alpha)) * inputs.start.denoising
+                        + float(inputs.alpha) * inputs.end.denoising)
+            self._plan(self.bundle.scheduler_name, inputs.num_inference_steps, strength)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        report["host_prep_s"] = time.perf_counter() - t0
+        report["embed_cache_hits"] = disk.hits - hits
+        report["embed_cache_misses"] = disk.misses - misses
+
+        t0 = time.perf_counter()
+        for module in (self.unet, self.vae):
+            largest = max(module.parameters(), key=lambda p: p.numel())
+            float(largest.detach().reshape(-1)[0])
+        report["weights_ready_s"] = time.perf_counter() - t0
+
+        if self.device.type == "cuda":
+            names = attention.FORWARD_KERNELS
+            cached = attention.built_on_disk(names)
+            t0 = time.perf_counter()
+            attention.build_kernels(names)
+            report["kernel_build_s"] = time.perf_counter() - t0
+            report["kernel_source"] = "cached" if cached else "built"
+        else:
+            report["kernel_build_s"] = 0.0
+            report["kernel_source"] = "none"
+
+        t0 = time.perf_counter()
+        self.riffuse_audio(inputs, init_image, params=params)
+        report["execute_s"] = time.perf_counter() - t0
+        return report
+
+
+def img2img_plan(
+    scheduler_name: str, num_steps: int, strength: float,
+    noise_config: sched.NoiseConfig = sched.NoiseConfig(),
+) -> T.Tuple[sched.SchedulerPlan, int]:
+    """The img2img plan for a denoising strength, and the DDPM timestep
+    that PNDM's start noising uses."""
+    offset = noise_config.steps_offset
+    init_timestep = min(int(num_steps * strength) + offset, num_steps)
+    t_start = max(num_steps - init_timestep + offset, 0)
+    full_plan = sched.make_plan(scheduler_name, num_steps, 0, noise_config)
+    noise_timestep = int(full_plan.timesteps[-init_timestep])
+    return sched.make_plan(scheduler_name, num_steps, t_start, noise_config), noise_timestep
 
 
 # -------------------------------------------------------------- preprocessing

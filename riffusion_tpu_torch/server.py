@@ -29,6 +29,8 @@ the batcher's worker.
 --checkpoint also takes a local diffusers-layout directory (riffusion-model-v1's
 layout; its scheduler config names the default sampler) or a directory
 written by either package's save_native (models/weights.py:load_bundle).
+--ssl-certificate and --ssl-key (PEM files) serve HTTPS; a certificate
+without a key is refused. `run_app` logs to the console and to server.log.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import dataclasses
 import io
 import json
 import logging
+import ssl
 import threading
 import time
 import typing as T
@@ -328,13 +331,18 @@ def create_app(
     batch_window_ms: float = 150.0,
     max_batch: int = 8,
     serving_preset: str = "fast",
+    ssl_certificate: T.Optional[str] = None,
+    ssl_key: T.Optional[str] = None,
 ) -> RiffusionServer:
     """Load the model into PIPELINE and bind the server (port 0 picks a free
     one). `scheduler` replaces the bundle's default (the checkpoint's, or
     "pndm"); with `dynamic_batching`, concurrent requests are coalesced
     (serving.DynamicBatcher), at the strength-gated FAST preset when
     `serving_preset` is "fast" or as each request asks when it is
-    "parity"."""
+    "parity". With `ssl_certificate` and `ssl_key` (PEM files) the
+    listening socket speaks TLS; a certificate without a key is refused."""
+    if ssl_certificate and not ssl_key:
+        raise ValueError("--ssl-certificate needs --ssl-key")
     global PIPELINE
     PIPELINE = RiffusionPipeline.load_checkpoint(
         checkpoint=checkpoint, device=device, scheduler=scheduler
@@ -364,15 +372,22 @@ def create_app(
         )
     else:
         server = RiffusionServer((host, port), seed_images_dir=seed_images_dir)
+    if ssl_certificate:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(ssl_certificate, ssl_key)
+        server.socket = ctx.wrap_socket(server.socket, server_side=True)
     return server
 
 
 def run_app(**kwargs) -> None:
-    """`create_app(**kwargs)`, then serve until interrupted."""
+    """`create_app(**kwargs)`, then serve until interrupted, logging to the
+    console and to server.log in the working directory."""
     logging.basicConfig(level=logging.INFO)
+    logging.getLogger().addHandler(logging.FileHandler("server.log"))
     server = create_app(**kwargs)
     host, port = server.server_address[:2]
-    logger.info(f"Serving on http://{host}:{port} (checkpoint={kwargs.get('checkpoint')})")
+    scheme = "https" if kwargs.get("ssl_certificate") else "http"
+    logger.info(f"Serving on {scheme}://{host}:{port} (checkpoint={kwargs.get('checkpoint')})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -407,7 +422,12 @@ def parse_args(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
                         help="with --dynamic-batching: 'fast' runs requests at the "
                              "strength-gated FAST preset (serving.FAST_PRESET); "
                              "'parity' honors each request's steps and scheduler")
+    parser.add_argument("--ssl-certificate", default=None,
+                        help="PEM certificate: serve HTTPS (needs --ssl-key)")
+    parser.add_argument("--ssl-key", default=None, help="PEM private key of --ssl-certificate")
     args = parser.parse_args(argv)
+    if args.ssl_certificate and not args.ssl_key:
+        parser.error("--ssl-certificate needs --ssl-key")
     return dict(
         checkpoint=args.checkpoint,
         device=args.device,
@@ -421,6 +441,8 @@ def parse_args(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
         batch_window_ms=args.batch_window_ms,
         max_batch=args.max_batch,
         serving_preset=args.serving_preset,
+        ssl_certificate=args.ssl_certificate,
+        ssl_key=args.ssl_key,
     )
 
 

@@ -10,6 +10,7 @@ audio engine is not ported.
 from __future__ import annotations
 
 import math
+import typing as T
 
 import numpy as np
 
@@ -61,6 +62,25 @@ def normalize(segment: AudioSegment, headroom: float = 0.1) -> AudioSegment:
     if peak == -float("inf"):
         return segment
     return segment.apply_gain(-headroom - peak)
+
+
+def stitch_segments(segments: T.Sequence[AudioSegment], crossfade_s: float) -> AudioSegment:
+    """Concatenate segments with a crossfade between consecutive pairs."""
+    crossfade_ms = int(crossfade_s * 1000)
+    combined = segments[0]
+    for segment in segments[1:]:
+        combined = combined.append(segment, crossfade=crossfade_ms)
+    return combined
+
+
+def overlay_segments(segments: T.Sequence[AudioSegment]) -> AudioSegment:
+    """Mix segments on top of each other (result has the first segment's length)."""
+    if not segments:
+        raise ValueError("overlay_segments needs at least one segment")
+    output = segments[0]
+    for segment in segments[1:]:
+        output = output.overlay(segment)
+    return output
 
 
 def compress_dynamic_range_int16(

@@ -1,6 +1,7 @@
 """
 The port's own copies of the JAX package's host modules against their
-originals: spectrogram_params, datatypes, audio/segment, util/audio_util,
+originals: spectrogram_params, datatypes, audio/segment, util/audio_util
+(apply_filters, stitch_segments, overlay_segments),
 util/base64_util, util/dataclass_util, models/tokenizer and serving. The
 port imports none of the JAX package (tests/test_torch_imports.py), so each
 copy is held here to the module it was copied from, on the same inputs.
@@ -196,6 +197,26 @@ def test_apply_filters_matches_the_original(jax_numpy_audio, compression):
     if not compression:  # both packages' compressor turns silence into NaN gain
         silent = segment.AudioSegment.silent(10, SR)
         assert audio_util.apply_filters(silent).dBFS == -float("inf")
+
+
+@pytest.mark.parametrize("crossfade_s", [0.0, 0.04], ids=["butt", "crossfade"])
+def test_stitch_and_overlay_segments_match_the_original(jax_numpy_audio, crossfade_s):
+    """Three clips stitched with a crossfade (the stream command's track),
+    and mixed on top of one another."""
+    ours = [segment.AudioSegment.from_float(_wave(seed=i) * 9000, SR) for i in range(3)]
+    theirs = [jax_segment.AudioSegment.from_float(_wave(seed=i) * 9000, SR) for i in range(3)]
+    stitched = audio_util.stitch_segments(ours, crossfade_s=crossfade_s)
+    np.testing.assert_array_equal(
+        stitched.raw_data, jax_audio_util.stitch_segments(theirs, crossfade_s=crossfade_s).raw_data)
+    assert abs(stitched.duration_seconds - (3 * ours[0].duration_seconds - 2 * crossfade_s)) < 1e-3
+    short = [ours[0], ours[1][:120], ours[2][50:]]
+    jax_short = [theirs[0], theirs[1][:120], theirs[2][50:]]
+    mixed = audio_util.overlay_segments(short)
+    np.testing.assert_array_equal(mixed.raw_data,
+                                  jax_audio_util.overlay_segments(jax_short).raw_data)
+    assert len(mixed) == len(ours[0])
+    with pytest.raises(ValueError, match="at least one segment"):
+        audio_util.overlay_segments([])
 
 
 def test_base64_encode_matches_the_original():

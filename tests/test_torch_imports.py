@@ -1,10 +1,11 @@
 """
 The port never imports jax, flax or the JAX package (riffusion_tpu), not
-even its modules that are free of JAX, nor the weight-file libraries the
-card machine lacks (safetensors, msgpack, transformers): a fresh
+even its modules that are free of JAX, nor the libraries the card machine
+lacks (safetensors, msgpack, transformers, ml_dtypes): a fresh
 interpreter imports every riffusion_tpu_torch module (serving and server
 among them), runs the tiny slice on the CPU, single and batched, then a
-fine-tune of two steps with its export reloaded, and checks sys.modules.
+fine-tune of two steps with its export reloaded, and checks sys.modules;
+another runs the command line and the embedding disk cache.
 Also a static check that no source of the port, nor chip_smoke.py or
 scripts/profile_torch_request.py, imports them, and that the port calls no
 library attention or compiler.
@@ -20,7 +21,7 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "riffusion_tpu_torch"
 BANNED_IMPORTS = {"jax", "jaxlib", "flax", "riffusion_tpu", "safetensors", "msgpack",
-                  "transformers"}
+                  "transformers", "ml_dtypes"}
 
 _PROGRAM = r"""
 import importlib, pkgutil, sys
@@ -65,7 +66,33 @@ with tempfile.TemporaryDirectory() as tmp:
     assert tuned.riffuse(inputs, image).size == (64, 64)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu", "safetensors",
-                                    "msgpack", "transformers"))
+                                    "msgpack", "transformers", "ml_dtypes"))
+print("LOADED", bad)
+"""
+
+_CLI_PROGRAM = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+from riffusion_tpu_torch import cli, embed_cache
+from riffusion_tpu_torch.audio.segment import AudioSegment
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["RIFFUSION_TPU_EMBED_CACHE_DIR"] = tmp
+    key = embed_cache.entry_key("random:tiny:s0:bfloat16", torch.bfloat16, "plain", "x",
+                                device="cpu")
+    embed_cache.put(key, torch.ones(1, 3, 4, dtype=torch.bfloat16))
+    assert embed_cache.get(key).dtype == torch.bfloat16
+    wave = np.sin(np.arange(22050) * 2 * np.pi * 440 / 44100) * 16000
+    AudioSegment(wave.astype(np.int16), 44100).export(os.path.join(tmp, "a.wav"))
+    cli.main(["audio-to-image", "--audio", os.path.join(tmp, "a.wav"),
+              "--image", os.path.join(tmp, "a.png"), "--num-frequencies", "64",
+              "--device", "cpu"])
+    cli.main(["print-exif", "--image", os.path.join(tmp, "a.png")])
+    cli.main(["text-to-audio", "--prompt", "x", "--audio", os.path.join(tmp, "t.wav"),
+              "--num-inference-steps", "1", "--width", "64", "--checkpoint", "random:tiny",
+              "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu", "ml_dtypes"))
 print("LOADED", bad)
 """
 
@@ -77,6 +104,19 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_cli_and_embed_cache_run_without_jax():
+    """cli.py and embed_cache.py, driven in a fresh interpreter (a DSP
+    command, print-exif, text-to-audio, a cache round trip in bf16), load
+    neither JAX, the JAX package nor ml_dtypes."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _CLI_PROGRAM], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+    for name in ("cli.py", "embed_cache.py"):
+        assert not _imported_top_levels((PACKAGE / name).read_text()) & BANNED_IMPORTS, name
 
 
 def _imported_top_levels(source: str) -> set:

@@ -30,7 +30,8 @@ def bundles():
         jb = jax_weights.random_bundle("tiny", seed=3, dtype=jnp.float32)
     finally:
         mp.undo()
-    tb = weights.bundle_from_jax_params("tiny", jb.unet_params, jb.vae_params, jb.clip_params)
+    tb = weights.bundle_from_jax_params("tiny", jb.unet_params, jb.vae_params, jb.clip_params,
+                                        device="cpu")
     return jb, tb
 
 

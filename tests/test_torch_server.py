@@ -3,12 +3,16 @@ The port's HTTP server (riffusion_tpu_torch/server.py) in-process on the
 CPU with random:tiny: a real socket and real requests, mirroring
 tests/test_server.py: POST /run_inference/ and /run_inference_batch/, GET
 /health and /stats, 400 on bad input, InferenceOutput JSON with data-URI
-payloads, and the threading server with a DynamicBatcher.
+payloads, and the threading server with a DynamicBatcher; the TLS flags
+and server.log.
 """
 
 import base64
 import io
 import json
+import logging
+import ssl
+import subprocess
 import threading
 import urllib.error
 import urllib.request
@@ -238,3 +242,72 @@ def test_dynamic_batching_server(running_server, tmp_path):
         srv.shutdown()
         srv.server_close()
         srv.batcher.shutdown()
+
+
+# ------------------------------------------------------------ TLS and the log
+
+
+def test_tls_flags_parse_and_a_certificate_needs_a_key():
+    """--ssl-certificate / --ssl-key reach create_app (as the JAX server's
+    flags of the same names); a certificate without a key is refused by the
+    parser and by create_app, before any model is loaded."""
+    args = server_mod.parse_args(["--ssl-certificate", "c.pem", "--ssl-key", "k.pem"])
+    assert (args["ssl_certificate"], args["ssl_key"]) == ("c.pem", "k.pem")
+    assert server_mod.parse_args([])["ssl_certificate"] is None
+    with pytest.raises(SystemExit):
+        server_mod.parse_args(["--ssl-certificate", "c.pem"])
+    with pytest.raises(ValueError, match="needs --ssl-key"):
+        server_mod.create_app(checkpoint="random:nonexistent", ssl_certificate="c.pem")
+
+
+def _self_signed(tmp_path):
+    cert, key = tmp_path / "cert.pem", tmp_path / "key.pem"
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-days", "1",
+                    "-subj", "/CN=localhost", "-keyout", str(key), "-out", str(cert)],
+                   check=True, capture_output=True, timeout=60)
+    return cert, key
+
+
+def test_https_and_server_log(tmp_path, monkeypatch, caplog):
+    """run_app with a self-signed certificate: the listening socket speaks
+    TLS (GET /health over HTTPS), and the log goes to server.log in the
+    working directory."""
+    caplog.set_level(logging.INFO)  # what run_app's basicConfig sets outside pytest
+    cert, key = _self_signed(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    ready, bound = threading.Event(), {}
+    create_app = server_mod.create_app
+
+    def create_and_report(**kwargs):
+        srv = create_app(**kwargs)
+        bound["server"] = srv
+        ready.set()
+        return srv
+
+    monkeypatch.setattr(server_mod, "create_app", create_and_report)
+    kwargs = server_mod.parse_args(["--checkpoint", "random:tiny", "--device", "cpu",
+                                    "--port", "0", "--ssl-certificate", str(cert),
+                                    "--ssl-key", str(key)])
+    thread = threading.Thread(target=server_mod.run_app, kwargs=kwargs, daemon=True)
+    root = logging.getLogger()
+    handlers = list(root.handlers)
+    thread.start()
+    try:
+        assert ready.wait(120)
+        srv = bound["server"]
+        ctx = ssl.create_default_context(cafile=str(cert))
+        ctx.check_hostname = False
+        url = f"https://127.0.0.1:{srv.server_address[1]}/health"
+        with urllib.request.urlopen(url, context=ctx, timeout=30) as resp:
+            assert resp.status == 200
+        with pytest.raises(OSError):  # plain HTTP is not spoken (reset or refused)
+            urllib.request.urlopen(url.replace("https", "http"), timeout=30)
+        srv.shutdown()
+        thread.join(timeout=30)
+        log = (tmp_path / "server.log").read_text()
+        assert "Serving on https://" in log
+    finally:
+        for handler in set(root.handlers) - set(handlers):
+            root.removeHandler(handler)
+            handler.close()
+        server_mod.PIPELINE = None

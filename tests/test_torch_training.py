@@ -244,7 +244,8 @@ def audio_dir(tmp_path_factory):
 @pytest.fixture(scope="module")
 def pipes():
     jp = jax_pipeline.RiffusionPipeline.load_checkpoint("random:tiny", device="cpu")
-    bundle = bundle_from_jax_params("tiny", jp.unet_params, jp.vae_params, jp.clip_params)
+    bundle = bundle_from_jax_params("tiny", jp.unet_params, jp.vae_params, jp.clip_params,
+                                    device="cpu")
     return jp, RiffusionPipeline(bundle, device="cpu")
 
 

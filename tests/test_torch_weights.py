@@ -422,7 +422,8 @@ def test_finetune_from_a_diffusers_directory(ddim_checkpoint, tmp_path):
     jb = jax_weights.load_diffusers_checkpoint(str(ddim_checkpoint), dtype=jnp.float32)
     native = tmp_path / "native"
     weights.save_native(weights.bundle_from_jax_params(
-        "tiny", *(_numpy_f32(t) for t in (jb.unet_params, jb.vae_params, jb.clip_params))),
+        "tiny", *(_numpy_f32(t) for t in (jb.unet_params, jb.vae_params, jb.clip_params)),
+        device="cpu"),
         native)
     (tmp_path / "audio").mkdir()
     wave = np.sin(np.arange(44100) * 2 * np.pi * 440 / 44100) * 16000
