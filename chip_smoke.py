@@ -122,6 +122,28 @@ cli: the command line on the checkpoint directory, in this process, with
    stage's seconds printed: the second load reads every embedding from the
    disk cache (hits > 0, no miss) and its kernels from csrc/build/
    (kernel_source "cached").
+frontends: the playground's host layer and pages (riffusion_tpu_torch/
+   streamlit/) on the checkpoint directory, loaded through
+   streamlit/util.load_riffusion_checkpoint, at the UI defaults (50 steps,
+   denoising 0.45, guidance 7, PNDM). The C++ audio engine is built with
+   g++ into a fresh directory (its seconds), and each of its functions is
+   held to its numpy version (ENGINE_BOUND) and to the JAX package's engine
+   output on the same seeded buffers (ENGINE_DIGESTS), with both times. A
+   seeded 30 s stereo file at 48 kHz goes to 44.1 kHz on the engine; the
+   four stems of AudioSplitter(device="cuda") sum back to it (SPLIT_BOUND)
+   and compute_fft finds the bass stem's 110 Hz tone above its 2 kHz one.
+   restyle_audio on it: mode "interpolation" is one batched program of 7
+   clips at UNet batch 14 (K1 at the seq-960 sites, 5 a UNet evaluation;
+   the seq-3840 sites are no multiple of 512, so they take the plain
+   composition as the JAX gate sends them: K2 never), mode "img2img" 7
+   serial clips at UNet batch 2 (K1 10 a UNet evaluation), and
+   restyle_segment in "magic_mix" on the first clip. Then the
+   interpolation page's batch of 4 frames on og_beat (K1 only, UNet batch
+   8), the batch page's 6 entries at 512 px (pndm-50, UNet batch 12: K2 and
+   K1 5 a UNet evaluation each), one text-to-audio clip through
+   run_txt2img, and og_beat to audio as the image-to-audio page does it.
+   Each run's seconds, launches (exact, from the plans) and peak device
+   memory; every clip checked.
 
 `--mutants` instead builds each planted fault of MUTANTS into a copy of
 the kernel sources and shows that the checks of every kernel it touches
@@ -177,6 +199,41 @@ SMS, EXP2_PER_SM_CLOCK = 132, 16
 # attention's (PERF.md "Fine-tuning", written before the first run): the
 # relative L2 of the difference over all parameters, and of the loss.
 TRAIN_GRAD_BOUND = {"grad_rel_l2": 5e-2, "loss_rel": 1e-2}
+
+# The audio engine's check (frontends phase): seeded int16 buffers made from
+# integer arithmetic, cumulative sums and np.sin (_engine_pcm), held to the
+# engine's numpy versions within ENGINE_BOUND and to the sha256 of the JAX
+# package's engine output on the same buffers, taken on x86-64 where both
+# packages run (native/audio_engine.cpp is built with -ffp-contract=off, so
+# hosts with fused multiply-add give the same bits). Each case's input
+# digest comes first, so that a host whose numpy makes other buffers is
+# told apart from an engine that computes other samples. The two resamplers'
+# filters differ in their transition band (the engine's Kaiser beta 8.555,
+# scipy's 5.0), so the buffers' noise is band-limited below it: the bound
+# measures the passband.
+ENGINE_BOUND = {"resample_max_lsb": 64, "resample_rel_rms": 2e-3, "crossfade_max_lsb": 1}
+ENGINE_RESAMPLES = ((44100, 48000), (48000, 44100), (44100, 22050))
+ENGINE_DIGESTS = {  # case: (sha256 of the inputs, sha256 of the JAX engine's output)
+    "resample 44100->48000": (
+        "c2daad8b9bf8cd17616d60176a287ded72320e627eb3eb96499c5e2255ce0f38",
+        "cbc87986258be4245b2bde1adee8be8997d0cec4bbf6e0ea5a38da4b763a20d2"),
+    "resample 48000->44100": (
+        "49e8415ab7c5fc832b41db836a344a0eab94eb66a83b78d86218099e49dd29f8",
+        "f7295f4c0811c0f6d8ddca3bb47190a9c0099c5b2c95241e62788a3fc8325094"),
+    "resample 44100->22050": (
+        "c2daad8b9bf8cd17616d60176a287ded72320e627eb3eb96499c5e2255ce0f38",
+        "860bf0ecbef9674fd5e4dac9a1e879a764c99b090e1d743bfbecacbb11a111a5"),
+    "crossfade 8820": (
+        "75f5b3f238defdedc824256bcfb64ba3618d86247663703ba33b5040358c6fdf",
+        "9ed24a7680da199a9bb93a46cace4a9202df262fcaa79789bd098fd8b9b66cdb"),
+    "compressor": (
+        "fed789d2c18d3fff9e948bbcdbd420c2e5c664f842dbf37176ddb8d2327aae79",
+        "d266c8a84fe5826a6f3b69261aeea8c569bf3c44ef4a7cb617e0bbe855c731ac"),
+}
+# The frontends phase's 30 s stereo file at 48 kHz (tones at 110 Hz and
+# 2 kHz plus noise): the four stems of AudioSplitter must sum back to the
+# input (relative L2 over the input's samples).
+SPLIT_BOUND = 1e-3
 
 # Each kernel's cases against its plain version: name, b, s_q, s_kv, h, d,
 # dtype, logit scale on q and k. "path" cases are the main path's shapes;
@@ -1424,17 +1481,17 @@ def phase_batch(torch, attn, pipe) -> dict:
     return {"counts": counts, "results": results}
 
 
-def _check_clip(what: str, image, segment) -> None:
-    """A generated clip: a non-flat 512x512 image and 5.11 s of audio that is
-    not silent."""
+def _check_clip(what: str, image, segment, size=(512, 512), seconds: float = 5.11) -> None:
+    """A generated clip: a non-flat image of `size` (512x512 by default) and
+    `seconds` of audio (5.11) that is not silent."""
     import numpy as np
 
     pixels = np.asarray(image, np.float64)
-    if image.size != (512, 512) or not (np.isfinite(pixels).all() and pixels.std() > 0):
+    if image.size != size or not (np.isfinite(pixels).all() and pixels.std() > 0):
         raise AssertionError(f"{what}: bad image {image.size}, std {pixels.std()}")
     if segment is not None:
         samples = segment.raw_data.astype(np.float64)
-        if abs(segment.duration_seconds - 5.11) > 0.02 or not samples.std() > 100:
+        if abs(segment.duration_seconds - seconds) > 0.02 or not samples.std() > 100:
             raise AssertionError(f"{what}: {segment.duration_seconds} s of audio, std "
                                  f"{samples.std()}")
 
@@ -1583,6 +1640,282 @@ def phase_cli(torch, attn, checkpoint: Path) -> dict:
     return {"counts": counts, "seconds": seconds, "warmstart": reports}
 
 
+def _engine_pcm(rate: int, seconds: float, channels: int, seed: int):
+    """(n, channels) int16: tones at 110 Hz and 2 kHz and noise from a
+    splitmix64 hash, low-passed by three 8-sample moving averages."""
+    import numpy as np
+
+    n = int(rate * seconds)
+    z = (np.arange((n + 21) * channels, dtype=np.uint64) + np.uint64(seed)) * \
+        np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    noise = ((z >> np.uint64(11)).astype(np.float64) * 2.0 ** -52 - 1.0).reshape(-1, channels)
+    for _ in range(3):
+        c = np.concatenate([np.zeros((1, channels)), np.cumsum(noise, axis=0)])
+        noise = (c[8:] - c[:-8]) / 8
+    t = np.arange(n) / rate
+    tones = 0.35 * np.sin(2 * np.pi * 110 * t) + 0.2 * np.sin(2 * np.pi * 2000 * t)
+    return np.round((tones[:, None] + 0.3 * noise) * 32767).astype(np.int16)
+
+
+def _engine_cases() -> list:
+    """(case, the engine function's name, its arguments) of the engine check;
+    the JAX package's riffusion_tpu/audio/native.py has the same functions."""
+    cases = [(f"resample {a}->{b}", "resample_poly_int16", (_engine_pcm(a, 5.0, 2, 1), a, b))
+             for a, b in ENGINE_RESAMPLES]
+    cases.append(("crossfade 8820", "crossfade_concat_int16",
+                  (_engine_pcm(44100, 5.0, 2, 2), _engine_pcm(44100, 5.0, 2, 3), 8820)))
+    cases.append(("compressor", "compress_dynamic_range_int16",
+                  (_engine_pcm(44100, 5.0, 2, 4), 44100)))
+    return cases
+
+
+def _digest(arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _check_engine() -> dict:
+    """Build the engine into a fresh directory (its seconds), then each case
+    against its numpy version and the JAX engine's digest, with both times."""
+    import numpy as np
+
+    from riffusion_tpu_torch.audio import native
+
+    build_dir = Path(tempfile.mkdtemp(prefix="engine-", dir=REPO / ".chipwork"))
+    try:
+        t0 = time.perf_counter()
+        native.build(build_dir)
+        build_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(build_dir, ignore_errors=True)
+    native.load()
+    log(f"[frontends] audio engine built with g++ {' '.join(native.CXX_FLAGS)} in {build_s:.3f} s")
+    results = {"build_s": build_s}
+    for case, fn, args in _engine_cases():
+        expect_in, expect_out = ENGINE_DIGESTS[case]
+        arrays = [a for a in args if isinstance(a, np.ndarray)]
+        if _digest(arrays) != expect_in:
+            raise AssertionError(f"engine {case}: this host's numpy made other input buffers "
+                                 f"({_digest(arrays)}); the digests cannot be compared")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = getattr(native, fn)(*args)
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = getattr(native, fn + "_numpy")(*args)
+        numpy_s = time.perf_counter() - t0
+        if out.shape != ref.shape:
+            raise AssertionError(f"engine {case}: shape {out.shape}, numpy {ref.shape}")
+        diff = out.astype(np.float64) - ref
+        max_lsb = float(np.abs(diff).max())
+        rel_rms = float(np.sqrt(np.mean(diff ** 2) / np.mean(ref.astype(np.float64) ** 2)))
+        digest_ok = _digest([out]) == expect_out
+        log(f"[frontends] engine {case}: {statistics.median(times) * 1e3:.3f} ms (median of 5), "
+            f"numpy {numpy_s * 1e3:.3f} ms; against numpy max {max_lsb:.0f} LSB, error RMS / "
+            f"RMS {rel_rms:.3e}; the JAX engine's digest {'matched' if digest_ok else 'DIFFERS'}")
+        if fn == "resample_poly_int16":
+            ok = (max_lsb <= ENGINE_BOUND["resample_max_lsb"]
+                  and rel_rms <= ENGINE_BOUND["resample_rel_rms"])
+        elif fn == "crossfade_concat_int16":
+            ok = max_lsb <= ENGINE_BOUND["crossfade_max_lsb"]
+        else:
+            ok = max_lsb == 0
+        if not (ok and digest_ok):
+            raise AssertionError(f"engine {case}: outside ENGINE_BOUND {ENGINE_BOUND} or not the "
+                                 "JAX engine's samples")
+        results[case] = {"ms": statistics.median(times) * 1e3, "numpy_ms": numpy_s * 1e3,
+                         "max_lsb": max_lsb, "rel_rms": rel_rms}
+    return results
+
+
+def _split_input(seconds: float = 30.0, rate: int = 48000, seed: int = 0):
+    """The frontends phase's stereo file: tones at 110 Hz and 2 kHz (the
+    right channel's a quarter turn later) plus noise, (n, 2) int16."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    phase = np.array([0.0, np.pi / 2])
+    x = (0.4 * np.sin(2 * np.pi * 110 * t[:, None] + phase)
+         + 0.2 * np.sin(2 * np.pi * 2000 * t[:, None]) + 0.02 * rng.standard_normal((t.size, 2)))
+    return np.round(x * 32767).astype(np.int16)
+
+
+def phase_frontends(torch, attn, checkpoint: Path) -> dict:
+    """The playground's host layer and pages on the checkpoint directory,
+    loaded through streamlit/util.load_riffusion_checkpoint (UI defaults:
+    50 steps, denoising 0.45, guidance 7, PNDM): the audio engine, the stem
+    splitter and compute_fft on a 48 kHz file resampled by the engine, the
+    restyle of that file (batched interpolation, serial img2img, MagicMix
+    on its first clip), the interpolation page's batch of 4, the batch
+    page's 6 entries, one text-to-audio clip and og_beat to audio, each with
+    its wall time, exact launch counts and peak device memory."""
+    import numpy as np
+    from PIL import Image
+
+    from riffusion_tpu_torch.audio.segment import AudioSegment
+    from riffusion_tpu_torch.audio_splitter import AudioSplitter
+    from riffusion_tpu_torch.diffusion import schedulers as sched
+    from riffusion_tpu_torch.riffusion_pipeline import img2img_plan
+    from riffusion_tpu_torch.streamlit import util as st_util
+    from riffusion_tpu_torch.streamlit.tasks import audio_to_audio as a2a
+    from riffusion_tpu_torch.streamlit.tasks import image_to_audio, interpolation
+    from riffusion_tpu_torch.streamlit.tasks import text_to_audio, text_to_audio_batch
+    from riffusion_tpu_torch.util import fft_util
+
+    counts = {"attention": 0, "row_attention": 0}
+    runs = {"engine": _check_engine()}
+    out_dir = Path(tempfile.mkdtemp(prefix="frontends-", dir=REPO / ".chipwork"))
+
+    def run(what: str, k1: int, k2: int, fn):
+        attn.COUNTS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[frontends] {what}: {wall:.3f} s, peak device memory {peak:.2f} GiB, K1 launches "
+            f"{attn.COUNTS.launches}, K2 launches {attn.COUNTS.row_launches}, plain calls "
+            f"{attn.COUNTS.plain_calls}")
+        _expect_counts(attn, what, k1, k2)
+        counts["attention"] += attn.COUNTS.launches
+        counts["row_attention"] += attn.COUNTS.row_launches
+        runs[what] = {"seconds": wall, "peak_gib": peak, "k1": k1, "k2": k2}
+        return out
+
+    def check_track(what: str, track, clips: int, clip_s: float) -> None:
+        """The stitched restyle: clips less their 0.2 s crossfades, and every
+        clip's span of it not silent."""
+        expect = clips * clip_s - (clips - 1) * a2a.OVERLAP_S
+        if abs(track.duration_seconds - expect) > 0.02:
+            raise AssertionError(f"{what}: {track.duration_seconds} s, expected {expect:.2f}")
+        step = clip_s - a2a.OVERLAP_S
+        for i in range(clips):
+            span = track[i * step * 1000:(i * step + clip_s) * 1000].raw_data.astype(np.float64)
+            if not span.std() > 100:
+                raise AssertionError(f"{what}: clip {i} is silent (std {span.std()})")
+
+    try:
+        wav = out_dir / "input-48k.wav"
+        AudioSegment(_split_input(), 48000).export(str(wav)).close()
+        source = AudioSegment.from_file(str(wav))
+        t0 = time.perf_counter()
+        segment = source.set_frame_rate(44100)
+        log(f"[frontends] {source.duration_seconds:.1f} s stereo at 48 kHz to 44.1 kHz on the "
+            f"engine in {time.perf_counter() - t0:.3f} s")
+
+        stems = run(f"AudioSplitter(device='cuda') on {segment.duration_seconds:.1f} s", 0, 0,
+                    lambda: AudioSplitter(device="cuda").split(segment))
+        n = min(min(s.frame_count for s in stems.values()), segment.frame_count)
+        total = sum(s.raw_data[:n].astype(np.float64) for s in stems.values())
+        orig = segment.raw_data[:n].astype(np.float64)
+        rel = float(np.sqrt(np.sum((total - orig) ** 2) / np.sum(orig ** 2)))
+        freqs, mag = fft_util.compute_fft(stems["bass"])
+        low, high = (float(mag[np.argmin(np.abs(freqs - f))]) for f in (110.0, 2000.0))
+        log(f"[frontends] stems {sorted(stems)} sum back to the input at relative L2 {rel:.3e} "
+            f"(bound {SPLIT_BOUND}); the bass stem's spectrum: {low:.2f} at 110 Hz, {high:.4f} "
+            f"at 2 kHz")
+        if not (rel <= SPLIT_BOUND and low > high):
+            raise AssertionError("the stems do not sum back to the input, or the bass stem "
+                                 "does not hold the 110 Hz tone over the 2 kHz one")
+
+        t0 = time.perf_counter()
+        pipe = st_util.load_riffusion_checkpoint(checkpoint=str(checkpoint), device="cuda")
+        log(f"[frontends] load_riffusion_checkpoint({checkpoint.name}): "
+            f"{time.perf_counter() - t0:.2f} s, sampler {pipe.bundle.scheduler_name}")
+        params = a2a.ClipParams(prompt="jazzy saxophone")
+        starts = a2a.clip_start_times(segment.duration_seconds)
+        clips = len(starts)
+        e_batched = img2img_plan(pipe.bundle.scheduler_name, 50, params.denoising)[0].num_steps
+        e_serial = img2img_plan("pndm", 50, params.denoising)[0].num_steps
+        t_start = pipe._magic_mix_start("pndm", 50, 0.3, 0.5)[0]
+        e_mix = sched.make_plan("pndm", 50, t_start).num_steps
+        e_interp = img2img_plan(pipe.bundle.scheduler_name, 50, 0.75)[0].num_steps
+        e_txt = sched.make_plan("pndm", 50).num_steps
+        log(f"[frontends] {clips} clips; UNet evaluations: batched restyle {e_batched} at UNet "
+            f"batch {2 * clips}, serial img2img {e_serial}, MagicMix {e_mix}, interpolation "
+            f"{e_interp} at batch 8, txt2img {e_txt}")
+
+        # the seq-3840 sites of a 512x480 clip are not a multiple of 512: at
+        # UNet batch 14 they take the plain composition (the JAX gate), the
+        # seq-960 sites K1
+        track, images = run(f"restyle_audio, interpolation, {clips} clips batched", 5 * e_batched,
+                            0, lambda: a2a.restyle_audio(segment, params, mode="interpolation",
+                                                         device="cuda",
+                                                         checkpoint=str(checkpoint)))
+        for i, image in enumerate(images):
+            _check_clip(f"batched restyle clip {i}", image, None, size=(480, 512))
+        check_track("batched restyle", track, clips, 4.79)
+
+        track, images = run(f"restyle_audio, img2img, {clips} clips serial", 10 * clips * e_serial,
+                            0, lambda: a2a.restyle_audio(segment, params, mode="img2img",
+                                                         device="cuda",
+                                                         checkpoint=str(checkpoint)))
+        for i, image in enumerate(images):
+            _check_clip(f"serial restyle clip {i}", image, None, size=(501, 512))
+        check_track("serial restyle", track, clips, 5.0)
+
+        first = a2a.slice_audio_into_clips(segment, starts[:1])[0]
+        audio, _, image = run("restyle_segment, magic_mix, first clip", 10 * e_mix, 0,
+                              lambda: a2a.restyle_segment(first, params, mode="magic_mix",
+                                                          device="cuda",
+                                                          checkpoint=str(checkpoint)))
+        _check_clip("magic_mix clip", image, audio, size=(501, 512), seconds=5.0)
+
+        og_beat = Image.open(REPO / "seed_images" / "og_beat.png").convert("RGB")
+        spec = interpolation.InterpolationSpec(prompt_start="funky synth solo",
+                                               prompt_end="jazzy saxophone", seed_start=42,
+                                               seed_end=123)
+        images, segments = run("run_interpolation_batch, 4 frames", 10 * e_interp, 0,
+                               lambda: interpolation.run_interpolation_batch(
+                                   spec, og_beat, device="cuda", checkpoint=str(checkpoint)))
+        for i, (image, clip) in enumerate(zip(images, segments)):
+            _check_clip(f"interpolation frame {i}", image, clip)
+        interpolation.concat_segments(segments)
+
+        batch_dir = out_dir / "batch"
+        data = {"params": {"checkpoint": str(checkpoint)},
+                "entries": [{"prompt": p, "seed": i} for i, p in enumerate(
+                    ["church bells", "electronic beats", "violin concerto", "lofi hip hop",
+                     "acoustic folk", "techno"])]}
+        manifest = run("text_to_audio_batch.run_batch, 6 entries", 5 * e_txt, 5 * e_txt,
+                       lambda: text_to_audio_batch.run_batch(data, device="cuda",
+                                                             output_dir=batch_dir))
+        for record in manifest:
+            _check_clip(f"batch entry {record['index']}", record["_image_obj"],
+                        record["_segment_obj"])
+        if len(json.loads((batch_dir / "index.json").read_text())) != 6:
+            raise AssertionError("the batch page's index.json does not list 6 entries")
+
+        clip = run("text_to_audio.generate_clips (run_txt2img), 1 clip", 10 * e_txt, 0,
+                   lambda: list(text_to_audio.generate_clips(
+                       "funky synth solo", checkpoint=str(checkpoint), device="cuda")))
+        _check_clip("text-to-audio clip", clip[0][1], clip[0][2])
+
+        params_og = image_to_audio.params_from_image(og_beat)
+        audio = run("og_beat to audio (the image-to-audio page)", 0, 0,
+                    lambda: st_util.audio_segment_from_spectrogram_image(
+                        image=og_beat, params=params_og, device="cuda"))
+        _check_clip("image-to-audio", og_beat, audio)
+    finally:
+        for cached in (st_util.load_riffusion_checkpoint, st_util.spectrogram_image_converter):
+            # an lru_cache without streamlit, st.cache_resource with it
+            (getattr(cached, "cache_clear", None) or cached.clear)()
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"counts": counts, "runs": runs}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1666,6 +1999,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
         del ckpt["pipe"]
         gc.collect()
         cli_run = phase("cli", phase_cli, torch, attn, ckpt_dir)
+        frontends = phase("frontends", phase_frontends, torch, attn, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -1679,13 +2013,15 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          times[("attention", 2, 4096, 40)], times[("plain", 2, 4096, 40)],
          times[("bound", 2, 4096, 40)], times[("library", 2, 4096, 40)],
          single["attention"] + batch["counts"]["attention"] + modes["counts"]["attention"]
-         + ckpt["launches"] + train["launches"]["attention"] + cli_run["counts"]["attention"]),
+         + ckpt["launches"] + train["launches"]["attention"] + cli_run["counts"]["attention"]
+         + frontends["counts"]["attention"]),
         ("row_attention", "row_attention.cu",
          "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
          times[("row_attention", b, s, d)], times[("plain", b, s, d)],
          times[("bound", b, s, d)], times[("library", b, s, d)],
          single["row_attention"] + batch["counts"]["row_attention"]
-         + modes["counts"]["row_attention"] + cli_run["counts"]["row_attention"]),
+         + modes["counts"]["row_attention"] + cli_run["counts"]["row_attention"]
+         + frontends["counts"]["row_attention"]),
     ] + [
         # the plain and library times are of the whole backward (dQ, dK, dV)
         (name, f"{name}.cu", f"{flash}:{line} {fn}", grad_times[(name, tb, ts, td)],

@@ -5,8 +5,8 @@ riffusion_tpu/audio/segment.py, held to it by tests/test_torch_host.py.
 
 Internal representation: int16 PCM, shape (num_samples, num_channels),
 matching WAV file layout so export is a straight memory write. Resampling
-and crossfades are the numpy/scipy versions of riffusion_tpu/audio/native.py
-(the JAX package's C++ audio engine is not ported).
+and crossfades run on the C++ audio engine (`riffusion_tpu_torch.audio.native`),
+as the JAX package's do on its copy of the same engine.
 
 Format support:
   * wav: native (stdlib/scipy, no external binaries)
@@ -279,12 +279,10 @@ class AudioSegment:
     def set_frame_rate(self, frame_rate: int) -> "AudioSegment":
         if frame_rate == self._frame_rate:
             return self
-        from scipy.signal import resample_poly
+        from riffusion_tpu_torch.audio import native
 
-        g = math.gcd(self._frame_rate, frame_rate)
-        out = resample_poly(self._data.astype(np.float64), frame_rate // g,
-                            self._frame_rate // g, axis=0)
-        return AudioSegment(np.clip(np.round(out), -32768, 32767).astype(np.int16), frame_rate)
+        resampled = native.resample_poly_int16(self._data, self._frame_rate, frame_rate)
+        return AudioSegment(resampled, frame_rate)
 
     # ------------------------------------------------------------------ mixing
 
@@ -310,13 +308,14 @@ class AudioSegment:
         other = other.set_channels(self.channels)
         xf = int(round(crossfade / 1000.0 * self._frame_rate))
         xf = min(xf, self.frame_count, other.frame_count)
-        a, b = self._data, other.raw_data
         if xf == 0:
-            return AudioSegment(np.concatenate([a, b], axis=0), self._frame_rate)
-        t = (np.arange(xf, dtype=np.float64) / xf)[:, None]
-        mixed = a[-xf:].astype(np.float64) * (1.0 - t) + b[:xf].astype(np.float64) * t
-        mixed = np.clip(np.round(mixed), -32768, 32767).astype(np.int16)
-        return AudioSegment(np.concatenate([a[:-xf], mixed, b[xf:]], axis=0), self._frame_rate)
+            return AudioSegment(
+                np.concatenate([self._data, other.raw_data], axis=0), self._frame_rate
+            )
+        from riffusion_tpu_torch.audio import native
+
+        out = native.crossfade_concat_int16(self._data, other.raw_data, xf)
+        return AudioSegment(out, self._frame_rate)
 
     def fade_in(self, duration_ms: float) -> "AudioSegment":
         n = min(int(round(duration_ms / 1000.0 * self._frame_rate)), self.frame_count)

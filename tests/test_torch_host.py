@@ -6,10 +6,11 @@ util/base64_util, util/dataclass_util, models/tokenizer and serving. The
 port imports none of the JAX package (tests/test_torch_imports.py), so each
 copy is held here to the module it was copied from, on the same inputs.
 
-The JAX package's AudioSegment and apply_filters reach its C++ audio engine
-where it is built; the port carries that engine's numpy versions, so the
-comparisons run the JAX side with the engine switched off (its own numpy
-fallback), where the two must agree exactly.
+Both packages' AudioSegment and apply_filters reach a C++ audio engine
+(the same source; tests/test_torch_native.py holds the two engines bit-equal).
+The comparisons here hold the engine's numpy versions instead: the port's,
+asked for with RIFFUSION_TPU_TORCH_NO_NATIVE=1, against the JAX package's
+fallbacks, where the two must agree exactly.
 """
 
 import dataclasses
@@ -41,8 +42,10 @@ SR = 44100
 
 @pytest.fixture
 def jax_numpy_audio(monkeypatch):
-    """The JAX package's audio helpers on their numpy fallbacks."""
+    """Both packages' audio helpers on their numpy versions: the JAX
+    package's fallbacks, the port's on request."""
     monkeypatch.setattr(jax_native, "_load_lib", lambda: None)
+    monkeypatch.setenv("RIFFUSION_TPU_TORCH_NO_NATIVE", "1")
 
 
 @pytest.mark.parametrize("name", ["PromptInput", "InferenceInput", "InferenceOutput",

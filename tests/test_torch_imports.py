@@ -6,9 +6,13 @@ interpreter imports every riffusion_tpu_torch module (serving and server
 among them), runs the tiny slice on the CPU, single and batched, then a
 fine-tune of two steps with its export reloaded, and checks sys.modules;
 another runs the command line and the embedding disk cache.
+A third drives the playground's modules, the audio engine, the stem
+splitter and fft_util with an import hook that records every attempt to
+import JAX or the JAX package (none may be made).
 Also a static check that no source of the port, nor chip_smoke.py or
-scripts/profile_torch_request.py, imports them, and that the port calls no
-library attention or compiler.
+scripts/profile_torch_request.py, imports them, that the port calls no
+library attention or compiler, and that no module of the port imports
+streamlit at module level (the playground imports it inside render()).
 """
 
 import ast
@@ -95,6 +99,78 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu", "ml_dtypes"))
 print("LOADED", bad)
 """
+
+
+_FRONTENDS_PROGRAM = r"""
+import sys
+attempts = []
+
+
+class Spy:
+    # records each import of JAX or the JAX package that is tried
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu"):
+            attempts.append(name)
+        return None
+
+
+sys.meta_path.insert(0, Spy())
+import importlib, os, pkgutil, tempfile
+import numpy as np
+import riffusion_tpu_torch
+for mod in pkgutil.walk_packages(riffusion_tpu_torch.__path__, "riffusion_tpu_torch."):
+    importlib.import_module(mod.name)
+from riffusion_tpu_torch.audio import native
+from riffusion_tpu_torch.audio.segment import AudioSegment
+from riffusion_tpu_torch.audio_splitter import AudioSplitter
+from riffusion_tpu_torch.streamlit import util
+from riffusion_tpu_torch.streamlit.tasks import audio_to_audio, interpolation, text_to_audio_batch
+from riffusion_tpu_torch.util import fft_util
+wave = (np.sin(np.arange(22050)[:, None] * 2 * np.pi * 440 / 48000) * 9000).astype(np.int16)
+segment = AudioSegment(np.repeat(wave, 2, 1), 48000).set_frame_rate(44100)
+segment = segment.append(segment, crossfade=50)
+native.compress_dynamic_range_int16(segment.raw_data, 44100)
+assert len(AudioSplitter(device="cpu").split(segment)) == 4
+fft_util.compute_fft(segment)
+audio_to_audio.slice_audio_into_clips(segment, audio_to_audio.clip_start_times(12.0))
+interpolation.shaped_alphas(4, 2.0)
+with tempfile.TemporaryDirectory() as tmp:
+    manifest = text_to_audio_batch.run_batch(
+        {"params": {"num_inference_steps": 1, "width": 64, "checkpoint": "random:tiny"},
+         "entries": [{"prompt": "a"}, {"prompt": "b", "seed": 3}]}, device="cpu", output_dir=tmp)
+    assert len(manifest) == 2 and os.path.exists(os.path.join(tmp, "index.json"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "riffusion_tpu", "streamlit"))
+print("LOADED", bad)
+print("TRIED", sorted(set(attempts)))
+"""
+
+
+def test_frontends_run_without_jax_or_streamlit():
+    """The playground's modules, imported and driven in a fresh interpreter
+    (the engine, the splitter, fft_util, the restyle helpers, the batch page
+    on random:tiny), neither load nor try to import JAX or the JAX package,
+    and load no streamlit (util only asks whether it is installed)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _FRONTENDS_PROGRAM], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout and "TRIED []" in proc.stdout, proc.stdout
+
+
+def test_no_streamlit_import_at_module_level():
+    """streamlit is optional: the port imports it only inside functions."""
+    sources = sorted(PACKAGE.rglob("*.py"))
+    assert PACKAGE / "streamlit" / "playground.py" in sources
+    for path in sources:
+        tree = ast.parse(path.read_text())
+        top = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top.update(alias.name.split(".")[0] for alias in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                top.add(node.module.split(".")[0])
+        assert "streamlit" not in top, path
 
 
 def test_port_runs_without_jax():
