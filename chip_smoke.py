@@ -145,6 +145,26 @@ frontends: the playground's host layer and pages (riffusion_tpu_torch/
    Each run's seconds, launches (exact, from the plans) and peak device
    memory; every clip checked.
 
+parallel: multi-device serving (riffusion_tpu_torch/parallel/) in worlds of
+   processes on the one card (parallel.mesh.spawn_world; NCCL takes one
+   rank per card, so two ranks share cuda:0 over gloo, which moves the CUDA
+   tensors through the host). Two gloo ranks: the tiny model in fp32 against
+   the single-device runs on the card with the same injected noise, each
+   held to phase 6's image bound with each rank's (K1, K2, plain) launches
+   equal to the single-device run's: riffuse_audio_tp at tp 2 (256 px, K1
+   at 1 of the 2 heads), riffuse_audio_batch(mesh) of 6 requests at d = 2
+   at 512 px (a rank's UNet batch 6, the whole batch's 12: its seq-4096
+   sites take K2 by the global-batch route), a FrameSweep of 4 alphas at
+   d = 2 (K1 only); then random:full in bf16: one 50-step riffuse_audio_tp
+   request at tp 2 (K1 exactly 380 per rank at (2, 4096, 4*40) and (2, 1024,
+   4*80), a non-flat 512x512 image with 5.11 s of audio, its rel L2 to the
+   single-device output under 2e-2) and one FAST batch of 16 at d = 2 (K2
+   and K1 5*E per rank, every clip checked as in 10, each image's rel L2 to
+   the unsharded batch's under 2e-2). A world of one on NCCL
+   runs the tiny checks. `python -m riffusion_tpu_torch.parallel.dryrun --n
+   2` runs as a command and exits 0. Two ranks on one card give no scaling
+   number.
+
 `--mutants` instead builds each planted fault of MUTANTS into a copy of
 the kernel sources and shows that the checks of every kernel it touches
 reject it (tests/test_torch_kernel_sources.py holds each fault's text to
@@ -1916,6 +1936,272 @@ def phase_frontends(torch, attn, checkpoint: Path) -> dict:
     return {"counts": counts, "runs": runs}
 
 
+# ------------------------------------------------------------------ parallel
+
+
+PARALLEL_RANKS = 2  # ranks that share cuda:0 over gloo (NCCL takes one rank per card)
+PARALLEL_TIMEOUT_S = 400.0  # a world, or a collective in it, that takes longer fails
+# random:full in bf16: the bound on a decoded image's rel L2 (as float) against the same request
+# run on one device, unsharded (bf16 GEMMs of other shapes round otherwise, and the 50 steps
+# carry it; the tp request measured 7.76e-3 on the H100)
+PARALLEL_FULL_REL_L2 = 2e-2
+
+
+def _tiny_cuda_pipe(torch):
+    from riffusion_tpu_torch.models.weights import random_bundle
+    from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
+
+    return RiffusionPipeline(random_bundle("tiny", seed=0, device="cuda", dtype=torch.float32),
+                             device="cuda")
+
+
+def _tiny_requests(n: int):
+    """phase 7's requests: guidance 1.5-1.9, 10 steps at strength 0.75."""
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+
+    return [InferenceInput(start=PromptInput(prompt=f"church bells {i}", seed=i,
+                                             guidance=1.5 + 0.1 * i),
+                           end=PromptInput(prompt="techno", seed=10 + i, guidance=1.5),
+                           alpha=0.2 * i, num_inference_steps=10) for i in range(n)]
+
+
+def _tiny_setup(size: int, n: int, seed: int):
+    """(seed image, params, one FixedNoise per request, their draws) at
+    `size` px."""
+    import numpy as np
+    from PIL import Image
+
+    from riffusion_tpu_torch.riffusion_pipeline import FixedNoise
+    from riffusion_tpu_torch.spectrogram_converter import SpectrogramConverter
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
+
+    rng = np.random.default_rng(seed)
+    image = Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8), mode="RGB")
+    params = SpectrogramParams(num_frequencies=size)
+    n_active = SpectrogramConverter(params, device="cpu").n_active
+    latent = (1, 4, size // 8, size // 8)
+    draws = [{"vae_eps": rng.standard_normal(latent), "noise_a": rng.standard_normal(latent),
+              "noise_b": rng.standard_normal(latent), "gl_real": rng.random((1, n_active, size)),
+              "gl_imag": rng.random((1, n_active, size))} for _ in range(n)]
+    return image, params, [FixedNoise(d) for d in draws], draws
+
+
+def _counted(torch, attn, fn):
+    """(fn(), (K1, K2, plain) launches of its run): the counts are set to 0
+    just before and read just after."""
+    attn.COUNTS.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+
+
+def _agree(what: str, ours, refs) -> list:
+    """Phase 6's image bound for each pair: within one uint8 level on at
+    least 99% of pixels."""
+    agreement = [_image_agreement(a, b) for a, b in zip(ours, refs)]
+    if len(agreement) != len(refs) or any(m > 1 or e < 0.99 for e, m in agreement):
+        raise AssertionError(f"{what} disagrees with the single-device run: {agreement}")
+    return [(round(e, 6), m) for e, m in agreement]
+
+
+def _parallel_tiny(torch, attn, world: int) -> dict:
+    """The tiny model in fp32 in this world against the single-device runs
+    on the card, with the same noise: riffuse_audio_tp over every rank at a
+    256 px seed, riffuse_audio_batch(mesh) of 6 requests at 512 px (UNet
+    batch 12 in all, so the seq-4096 sites take K2 where a rank's share is
+    at or below 8), a FrameSweep of 2 * world alphas at 256 px (K1 only).
+    Each one's (K1, K2, plain) launches equal the single-device run's,
+    which routes at the same batch."""
+    from riffusion_tpu_torch.parallel.mesh import make_mesh
+    from riffusion_tpu_torch.parallel.sweep import FrameSweep
+    from riffusion_tpu_torch.parallel.tp_serving import riffuse_audio_tp
+    from riffusion_tpu_torch.riffusion_pipeline import FixedNoise
+
+    pipe = _tiny_cuda_pipe(torch)
+    model = make_mesh((world,), ("model",))
+    data = make_mesh((world,), ("data",))
+    out, counts = {}, {"attention": 0, "row_attention": 0}
+
+    def check(what, run, reference, images):
+        ref, ref_counts = _counted(torch, attn, reference)
+        got, got_counts = _counted(torch, attn, run)
+        if got_counts != ref_counts or got_counts[2] != 0 or got_counts[0] == 0:
+            raise AssertionError(f"{what}: (K1, K2, plain) launches {got_counts}, the "
+                                 f"single-device run's {ref_counts}")
+        out[what] = {"launches": got_counts, "agreement": _agree(what, images(got), images(ref))}
+        counts["attention"] += got_counts[0]
+        counts["row_attention"] += got_counts[1]
+        return got_counts
+
+    image, params, noises, _ = _tiny_setup(256, 1, 2)
+    request = _tiny_requests(1)[0]
+    check(f"riffuse_audio_tp, tp {world}, 256 px",
+          lambda: riffuse_audio_tp(pipe, request, image, model, params=params, noise=noises[0]),
+          lambda: pipe.riffuse_audio(request, image, params=params, noise=noises[0]),
+          lambda r: [r[0]])
+
+    n = 6
+    image, params, noises, _ = _tiny_setup(512, n, 3)
+    requests = _tiny_requests(n)
+    got = check(f"riffuse_audio_batch of {n}, data {world}, 512 px",
+                lambda: pipe.riffuse_audio_batch(requests, image, params=params, mesh=data,
+                                                 noises=noises),
+                lambda: pipe.riffuse_audio_batch(requests, image, params=params, noises=noises),
+                lambda r: [im for im, _ in r])
+    if got[1] == 0:
+        raise AssertionError("the sharded batch did not route its seq-4096 sites to K2")
+
+    image, _, _, draws = _tiny_setup(256, 1, 4)
+    sweep = dict(prompt_start="church bells", prompt_end="techno", seed_start=1, seed_end=2,
+                 init_image=image, alphas=[i / (2 * world - 1) for i in range(2 * world)],
+                 num_inference_steps=10, guidance_start=1.5, guidance_end=1.9)
+    sweep_noise = FixedNoise({k: draws[0][k] for k in ("vae_eps", "noise_a", "noise_b")})
+    got = check(f"FrameSweep of {2 * world} alphas, data {world}, 256 px",
+                lambda: FrameSweep(pipe, data).interpolate(**sweep, noise=sweep_noise),
+                lambda: FrameSweep(pipe).interpolate(**sweep, noise=sweep_noise),
+                lambda frames: list(frames))
+    if got[1] != 0:
+        raise AssertionError("the frame sweep reached K2")
+    return {"checks": out, "counts": counts}
+
+
+def _rel_l2(ours, ref) -> float:
+    import numpy as np
+
+    a, b = (np.asarray(x, np.float64) for x in (ours, ref))
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _parallel_full(torch, attn, world: int) -> dict:
+    """random:full (bf16) in this world: one 50-step riffuse_audio_tp
+    request (K1 exactly 10 per UNet evaluation, at the rank's 8 / world
+    heads) and one FAST batch of 16 split over the ranks (K2 and K1 5*E
+    each, routed at the global UNet batch of 32). Each decoded image is
+    held to PARALLEL_FULL_REL_L2 against the same request on one device,
+    unsharded (the tp request against riffuse_audio, the batch's 16
+    against the unsharded batch)."""
+    from PIL import Image
+
+    from riffusion_tpu_torch.datatypes import InferenceInput
+    from riffusion_tpu_torch.parallel.mesh import make_mesh
+    from riffusion_tpu_torch.parallel.tp_serving import riffuse_audio_tp
+    from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
+    from riffusion_tpu_torch.serving import FAST_PRESET
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
+    from riffusion_tpu_torch.util.dataclass_util import from_dict
+
+    t0 = time.perf_counter()
+    pipe = RiffusionPipeline.load_checkpoint("random:full", device="cuda")
+    load_s = time.perf_counter() - t0
+    model = make_mesh((world,), ("model",))
+    data = make_mesh((world,), ("data",))
+    seed = Image.open(REPO / "seed_images" / "og_beat.png").convert("RGB")
+    params = SpectrogramParams(min_frequency=0, max_frequency=10000, num_frequencies=512)
+    request = from_dict(InferenceInput, _request(0))
+
+    # the single-device output of the same request, the same draws (its seeds)
+    ref, _ = _counted(torch, attn, lambda: pipe.riffuse_audio(request, seed, params=params))
+    t0 = time.perf_counter()
+    (image, segment), tp_counts = _counted(
+        torch, attn, lambda: riffuse_audio_tp(pipe, request, seed, model, params=params))
+    tp_s = time.perf_counter() - t0
+    if tp_counts != (LAUNCHES_PER_REQUEST, 0, 0):
+        raise AssertionError(f"riffuse_audio_tp: (K1, K2, plain) launches {tp_counts}, expected "
+                             f"{(LAUNCHES_PER_REQUEST, 0, 0)}")
+    _check_clip("riffuse_audio_tp", image, segment)
+    rel_l2 = _rel_l2(image, ref[0])
+    if not rel_l2 < PARALLEL_FULL_REL_L2:
+        raise AssertionError(f"riffuse_audio_tp: decoded image rel L2 {rel_l2:.4e} against the "
+                             f"single-device output, bound {PARALLEL_FULL_REL_L2}")
+
+    e_fast = pipe._plan(FAST_PRESET["scheduler"], FAST_PRESET["steps"], 0.75)[0].num_steps
+    batch = [from_dict(InferenceInput, {**_request(i), "num_inference_steps": FAST_PRESET["steps"]})
+             for i in range(16)]
+    unsharded = pipe.riffuse_audio_batch(batch, seed, params=params,
+                                         scheduler=FAST_PRESET["scheduler"])
+    t0 = time.perf_counter()
+    results, dp_counts = _counted(torch, attn, lambda: pipe.riffuse_audio_batch(
+        batch, seed, params=params, mesh=data, scheduler=FAST_PRESET["scheduler"]))
+    dp_s = time.perf_counter() - t0
+    if dp_counts != (5 * e_fast, 5 * e_fast, 0):
+        raise AssertionError(f"sharded FAST batch: (K1, K2, plain) launches {dp_counts}, "
+                             f"expected {(5 * e_fast, 5 * e_fast, 0)}")
+    if len(results) != 16:
+        raise AssertionError(f"the sharded batch returned {len(results)} clips")
+    for i, (im, seg) in enumerate(results):
+        _check_clip(f"sharded FAST batch item {i}", im, seg)
+    dp_rel_l2 = [_rel_l2(im, ref_im) for (im, _), (ref_im, _) in zip(results, unsharded)]
+    if not max(dp_rel_l2) < PARALLEL_FULL_REL_L2:
+        raise AssertionError(f"sharded FAST batch: decoded images' rel L2 against the unsharded "
+                             f"batch {dp_rel_l2}, bound {PARALLEL_FULL_REL_L2}")
+    return {"load_s": load_s, "tp_s": tp_s, "tp_launches": tp_counts, "tp_rel_l2": rel_l2,
+            "dp_s": dp_s, "dp_launches": dp_counts, "e_fast": e_fast,
+            "dp_rel_l2_max": max(dp_rel_l2),
+            "counts": {"attention": tp_counts[0] + dp_counts[0],
+                       "row_attention": tp_counts[1] + dp_counts[1]}}
+
+
+def _parallel_rank(rank: int, world: int, job: str) -> dict:
+    """One rank of the parallel phase's worlds (parallel.mesh.spawn_world)."""
+    import torch
+
+    from riffusion_tpu_torch.ops import attention as attn
+
+    if job == "gloo":
+        return {"tiny": _parallel_tiny(torch, attn, world),
+                "full": _parallel_full(torch, attn, world)}
+    return {"tiny": _parallel_tiny(torch, attn, world)}  # the NCCL world of one
+
+
+def phase_parallel(torch, attn) -> dict:
+    """Multi-device serving in worlds of processes on the one card: two
+    gloo ranks sharing cuda:0 (the tiny checks, then random:full), a world
+    of one on NCCL (the tiny checks), and the CPU dryrun as a command."""
+    from riffusion_tpu_torch.parallel.mesh import spawn_world
+
+    torch.cuda.empty_cache()
+    counts = {"attention": 0, "row_attention": 0}
+    worlds = {}
+    for backend, world in (("gloo", PARALLEL_RANKS), ("nccl", 1)):
+        t0 = time.perf_counter()
+        ranks = spawn_world(_parallel_rank, world, (backend,), backend=backend,
+                            timeout_s=PARALLEL_TIMEOUT_S)
+        worlds[backend] = ranks
+        log(f"[parallel] {backend} world of {world} on cuda:0: "
+            f"{time.perf_counter() - t0:.1f} s with its start")
+        for rank, out in enumerate(ranks):
+            for what, check in out["tiny"]["checks"].items():
+                log(f"[parallel] {backend} rank {rank}: tiny {what}: (K1, K2, plain) launches "
+                    f"{check['launches']}, against the single-device run (pixels equal, max "
+                    f"diff) {check['agreement']}")
+            parts = [out["tiny"]]
+            if "full" in out:
+                full = out["full"]
+                parts.append(full)
+                log(f"[parallel] {backend} rank {rank}: random:full loaded in "
+                    f"{full['load_s']:.2f} s; riffuse_audio_tp (pndm-50, tp {world}) "
+                    f"{full['tp_s']:.3f} s, (K1, K2, plain) launches {full['tp_launches']}, "
+                    f"decoded image rel L2 {full['tp_rel_l2']:.4e} against the single-device "
+                    f"output; FAST batch of 16 over data {world} (E = {full['e_fast']}) "
+                    f"{full['dp_s']:.3f} s, launches {full['dp_launches']}, decoded images' "
+                    f"largest rel L2 {full['dp_rel_l2_max']:.4e} against the unsharded batch "
+                    f"(bound {PARALLEL_FULL_REL_L2}); every clip checked (ranks share one "
+                    "card: not a scaling number)")
+            for part in parts:
+                for name in counts:
+                    counts[name] += part["counts"][name]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "riffusion_tpu_torch.parallel.dryrun", "--n",
+                           str(PARALLEL_RANKS)], cwd=REPO, capture_output=True, text=True,
+                          timeout=PARALLEL_TIMEOUT_S)
+    log(f"[parallel] python -m riffusion_tpu_torch.parallel.dryrun --n {PARALLEL_RANKS}: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+        + " | ".join(proc.stdout.strip().splitlines()))
+    if proc.returncode != 0:
+        raise AssertionError(f"the dryrun failed:\n{proc.stderr[-3000:]}")
+    return {"counts": counts}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2002,6 +2288,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
         frontends = phase("frontends", phase_frontends, torch, attn, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    parallel = phase("parallel", phase_parallel, torch, attn)
 
     times, grad_times = kernel["times"], grad["times"]
     b, s, _, d = BATCH_SHAPE
@@ -2014,14 +2301,14 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          times[("bound", 2, 4096, 40)], times[("library", 2, 4096, 40)],
          single["attention"] + batch["counts"]["attention"] + modes["counts"]["attention"]
          + ckpt["launches"] + train["launches"]["attention"] + cli_run["counts"]["attention"]
-         + frontends["counts"]["attention"]),
+         + frontends["counts"]["attention"] + parallel["counts"]["attention"]),
         ("row_attention", "row_attention.cu",
          "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
          times[("row_attention", b, s, d)], times[("plain", b, s, d)],
          times[("bound", b, s, d)], times[("library", b, s, d)],
          single["row_attention"] + batch["counts"]["row_attention"]
          + modes["counts"]["row_attention"] + cli_run["counts"]["row_attention"]
-         + frontends["counts"]["row_attention"]),
+         + frontends["counts"]["row_attention"] + parallel["counts"]["row_attention"]),
     ] + [
         # the plain and library times are of the whole backward (dQ, dK, dV)
         (name, f"{name}.cu", f"{flash}:{line} {fn}", grad_times[(name, tb, ts, td)],

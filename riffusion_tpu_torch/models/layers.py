@@ -123,7 +123,9 @@ class Attention(nn.Module):
     other self-attention sites with at least 256 queries, and the plain
     einsum composition with fp32 softmax elsewhere (cross-attention with 77
     keys, the head_dim-160 sites). Both kernel wrappers take their plain
-    version for CPU tensors.
+    version for CPU tensors. The gate reads the batch through
+    ops.attention.routed_batch, so a share of a sharded batch routes at the
+    whole batch's size.
     """
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int, out_dim: int,
@@ -142,7 +144,8 @@ class Attention(nn.Module):
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         scale = 1.0 / math.sqrt(self.head_dim)
         op = _ATTENTION_OPS[
-            attention_ops.route(q.shape[0], q.shape[1], self.head_dim, context is None)
+            attention_ops.route(attention_ops.routed_batch(q.shape[0]), q.shape[1],
+                                self.head_dim, context is None)
         ]
         out = op(q, k, v, num_heads=self.num_heads, scale=scale)
         return self.to_out(out)

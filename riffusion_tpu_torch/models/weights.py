@@ -485,14 +485,19 @@ def load_diffusers_checkpoint(
 
 
 def load_bundle(
-    checkpoint: str, device: T.Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32
+    checkpoint: str, dtype: torch.dtype = torch.float32, seed: int = 0, *,
+    device: T.Union[str, torch.device] = "cuda",
 ) -> ModelBundle:
-    """Resolve a checkpoint spec, as the JAX package's `load_bundle` does:
-    "random:tiny" / "random:full" (seed 0); a directory holding the port's
-    export (riffusion_tpu_torch.json), the JAX package's (riffusion_tpu.json),
-    or a diffusers layout (a unet/ subfolder), tried in that order."""
+    """Resolve a checkpoint spec, as the JAX package's `load_bundle`
+    (checkpoint, dtype, seed) does: "random:tiny" / "random:full" (random
+    weights from `seed`); a directory holding the port's export
+    (riffusion_tpu_torch.json), the JAX package's (riffusion_tpu.json), or a
+    diffusers layout (a unet/ subfolder), tried in that order (`seed` is
+    unused there). The default dtype is float32, where the JAX package's is
+    bfloat16: the CPU, which the port's direct callers use, runs float32,
+    and the pipeline's `load_checkpoint` picks bfloat16 on CUDA itself."""
     if checkpoint.startswith("random:"):
-        return random_bundle(checkpoint.split(":", 1)[1], device=device, dtype=dtype)
+        return random_bundle(checkpoint.split(":", 1)[1], seed=seed, device=device, dtype=dtype)
     if os.path.isdir(checkpoint):
         if os.path.isfile(os.path.join(checkpoint, NATIVE_META)):
             return load_native(checkpoint, device=device, dtype=dtype)

@@ -33,6 +33,10 @@ design does about it.
 
 `route` is the one owner of the gate (which sites take which kernel) and
 `kernel_takes_head_dim` of the head widths the kernels have instances for.
+The JAX package decides the gate on the shapes it traces: a mesh-sharded
+batch at its global batch, a vmapped frame at its own. Inside
+`route_batch(n)` the UNet's sites route as if their batch were n, whatever
+share of it this process holds (parallel/, riffuse_audio_batch's mesh).
 
 `COUNTS.launches` counts K1 launches, `COUNTS.row_launches` K2 launches,
 `COUNTS.bwd_dkv_launches` / `COUNTS.bwd_dq_launches` the backward kernels'
@@ -48,6 +52,7 @@ by a hash of the source and the headers it includes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -65,8 +70,8 @@ import torch
 __all__ = [
     "attention", "row_attention", "attention_backward", "attention_reference",
     "attention_backward_reference", "build_kernels", "built_on_disk", "compare_to_plain",
-    "backward_delta", "compare_grads_to_plain", "kernel_takes_head_dim", "ptxas_instances", "route", "COUNTS",
-    "TOLERANCE", "GRAD_TOLERANCE",
+    "backward_delta", "compare_grads_to_plain", "kernel_takes_head_dim", "ptxas_instances", "route",
+    "route_batch", "routed_batch", "COUNTS", "TOLERANCE", "GRAD_TOLERANCE",
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -335,6 +340,29 @@ def route(batch: int, seq_q: int, head_dim: int, self_attention: bool) -> str:
     if seq_q >= ROW_SEQ_MIN and batch > ROW_BATCH_ABOVE:
         return "row" if seq_q % ROW_BLOCK_Q == 0 else "plain"
     return "flash" if seq_q >= FLASH_SEQ_MIN else "plain"
+
+
+_ROUTE = threading.local()
+
+
+@contextlib.contextmanager
+def route_batch(batch: int) -> T.Iterator[None]:
+    """Route the attention sites called in this thread, inside the block,
+    as if their batch were `batch` (the batch JAX would trace: a sharded
+    batch's global size, or one frame's 2 where JAX vmaps frames)."""
+    previous = getattr(_ROUTE, "batch", None)
+    _ROUTE.batch = int(batch)
+    try:
+        yield
+    finally:
+        _ROUTE.batch = previous
+
+
+def routed_batch(batch: int) -> int:
+    """The batch a site of `batch` rows routes at: route_batch's inside
+    its block, else its own."""
+    override = getattr(_ROUTE, "batch", None)
+    return batch if override is None else override
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> None:

@@ -1,7 +1,9 @@
 """
 Diffusion fine-tuning of the UNet on one device: the counterpart of
 riffusion_tpu/parallel/train.py's `DiffusionTrainer` (its dp/tp/sp mesh is
-not ported: multi-device training is later work).
+not ported: the sharded step is later work), and the tensor-parallel
+layout of the UNet's linear layers that the JAX trainer and its
+tensor-parallel server share (`param_spec`, `shard_params`).
 
 The objective is the JAX package's: sample t uniform in [0, 1000) and
 noise N(0, 1) per batch element, noise the clean latents (DDPM add_noise),
@@ -35,6 +37,7 @@ with no profiler running a span costs a few microseconds.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import typing as T
 from pathlib import Path
@@ -49,6 +52,75 @@ from riffusion_tpu_torch.models.unet import UNet2DCondition
 from riffusion_tpu_torch.util import torch_util
 
 Schedule = T.Callable[[int], float]
+
+# The JAX package's Megatron-style rule (riffusion_tpu/parallel/train.py):
+# column-split layers (the output dim over "model") feed head-wise or
+# elementwise work, so nothing is exchanged until the paired row-split
+# layer (the input dim over "model"), whose partial sums are all-reduced.
+# fc1 / fc2 / out_proj are CLIP's names.
+_COLUMN_SPLIT = ("to_q", "to_k", "to_v", "fc1", "linear_1")
+_ROW_SPLIT = ("to_out", "fc2", "linear_2", "out_proj", "proj_out")
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a tensor is cut over the "model" axis: along `dim` of its torch
+    layout, each of its `halves` equal parts cut alike (GEGLU's proj_in
+    holds [value | gate] and is cut half by half, so a rank's gate is the
+    gate of its value)."""
+
+    dim: int
+    halves: int = 1
+
+
+def param_spec(name: str, tensor: torch.Tensor) -> T.Optional[Split]:
+    """The tensor-parallel cut of one UNet (or CLIP) parameter, by its
+    state dict name, or None where it is replicated: the JAX package's
+    `param_spec` in torch's layout (a flax Dense kernel is (in, out), a
+    torch Linear weight (out, in)). Column-split weights (to_q, to_k, to_v,
+    linear_1, and the feed-forward's proj_in) cut dim 0, row-split ones
+    (to_out, linear_2, the feed-forward's proj_out) dim 1; column-split
+    biases dim 0. Convolutions (Transformer2D's 1x1 proj_in / proj_out
+    among them: 4-D), norms and embeddings stay whole. One difference in
+    storage: JAX keeps GEGLU proj_in's bias whole and GSPMD slices it where
+    it is added; here it is cut with its weight."""
+    parts = name.split(".")
+    module, leaf = (parts[-2] if len(parts) >= 2 else ""), parts[-1]
+    if leaf == "weight" and tensor.dim() == 2:
+        if module in _COLUMN_SPLIT or module.startswith("proj_in"):  # 2-D: the feed-forward's
+            return Split(0, 2 if module.startswith("proj_in") else 1)
+        if module in _ROW_SPLIT:
+            return Split(1)
+    if leaf == "bias" and tensor.dim() == 1:
+        if module in _COLUMN_SPLIT:
+            return Split(0)
+        if module == "proj_in" and len(parts) >= 3 and parts[-3] == "ff":
+            return Split(0, 2)
+    return None
+
+
+def shard_tensor(tensor: torch.Tensor, split: Split, rank: int, size: int) -> torch.Tensor:
+    """Rank `rank`'s slice of `tensor` cut `split` over `size` ranks."""
+    if tensor.shape[split.dim] % (split.halves * size):
+        raise ValueError(f"dim {split.dim} of {tuple(tensor.shape)} does not split into "
+                         f"{split.halves} x {size}")
+    parts = tensor.chunk(split.halves, dim=split.dim)
+    return torch.cat([p.chunk(size, dim=split.dim)[rank] for p in parts], dim=split.dim)
+
+
+def shard_params(module: nn.Module, mesh, axis: str = "model") -> T.Dict[str, torch.Tensor]:
+    """This rank's slice of each of `module`'s split parameters (by state
+    dict name), cut over the mesh axis `axis` by `param_spec`; the
+    replicated parameters are not in the result."""
+    from riffusion_tpu_torch.parallel.mesh import axis_size
+
+    size, rank = axis_size(mesh, axis), mesh.get_local_rank(axis)
+    out = {}
+    for name, tensor in module.state_dict().items():
+        split = param_spec(name, tensor)
+        if split is not None:
+            out[name] = shard_tensor(tensor, split, rank, size)
+    return out
 
 
 def compute_copy(master: UNet2DCondition, dtype: torch.dtype) -> UNet2DCondition:

@@ -13,7 +13,10 @@ eagerly, with the denoise loop as a Python loop over `schedulers.step`. A
 single request is a batch of one: `_generate` runs N riffuse requests with
 the UNet at batch 2N, `_txt2img_program` N prompts from pure noise, and
 both share the denoise loop, the VAE decode and the audio tail (codec,
-inverse mel, Griffin-Lim, int16).
+inverse mel, Griffin-Lim, int16). With a mesh, `riffuse_audio_batch` runs
+this rank's share of a data-parallel batch and gathers the clips
+(riffusion_tpu_torch/parallel/); a tensor-parallel request swaps in a
+split copy of the UNet (parallel/tp_serving.py).
 
 Randomness. A request draws five tensors: the VAE reparameterization eps,
 the two seed noises `noise_a` / `noise_b`, and the two uniform Griffin-Lim
@@ -59,6 +62,7 @@ from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.external import prompt_weighting
 from riffusion_tpu_torch.models.weights import ModelBundle, load_bundle
+from riffusion_tpu_torch.ops import attention as attention_ops
 from riffusion_tpu_torch.ops import codec
 from riffusion_tpu_torch.spectrogram_converter import SpectrogramConverter
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
@@ -194,13 +198,18 @@ def _embed_plain(tokenizer, encode: T.Callable, disk: _DiskCachedEmbeddings,
     return disk("plain", text, compute)
 
 
+#: The 77-token chunks a weighted prompt may span.
+_WEIGHTED_MULTIPLES = 3
+
+
 def _embed_weighted(tokenizer, encode: T.Callable, disk: _DiskCachedEmbeddings,
                     text: str) -> torch.Tensor:
     """Attention-weighted embedding (`(word:1.5)` syntax), (1, L, hidden)."""
 
     def compute() -> torch.Tensor:
         emb, _ = prompt_weighting.get_weighted_text_embeddings(
-            encode, tokenizer, text, uncond_prompt=None, max_embeddings_multiples=3
+            encode, tokenizer, text, uncond_prompt=None,
+            max_embeddings_multiples=_WEIGHTED_MULTIPLES,
         )
         return emb
 
@@ -235,6 +244,10 @@ class RiffusionPipeline:
             _embed_plain, self.tokenizer, self._encode_77, self._embed_disk_cached))
         self.embed_text_weighted = functools.lru_cache(maxsize=256)(functools.partial(
             _embed_weighted, self.tokenizer, self._encode_77, self._embed_disk_cached))
+        # embed_text_weighted's token length, from the tokenizer alone
+        self._weighted_length = functools.lru_cache(maxsize=256)(functools.partial(
+            prompt_weighting.weighted_embedding_length, self.tokenizer,
+            max_embeddings_multiples=_WEIGHTED_MULTIPLES))
         self._converters: T.Dict[SpectrogramParams, SpectrogramConverter] = {}
         # One program is queued on the device at a time (see _dispatch).
         self._dispatch_lock = threading.Lock()
@@ -243,19 +256,28 @@ class RiffusionPipeline:
     def load_checkpoint(
         cls,
         checkpoint: str,
+        use_traced_unet: bool = True,
+        channels_last: bool = False,
         dtype: T.Optional[torch.dtype] = None,
         device: str = "cuda",
+        local_files_only: bool = True,
+        cache_dir: T.Optional[str] = None,
         scheduler: T.Optional[str] = None,
     ) -> "RiffusionPipeline":
-        """Load from a checkpoint spec (models/weights.py:load_bundle).
-        dtype=None is bfloat16 on CUDA; the CPU always runs float32.
-        `scheduler` replaces the bundle's default sampler (checked here)."""
+        """Load from a checkpoint spec (models/weights.py:load_bundle), with
+        the JAX package's parameters in its order. `use_traced_unet`,
+        `channels_last`, `local_files_only` and `cache_dir` are accepted for
+        the reference's callers and dropped, as the JAX package drops them
+        (nothing is traced or downloaded). dtype=None is bfloat16 on CUDA;
+        the CPU always runs float32. `scheduler` replaces the bundle's
+        default sampler (checked here)."""
+        del use_traced_unet, channels_last, local_files_only, cache_dir
         resolved = torch_util.check_device(device)
         if resolved.type == "cpu":
             dtype = torch.float32
         elif dtype is None:
             dtype = torch.bfloat16
-        bundle = load_bundle(checkpoint, device=resolved, dtype=dtype)
+        bundle = load_bundle(checkpoint, dtype, device=resolved)
         if scheduler:
             sched.make_plan(scheduler, 50)  # raises on an unknown name or option
             bundle.scheduler_name = scheduler
@@ -309,6 +331,13 @@ class RiffusionPipeline:
         uncond = self._uncond_embedding(negative, text_embedding.shape[1])
         return uncond.to(text_embedding.dtype), text_embedding
 
+    def _embedding_length(self, inputs: InferenceInput, use_reweighting: bool) -> int:
+        """The token length of _embedding_pair(inputs)'s embeddings, from the
+        tokenizer alone (no text encoder runs)."""
+        if not use_reweighting:
+            return self.tokenizer.model_max_length
+        return max(self._weighted_length(p.prompt) for p in (inputs.start, inputs.end))
+
     def text_embeddings(self, inputs: InferenceInput, use_reweighting: bool = True) -> torch.Tensor:
         """(2, L, hidden): the unconditional (or negative) embedding and the
         alpha-interpolation of the start and end prompts' embeddings."""
@@ -337,12 +366,16 @@ class RiffusionPipeline:
         noise: T.Optional[torch.Tensor],
         ancestral: T.Optional[torch.Tensor],
         blend: T.Optional[T.Callable[[int, torch.Tensor], torch.Tensor]] = None,
+        unet: T.Optional[torch.nn.Module] = None,
     ) -> torch.Tensor:
         """The classifier-free-guidance denoise loop over N latents: one UNet
         call at batch 2N ([unconditionals..., conditionals...]) per plan
         step, with per-item guidance (N, 1, 1, 1) in fp32. `ancestral` is an
         ancestral sampler's per-step noise, (S, N, C, h, w); `blend(i,
-        latents)` edits the latents before step i (MagicMix)."""
+        latents)` edits the latents before step i (MagicMix); `unet`
+        replaces the pipeline's (a tensor-parallel copy,
+        parallel/tp_serving.py)."""
+        unet = self.unet if unet is None else unet
         n = latents.shape[0]
         state = sched.init_state(plan, latents.shape, latents.dtype, self.device,
                                  ancestral=ancestral)
@@ -351,7 +384,7 @@ class RiffusionPipeline:
                 latents = blend(i, latents)
             lat_in = sched.scale_model_input(plan, torch.cat([latents, latents], dim=0), i)
             t = torch.full((2 * n,), int(plan.timesteps[i]), dtype=torch.int64, device=self.device)
-            eps = self.unet(lat_in, t, text_emb)
+            eps = unet(lat_in, t, text_emb)
             eps_u, eps_t = eps.chunk(2, dim=0)
             eps = eps_u + guidance * (eps_t - eps_u)
             latents, state = sched.step(plan, state, i, eps.to(latents.dtype), latents)
@@ -370,13 +403,27 @@ class RiffusionPipeline:
         fused_params: T.Optional[SpectrogramParams],
         noises: T.Optional[T.Sequence[NoiseSource]],
         scheduler: T.Optional[str],
+        *,
+        share: T.Optional[T.Tuple[int, int]] = None,
+        unet: T.Optional[torch.nn.Module] = None,
+        routed_batch: T.Optional[int] = None,
+        strength: T.Optional[float] = None,
     ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
         """N requests as one program on the device: the (N, H, W, 3) uint8
         images and, with `fused_params`, the (N, C, L) int16 waveforms.
         `init_images` holds one shared seed image (encoded once) or one per
         request; one mask applies to every request. Request i draws its
         noise from noises[i] with the single request's names and shapes, so
-        its result does not depend on its batch position."""
+        its result does not depend on its batch position.
+
+        With `share` (start, stop), only those requests run (a rank's share
+        of a data-parallel batch), as they would in the whole batch: the
+        start step comes from the whole batch's strengths, the text is
+        padded to its longest prompt (its length from the tokenizer: only
+        the share's text is encoded), and the attention sites route at its
+        UNet batch, 2N. `unet` replaces the pipeline's UNet;
+        `routed_batch` the UNet batch the sites route at, and `strength`
+        the batch's denoising strength (FrameSweep passes both)."""
         n = len(inputs_list)
         steps = {inp.num_inference_steps for inp in inputs_list}
         if len(steps) != 1:
@@ -394,26 +441,35 @@ class RiffusionPipeline:
                 "batch by strength or use serving.DynamicBatcher"
             )
         plan, noise_timestep = self._plan(
-            scheduler or self.bundle.scheduler_name, steps.pop(), float(np.mean(strengths))
+            scheduler or self.bundle.scheduler_name, steps.pop(),
+            float(np.mean(strengths)) if strength is None else strength,
         )
         dev = self.device
+        if noises is not None and len(noises) != n:
+            raise ValueError(f"need one noise source per request: {len(noises)} for {n}")
+        start, stop = share if share is not None else (0, n)
+        rows = slice(start, stop)
+        with record_function("riffusion.text"):
+            seq = max(self._embedding_length(inp, use_reweighting) for inp in inputs_list)
+            inputs_list = inputs_list[rows]
+            pairs = [self._embedding_pair(inp, use_reweighting) for inp in inputs_list]
+        if len(init_images) > 1:
+            init_images = init_images[rows]
         if noises is None:
             noises = [GeneratorNoise(inp.start.seed, inp.end.seed, dev) for inp in inputs_list]
-        if len(noises) != n:
-            raise ValueError(f"need one noise source per request: {len(noises)} for {n}")
+        else:
+            noises = noises[rows]
+        routed_batch = 2 * n if routed_batch is None else routed_batch
+        n = len(inputs_list)
         alphas = [float(inp.alpha) for inp in inputs_list]
         guidance = torch.tensor(
             [inp.start.guidance * (1.0 - a) + inp.end.guidance * a
              for inp, a in zip(inputs_list, alphas)],
             dtype=torch.float32, device=dev,
         ).view(n, 1, 1, 1)
-
-        with record_function("riffusion.text"):
-            pairs = [self._embedding_pair(inp, use_reweighting) for inp in inputs_list]
-            seq = max(cond.shape[1] for _, cond in pairs)
-            text_emb = torch.cat(
-                [self._pad_seq(u, seq) for u, _ in pairs] + [self._pad_seq(c, seq) for _, c in pairs]
-            )
+        text_emb = torch.cat(
+            [self._pad_seq(u, seq) for u, _ in pairs] + [self._pad_seq(c, seq) for _, c in pairs]
+        )
 
         arrays = [preprocess_image(im) for im in init_images]
         if len({a.shape for a in arrays}) != 1:
@@ -445,9 +501,10 @@ class RiffusionPipeline:
             ancestral = torch.cat(
                 [nz(ANCESTRAL, (plan.num_steps,) + shape, dev) for nz in noises], dim=1
             )
-        with record_function("riffusion.denoise"):
+        with record_function("riffusion.denoise"), attention_ops.route_batch(routed_batch):
             latents = self._denoise(
-                plan, latents, text_emb, guidance, mask, init_latents, seed_noise, ancestral
+                plan, latents, text_emb, guidance, mask, init_latents, seed_noise, ancestral,
+                unet=unet,
             )
         return self._decode_and_audio(latents, fused_params, noises)
 
@@ -486,13 +543,15 @@ class RiffusionPipeline:
             )
             return images_u8, _waveform_to_int16(waveforms.view(n, channels, -1))
 
-    def _dispatch(self, *args) -> T.Callable[[], T.Tuple[np.ndarray, T.Optional[np.ndarray]]]:
-        """`_dispatch_program` of `_generate(*args)`."""
-        return self._dispatch_program(self._generate, *args)
+    def _dispatch(
+        self, *args, **kwargs
+    ) -> T.Callable[[], T.Tuple[np.ndarray, T.Optional[np.ndarray]]]:
+        """`_dispatch_program` of `_generate(*args, **kwargs)`."""
+        return self._dispatch_program(self._generate, *args, **kwargs)
 
     @torch.inference_mode()
     def _dispatch_program(
-        self, program: T.Callable, *args
+        self, program: T.Callable, *args, **kwargs
     ) -> T.Callable[[], T.Tuple[np.ndarray, T.Optional[np.ndarray]]]:
         """Queue `program(*args)` on the device and the copies of its
         results (images, waveforms or None) to the host; return a function
@@ -508,7 +567,7 @@ class RiffusionPipeline:
         device holds one program's memory at a time and the kernel counters
         (ops.attention.COUNTS) count one program's launches together."""
         with self._dispatch_lock:
-            outputs = program(*args)
+            outputs = program(*args, **kwargs)
             if self.device.type != "cuda":
                 return lambda: tuple(None if x is None else x.numpy() for x in outputs)
             host = tuple(
@@ -587,6 +646,7 @@ class RiffusionPipeline:
         params: T.Optional[SpectrogramParams] = None,
         use_reweighting: bool = True,
         apply_filters: bool = True,
+        mesh: T.Optional[T.Any] = None,
         async_dispatch: bool = False,
         mask_image: T.Optional[Image.Image] = None,
         scheduler: T.Optional[str] = None,
@@ -602,28 +662,65 @@ class RiffusionPipeline:
         one mask for every request; `noises` gives each request its noise
         source (default: GeneratorNoise of its seeds).
 
+        With `mesh` (a parallel.mesh DeviceMesh with a "data" axis) the
+        batch is data-parallel: every rank of the mesh calls this with the
+        same arguments, runs its contiguous share of the requests (ranks
+        that share a data index run the same share) with each request's own
+        noise source, and the images and waveforms are gathered over the
+        "data" axis, so every rank returns all N results, as the JAX
+        package's single controller does. N must be a multiple of the
+        "data" axis (ValueError otherwise).
+
         With async_dispatch=True the work is queued and a zero-argument
-        `finalize` is returned that waits for this batch's results and
-        builds them, so a caller can queue the next batch first."""
+        `finalize` is returned that waits for this batch's results (and,
+        with a mesh, gathers them: every rank must call it) and builds
+        them, so a caller can queue the next batch first."""
         params = params or SpectrogramParams()
         images = [init_image] if isinstance(init_image, Image.Image) else list(init_image)
         if len(images) not in (1, len(inputs_list)):
             raise ValueError(f"need one init image or {len(inputs_list)}, got {len(images)}")
+        share = None
+        if mesh is not None:
+            from riffusion_tpu_torch.parallel import mesh as mesh_mod
+
+            self._check_mesh(mesh)
+            share = mesh_mod.data_share(mesh, len(inputs_list))
         wait = self._dispatch(
-            inputs_list, images, mask_image, use_reweighting, params, noises, scheduler
+            inputs_list, images, mask_image, use_reweighting, params, noises, scheduler,
+            share=share,
         )
 
         def finalize() -> T.List[T.Tuple[Image.Image, AudioSegment]]:
             images_np, waveforms_np = wait()
-            results = []
-            for image_np, waveform_np in zip(images_np, waveforms_np):
-                segment = AudioSegment(waveform_np.T, params.sample_rate)
-                if apply_filters:
-                    segment = audio_util.apply_filters(segment, compression=False)
-                results.append((Image.fromarray(image_np, mode="RGB"), segment))
-            return results
+            if mesh is not None:
+                images_np, waveforms_np = (
+                    mesh_mod.gather_rows(torch.from_numpy(x).to(self.device), mesh).cpu().numpy()
+                    for x in (images_np, waveforms_np)
+                )
+            return self._results(images_np, waveforms_np, params, apply_filters)
 
         return finalize if async_dispatch else finalize()
+
+    def _check_mesh(self, mesh: T.Any) -> None:
+        """A mesh's collectives run on the pipeline's device type."""
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve a pipeline on "
+                             f"{self.device}")
+
+    @staticmethod
+    def _results(
+        images_np: np.ndarray, waveforms_np: np.ndarray, params: SpectrogramParams,
+        apply_filters: bool,
+    ) -> T.List[T.Tuple[Image.Image, AudioSegment]]:
+        """(PIL image, AudioSegment) per row of a program's uint8 images and
+        int16 (N, C, L) waveforms, the filters applied on request."""
+        results = []
+        for image_np, waveform_np in zip(images_np, waveforms_np):
+            segment = AudioSegment(waveform_np.T, params.sample_rate)
+            if apply_filters:
+                segment = audio_util.apply_filters(segment, compression=False)
+            results.append((Image.fromarray(image_np, mode="RGB"), segment))
+        return results
 
     # --------------------------------------------------------- txt2img/img2img
 
@@ -699,13 +796,7 @@ class RiffusionPipeline:
         )()
         if waveforms_np is None:
             return [(Image.fromarray(im, mode="RGB"), None) for im in images_np]
-        results: T.List[T.Tuple[Image.Image, T.Optional[AudioSegment]]] = []
-        for image_np, waveform_np in zip(images_np, waveforms_np):
-            segment = AudioSegment(waveform_np.T, params.sample_rate)
-            if apply_filters:
-                segment = audio_util.apply_filters(segment, compression=False)
-            results.append((Image.fromarray(image_np, mode="RGB"), segment))
-        return results
+        return self._results(images_np, waveforms_np, params, apply_filters)
 
     def txt2img(
         self,

@@ -325,6 +325,7 @@ def create_app(
     port: int = 3013,
     seed_images_dir: T.Union[str, Path] = SEED_IMAGES_DIR,
     scheduler: T.Optional[str] = None,
+    no_traced_unet: bool = False,
     warmup: bool = False,
     warmup_steps: int = 50,
     dynamic_batching: bool = False,
@@ -345,7 +346,8 @@ def create_app(
         raise ValueError("--ssl-certificate needs --ssl-key")
     global PIPELINE
     PIPELINE = RiffusionPipeline.load_checkpoint(
-        checkpoint=checkpoint, device=device, scheduler=scheduler
+        checkpoint=checkpoint, use_traced_unet=not no_traced_unet, device=device,
+        scheduler=scheduler,
     )
     fast = serving_preset == "fast"
     if warmup:
@@ -411,6 +413,8 @@ def parse_args(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
     parser.add_argument("--scheduler", default=None,
                         help="default sampler (else the checkpoint's), e.g. pndm, ddim, "
                              "lms, euler, euler_a, dpmpp, unipc_k:rho=2")
+    parser.add_argument("--no-traced-unet", action="store_true",
+                        help="accepted for the reference's command line; no effect")
     parser.add_argument("--warmup", action="store_true",
                         help="run the standard request (and each batch size) at startup")
     parser.add_argument("--warmup-steps", type=int, default=50)
@@ -435,6 +439,7 @@ def parse_args(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
         port=args.port,
         seed_images_dir=args.seed_images_dir,
         scheduler=args.scheduler,
+        no_traced_unet=args.no_traced_unet,
         warmup=args.warmup,
         warmup_steps=args.warmup_steps,
         dynamic_batching=args.dynamic_batching,

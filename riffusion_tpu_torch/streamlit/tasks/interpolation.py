@@ -2,16 +2,20 @@
 Interpolation task, the counterpart of riffusion_tpu/streamlit/tasks/
 interpolation.py: latent-space walk between two prompts — N alphas with
 optional power-curve shaping, every alpha in one batched program, and a
-zero-crossfade concat of the clips. The JAX package shards that batch over
-a device mesh when it has several devices; here it runs on the one card.
+zero-crossfade concat of the clips. Run under a process group of several
+ranks (torchrun, parallel/mesh.py), the batch is split data-parallel over
+a ("data",) mesh of every rank when the alpha count divides by it, as the
+JAX package shards it over its devices; alone, it runs on the one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import typing as T
 
 import numpy as np
+import torch
 from PIL import Image
 
 from riffusion_tpu_torch.audio.segment import AudioSegment
@@ -47,15 +51,16 @@ def run_interpolation_batch(
     checkpoint: T.Optional[str] = None,
     use_sharded_sweep: bool = True,
 ) -> T.Tuple[T.List[Image.Image], T.List[AudioSegment]]:
-    """Generate all frames as one batch, images and audio together. Returns
-    (images, segments). `use_sharded_sweep` is accepted for the JAX
-    package's callers; the batch runs unsharded on the one device."""
+    """Generate all frames as one batch, images and audio together (sharded
+    over the ranks when a mesh is useful, see sweep_mesh). Returns (images,
+    segments)."""
     from riffusion_tpu_torch.streamlit import util as streamlit_util
 
     pipeline = streamlit_util.load_riffusion_checkpoint(
         checkpoint=checkpoint or streamlit_util.DEFAULT_CHECKPOINT, device=device
     )
     alphas = shaped_alphas(spec.num_frames, spec.alpha_power)
+    mesh = sweep_mesh(len(alphas), device) if use_sharded_sweep else None
 
     reqs = [
         InferenceInput(
@@ -77,10 +82,34 @@ def run_interpolation_batch(
     params = SpectrogramParams(
         min_frequency=0, max_frequency=10000, num_frequencies=num_frequencies
     )
-    results = pipeline.riffuse_audio_batch(reqs, init_image, params=params)
+    sharded = {} if mesh is None else {"mesh": mesh}
+    results = pipeline.riffuse_audio_batch(reqs, init_image, params=params, **sharded)
     images = [img for img, _ in results]
     segments = [seg for _, seg in results]
     return images, segments
+
+
+def sweep_mesh(num_alphas: int, device: str = "cuda"):
+    """The ("data",) mesh of every rank, on `device`'s type, when a process
+    group of more than one rank is running and `num_alphas` divides by its
+    size, else None (the JAX page's condition, with the world size for the
+    device count)."""
+    import torch.distributed as dist
+
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return None
+    if num_alphas % dist.get_world_size():
+        return None
+    return _data_mesh(dist.get_world_size(), torch.device(device).type)
+
+
+@functools.lru_cache(maxsize=None)
+def _data_mesh(world_size: int, device_type: str):
+    """One ("data",) mesh per world and device type: a mesh makes process
+    groups, which live as long as the process."""
+    from riffusion_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axis_names=("data",), device_type=device_type)
 
 
 def concat_segments(segments: T.Sequence[AudioSegment]) -> AudioSegment:

@@ -95,10 +95,12 @@ def load_riffusion_checkpoint(
     no_traced_unet: bool = False,
     device: str = "cuda",
 ) -> RiffusionPipeline:
-    """Load (cached) the shared pipeline. `no_traced_unet` is accepted for
-    the reference's call sites and has no effect (the JAX package ignores it
-    too)."""
-    return RiffusionPipeline.load_checkpoint(checkpoint=checkpoint, device=device)
+    """Load (cached) the shared pipeline. `no_traced_unet` reaches
+    load_checkpoint's `use_traced_unet`, as in the JAX package, which drops
+    it."""
+    return RiffusionPipeline.load_checkpoint(
+        checkpoint=checkpoint, use_traced_unet=not no_traced_unet, device=device
+    )
 
 
 # The reference kept three separate diffusers pipelines; one pipeline covers

@@ -101,10 +101,13 @@ def build_latent_dataset(
     max_clips_per_file: int = 64,
     encode_batch: int = 8,
     shard_size: int = 256,
+    seed: int = 0,
 ) -> DatasetMeta:
     """Precompute (VAE moments, prompt index) shards from a directory of
     audio with a loaded port `RiffusionPipeline` (its VAE, CLIP and device).
-    5120 ms is 512 frames of 10 ms, the 512x512 spectrogram geometry."""
+    5120 ms is 512 frames of 10 ms, the 512x512 spectrogram geometry.
+    `seed` is reserved and unused, as in the JAX package."""
+    del seed
     from riffusion_tpu_torch.riffusion_pipeline import preprocess_image
     from riffusion_tpu_torch.spectrogram_image_converter import SpectrogramImageConverter
 

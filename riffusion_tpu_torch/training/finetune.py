@@ -121,7 +121,7 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
 
     # fp32 master weights; the compute dtype follows the device
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    bundle = load_bundle(cfg.checkpoint, device=device, dtype=torch.float32)
+    bundle = load_bundle(cfg.checkpoint, torch.float32, device=device)
     trainer = DiffusionTrainer(device=device, learning_rate=lr_schedule(cfg),
                                weight_decay=cfg.weight_decay, dtype=compute_dtype)
     trainer.init_from(bundle.unet)

@@ -190,8 +190,9 @@ def test_streamlit_counter_and_cached_loaders(monkeypatch):
 
 
 def test_load_riffusion_checkpoint_takes_no_traced_unet(monkeypatch):
-    """no_traced_unet is accepted and has no effect; the port's loader is
-    not given it."""
+    """no_traced_unet is accepted and reaches the loader as
+    use_traced_unet, as the JAX package's util passes it (the loader drops
+    it)."""
     from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 
     seen = []
@@ -200,7 +201,8 @@ def test_load_riffusion_checkpoint_takes_no_traced_unet(monkeypatch):
     load = util.load_riffusion_checkpoint.__wrapped__
     assert load("random:tiny", no_traced_unet=True, device="cpu") == "pipe"
     assert load("random:tiny", device="cpu") == "pipe"
-    assert seen == [{"checkpoint": "random:tiny", "device": "cpu"}] * 2
+    assert seen == [{"checkpoint": "random:tiny", "use_traced_unet": use, "device": "cpu"}
+                    for use in (False, True)]
 
 
 # ------------------------------------------------- splitter and fft_util
