@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import inspect
+import os
 import random
 import time
 import typing as T
@@ -413,49 +414,68 @@ def finetune(
     seed: int = 0,
     device: str = "cuda",
 ) -> None:
-    """Fine-tune the UNet on a directory of audio, then export it."""
+    """Fine-tune the UNet on a directory of audio, then export it. Under
+    torchrun every rank trains its share of a sharded step (run_finetune's
+    mesh); rank 0 builds the dataset and reports."""
+    import torch.distributed as dist
+
+    from riffusion_tpu_torch.parallel.mesh import backend_for, init_distributed
     from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
     from riffusion_tpu_torch.training import FinetuneConfig, build_latent_dataset, run_finetune
 
     if not audio_dir and not dataset_dir:
         raise SystemExit("finetune: pass --audio-dir and/or --dataset-dir")
-    dataset_path = Path(dataset_dir) if dataset_dir else Path(output_dir) / "dataset"
-    if not (dataset_path / "meta.json").exists():
-        if not audio_dir:
+    sharded = "RANK" in os.environ and "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if sharded:
+        ranks_here = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+        init_distributed(backend_for(device, ranks_here))
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if rank0 else (lambda *args, **kwargs: None)
+    try:
+        dataset_path = Path(dataset_dir) if dataset_dir else Path(output_dir) / "dataset"
+        built = (dataset_path / "meta.json").exists()
+        if not built and not audio_dir:
             raise SystemExit(f"no dataset at {dataset_path} and no --audio-dir given")
-        print(f"Building latent dataset from {audio_dir} into {dataset_path} ...")
-        pipeline = RiffusionPipeline.load_checkpoint(checkpoint, device=device)
-        meta = build_latent_dataset(
-            pipeline,
-            audio_dir,
-            dataset_path,
-            params=SpectrogramParams(num_frequencies=num_frequencies),
-            prompts_json=prompts_json or None,
-            default_prompt=prompt or None,
-            clip_duration_ms=clip_duration_ms,
-        )
-        print(f"Dataset: {meta.num_clips} clips, {len(meta.prompts)} unique prompts")
-        del pipeline  # release device memory before training starts
+        if rank0 and not built:
+            say(f"Building latent dataset from {audio_dir} into {dataset_path} ...")
+            pipeline = RiffusionPipeline.load_checkpoint(checkpoint, device=device)
+            meta = build_latent_dataset(
+                pipeline,
+                audio_dir,
+                dataset_path,
+                params=SpectrogramParams(num_frequencies=num_frequencies),
+                prompts_json=prompts_json or None,
+                default_prompt=prompt or None,
+                clip_duration_ms=clip_duration_ms,
+            )
+            say(f"Dataset: {meta.num_clips} clips, {len(meta.prompts)} unique prompts")
+            del pipeline  # release device memory before training starts
+        if dist.is_initialized():
+            dist.barrier()  # the other ranks wait for rank 0's dataset
 
-    stats = run_finetune(
-        FinetuneConfig(
-            checkpoint=checkpoint,
-            dataset_dir=str(dataset_path),
-            output_dir=output_dir,
-            steps=steps,
-            batch_size=batch_size,
-            learning_rate=learning_rate,
-            ema_decay=ema_decay,
-            checkpoint_every=checkpoint_every,
-            seed=seed,
-            device=device,
+        stats = run_finetune(
+            FinetuneConfig(
+                checkpoint=checkpoint,
+                dataset_dir=str(dataset_path),
+                output_dir=output_dir,
+                steps=steps,
+                batch_size=batch_size,
+                learning_rate=learning_rate,
+                ema_decay=ema_decay,
+                checkpoint_every=checkpoint_every,
+                seed=seed,
+                device=device,
+            ),
+            log=say,
         )
-    )
-    print(
-        f"Fine-tune done: {stats['steps']} steps, loss "
-        f"{stats['first_loss']:.5f} -> {stats['final_loss']:.5f}; "
-        f"export at {stats['export_dir']}"
-    )
+        say(
+            f"Fine-tune done: {stats['steps']} steps, loss "
+            f"{stats['first_loss']:.5f} -> {stats['final_loss']:.5f}; "
+            f"export at {stats['export_dir']}"
+        )
+    finally:
+        if sharded:
+            dist.destroy_process_group()
 
 
 # ----------------------------------------------------------------- dispatch

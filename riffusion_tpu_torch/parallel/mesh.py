@@ -68,6 +68,14 @@ def init_distributed(
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def backend_for(device: str, ranks_here: int) -> str:
+    """nccl where each of this host's `ranks_here` ranks has a card of its
+    own, gloo where ranks share cards (NCCL refuses two ranks on one card)
+    or run on the CPU."""
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    return "nccl" if ranks_here <= cards else "gloo"
+
+
 def make_mesh(
     shape: T.Optional[T.Tuple[int, ...]] = None,
     axis_names: T.Tuple[str, ...] = ("data", "model"),

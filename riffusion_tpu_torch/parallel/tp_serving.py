@@ -19,6 +19,14 @@ fp64 modules), adding the bias once, after the sum. Convolutions and norms
 run whole on every rank. The attention sites call the same kernels, at the
 rank's head count: K1 at (2, 4096, 4*40) and (2, 1024, 4*80) at tp 2.
 
+`tensor_parallel_unet` is the one cut of the server and the sharded trainer
+(parallel/train.py, `trainable=True`). Its exchanges are differentiable
+(parallel/comm.py): each input of a column-split layer is copied over
+"model" (one copy per attention, before to_q and, in self-attention, to_k
+and to_v; one before the feed-forward's proj_in and the time embedding's
+linear_1), whose backward sums the input's gradient over the ranks; each
+row-split sum is reduced, whose backward passes the gradient unchanged.
+
 Every rank of the mesh calls `riffuse_audio_tp` with the same arguments
 (its noise draws are the same on every rank) and returns the same clip.
 """
@@ -37,8 +45,10 @@ from PIL import Image
 from torch import nn
 
 from riffusion_tpu_torch.datatypes import InferenceInput
-from riffusion_tpu_torch.models.layers import Attention, precise
-from riffusion_tpu_torch.parallel.mesh import axis_size
+from riffusion_tpu_torch.models.layers import Attention
+from riffusion_tpu_torch.parallel import comm
+from riffusion_tpu_torch.parallel.comm import MeshAxis
+from riffusion_tpu_torch.parallel.seq import ParallelAttention, swap_class
 from riffusion_tpu_torch.parallel.train import param_spec, shard_params
 
 if T.TYPE_CHECKING:  # pragma: no cover
@@ -55,54 +65,73 @@ _TP_CACHE: "weakref.WeakKeyDictionary[T.Any, T.Dict[T.Any, nn.Module]]" = (
 )
 
 
-class RowParallelLinear(nn.Module):
+class RowParallelLinear(nn.Linear):
     """A Linear layer cut along its input dim: this rank's columns of the
-    weight, the whole bias. The rank's partial product is all-reduced over
-    `group` in precise(dtype) and the bias added once, after the sum."""
+    weight, the whole bias. The rank's partial product is summed over the
+    axis in precise(dtype) (comm.reduce_from, differentiable) and the bias
+    added once, after the sum."""
 
-    def __init__(self, weight: torch.Tensor, bias: T.Optional[torch.Tensor], group):
-        super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
-        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
-        self.group = group
+    def __init__(self, weight: torch.Tensor, bias: T.Optional[torch.Tensor], axis: MeshAxis,
+                 trainable: bool = False):
+        nn.Module.__init__(self)  # the slices are given: nn.Linear would allocate its own
+        self.out_features, self.in_features = weight.shape
+        self.weight = nn.Parameter(weight, requires_grad=trainable)
+        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=trainable)
+        self.axis = axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p = precise(x.dtype)
-        out = F.linear(x, self.weight).to(p)
-        dist.all_reduce(out, group=self.group)
+        out = comm.reduce_from(F.linear(x, self.weight), self.axis)
         if self.bias is not None:
-            out = out + self.bias.to(p)
+            out = out + self.bias.to(out.dtype)
         return out.to(x.dtype)
 
 
-def tensor_parallel_unet(unet: nn.Module, mesh, axis: str = "model") -> nn.Module:
+class ColumnParallelLinear(nn.Linear):
+    """A column-split Linear layer outside attention (the feed-forward's
+    proj_in, the time embedding's linear_1): its input copied over the axis
+    first (comm.copy_to), so that the input's gradient is summed over the
+    ranks' columns."""
+
+    axis: MeshAxis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(comm.copy_to(x, self.axis))
+
+
+def tensor_parallel_unet(unet: nn.Module, mesh, axis: str = "model",
+                         trainable: bool = False) -> nn.Module:
     """A copy of `unet` cut over the mesh axis `axis` by param_spec: the
     column-split Linear layers hold this rank's slices, the row-split ones
-    become RowParallelLinear, every Attention holds num_heads / tp heads.
-    Raises where a head count does not divide by tp."""
-    tp = axis_size(mesh, axis)
-    group = mesh.get_group(axis)
+    become RowParallelLinear, every Attention (a seq.ParallelAttention)
+    holds num_heads / tp heads and copies its input over the axis. The
+    server's copy is frozen; with `trainable` the cut parameters take
+    gradients (the sharded trainer's masters). Raises where a head count
+    does not divide by tp."""
+    tp_axis = MeshAxis.of(mesh, axis)
     shards = shard_params(unet, mesh, axis)
     work = copy.deepcopy(unet)
     for name, module in list(work.named_modules()):
         if isinstance(module, Attention):
-            if module.num_heads % tp:
+            if module.num_heads % tp_axis.size:
                 raise ValueError(f"{name} has {module.num_heads} heads, which do not split "
-                                 f"over {tp} ranks")
-            module.num_heads //= tp
+                                 f"over {tp_axis.size} ranks")
+            module.num_heads //= tp_axis.size
+            swap_class(module, ParallelAttention, model=tp_axis)
         if not isinstance(module, nn.Linear) or f"{name}.weight" not in shards:
             continue
         weight = shards[f"{name}.weight"]
+        parent, _, child = name.rpartition(".")
         if param_spec(f"{name}.weight", module.weight).dim == 1:  # row-split
-            parent, _, child = name.rpartition(".")
             setattr(work.get_submodule(parent), child,
-                    RowParallelLinear(weight, module.bias, group))
-        else:
-            module.weight = nn.Parameter(weight, requires_grad=False)
-            if module.bias is not None:
-                module.bias = nn.Parameter(shards[f"{name}.bias"], requires_grad=False)
-            module.out_features = weight.shape[0]
-    return work.eval()
+                    RowParallelLinear(weight, module.bias, tp_axis, trainable))
+            continue
+        module.weight = nn.Parameter(weight, requires_grad=trainable)
+        if module.bias is not None:
+            module.bias = nn.Parameter(shards[f"{name}.bias"], requires_grad=trainable)
+        module.out_features = weight.shape[0]
+        if not isinstance(work.get_submodule(parent), Attention):  # attention copies its input
+            swap_class(module, ColumnParallelLinear, axis=tp_axis)
+    return work.train(trainable)
 
 
 def _tp_unet(pipeline: "RiffusionPipeline", mesh) -> nn.Module:

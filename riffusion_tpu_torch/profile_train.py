@@ -4,7 +4,15 @@ full SD v1 width (random:full, fp32 masters, bf16 compute), UNet batch 4 on
 64x64x4 latents with (4, 77, 768) contexts, AdamW and an EMA update as
 `run_finetune` runs them.
 
-    python -m riffusion_tpu_torch.profile_train [--out result.json]
+    python -m riffusion_tpu_torch.profile_train [--out result.json] [--mesh D M S]
+
+With --mesh the step is the sharded one (parallel/train.py
+DiffusionTrainer(mesh=)) over a ("data", "model", "seq") mesh of D x M x S
+ranks spawned on this host (parallel.mesh.spawn_world: nccl with a card per
+rank, gloo where ranks share a card), each calling it with the same batch;
+rank 0 reports, and its profile also gives each riffusion.train.* span's
+host time (a gloo all-reduce runs on the host: its device time is only the
+copies).
 
 Prints, and writes as JSON with --out:
 - the card's name and power limit;
@@ -43,30 +51,56 @@ ATTENTION_KERNELS = {"k1_forward": "attention_fwd_bf16_kernel",
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None, help="write the result as JSON here")
+    parser.add_argument("--mesh", type=int, nargs=3, default=None, metavar=("D", "M", "S"),
+                        help="profile the sharded step over a (data, model, seq) mesh")
     args = parser.parse_args(argv)
 
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: torch sees no CUDA device")
+    if args.mesh is None:
+        result = _profile(0, 1, None)
+    else:
+        from riffusion_tpu_torch.parallel.mesh import backend_for, spawn_world
+
+        world = args.mesh[0] * args.mesh[1] * args.mesh[2]
+        result = spawn_world(_profile, world, (tuple(args.mesh),),
+                             backend=backend_for("cuda", world))[0]
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+def _profile(rank: int, world: int, mesh_shape) -> dict:
+    """The profile on this rank (every rank of a mesh steps; rank 0 alone
+    samples the clocks, profiles, prints and returns the result)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from riffusion_tpu_torch.models.weights import random_bundle
     from riffusion_tpu_torch.ops import attention as attn
+    from riffusion_tpu_torch.parallel.mesh import make_mesh
     from riffusion_tpu_torch.parallel.train import DiffusionTrainer
     from riffusion_tpu_torch.profile_batch import ClockSampler
     from riffusion_tpu_torch.training.finetune import ema_update
 
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train: torch sees no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    clocks = ClockSampler()
+    clocks = None
+    if rank == 0:
+        print(card, flush=True)
+        clocks = ClockSampler()
 
     dev = torch.device("cuda")
     unet = random_bundle("full", seed=0, device=dev, dtype=torch.float32).unet
-    trainer = DiffusionTrainer(device=dev, learning_rate=1e-5, dtype=torch.bfloat16)
+    mesh = None if mesh_shape is None else make_mesh(mesh_shape, ("data", "model", "seq"))
+    trainer = DiffusionTrainer(device=dev, learning_rate=1e-5, dtype=torch.bfloat16, mesh=mesh)
     trainer.init_from(unet)
     del unet
     params = dict(trainer.master.named_parameters())
@@ -90,11 +124,15 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     times = [step() for _ in range(5)]
     result: dict = {
-        "card": card, "batch": 4, "latents": [64, 64, 4],
+        "card": card, "batch": 4, "latents": [64, 64, 4], "mesh": mesh_shape, "ranks": world,
         "step_s": times, "step_s_median": statistics.median(times),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "clocks": clocks.summary(t0, time.monotonic()),
+        "clocks": clocks.summary(t0, time.monotonic()) if clocks else None,
     }
+    if rank:  # the other ranks take their part in the profiled steps' collectives
+        for _ in range(2):
+            step()
+        return {}
     print(f"steps {[f'{x:.4f}' for x in times]} s (median {result['step_s_median']:.4f}), "
           f"peak {result['max_memory_allocated_gib']:.2f} GiB, clocks {result['clocks']}",
           flush=True)
@@ -105,6 +143,10 @@ def main(argv=None) -> int:
         wall = sum(step() for _ in range(2))
         t1 = time.monotonic()
     clocks.stop()
+    host_ms = {}  # each span's host time (a gloo all-reduce is host time)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("riffusion.train."):
+            host_ms[e.name] = host_ms.get(e.name, 0.0) + e.cpu_time_total / 1e3
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     # The device-side ranges of the riffusion.train.* spans and of AdamW's own
@@ -141,6 +183,7 @@ def main(argv=None) -> int:
         "launches": {"k1": attn.COUNTS.launches, "dkv": attn.COUNTS.bwd_dkv_launches,
                      "dq": attn.COUNTS.bwd_dq_launches, "plain": attn.COUNTS.plain_calls},
         "kernel_ms_by_part": spans,
+        "host_ms_by_span": host_ms,
         "attention_ms": attention_ms,
         "clocks": clocks.summary(t0, t1),
         "top_kernels": [{"name": n[:120], "ms": t, "count": c} for n, (t, c) in top],
@@ -153,13 +196,11 @@ def main(argv=None) -> int:
           f"{', '.join(f'{k} {v:.2f} ms' for k, v in attention_ms.items())}")
     for name, ms in spans.items():
         print(f"  {name}: {ms:.2f} ms of kernel time")
+    for name, ms in host_ms.items():
+        print(f"  {name}: {ms:.2f} ms of host time")
     for name, (t, c) in top:
         print(f"  {t:9.2f} ms {c:6d}x {name[:100]}")
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
-    return 0
+    return result
 
 
 if __name__ == "__main__":

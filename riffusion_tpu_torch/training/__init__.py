@@ -1,5 +1,6 @@
-"""Fine-tuning on one device: the latent dataset and the training driver
-(the counterpart of riffusion_tpu/training)."""
+"""Fine-tuning, on one device or sharded over the ranks of a process group:
+the latent dataset and the training driver (the counterpart of
+riffusion_tpu/training)."""
 
 from riffusion_tpu_torch.training.dataset import (  # noqa: F401
     LatentDataset,

@@ -1,8 +1,8 @@
 """
 Fine-tuning driver: checkpoint + latent dataset -> trained native checkpoint.
 
-The counterpart of riffusion_tpu/training/finetune.py on one device: the
-trainer (parallel/train.py) over a latent dataset (training/dataset.py),
+The counterpart of riffusion_tpu/training/finetune.py: the trainer
+(parallel/train.py) over a latent dataset (training/dataset.py),
 eps-prediction MSE, AdamW with the warmup-cosine schedule, an EMA of the
 UNet's parameters, periodic checkpoints with resume, `loss_log.json`, and
 an export in the port's native layout that
@@ -10,6 +10,17 @@ an export in the port's native layout that
 
 The UNet computes in bf16 over fp32 masters on CUDA and in fp32 on the CPU
 (as the JAX driver picks bf16 on a TPU only).
+
+Under an initialized process group (torchrun, or parallel.mesh.spawn_world)
+every rank calls `run_finetune` with the same config and the step is
+sharded over a ("data", "model", "seq") mesh, by JAX's rule: `mesh_shape`
+when given, else as much data parallelism as the batch divides into,
+gcd(batch, world), and the rest of the ranks on "model". Each rank reads
+the whole batch stream (the same seed) and trains its share; the EMA is
+kept on each rank's cut and gathered for the export; global rank 0 alone
+writes loss_log.json, the checkpoints (unsharded) and the export. Without a
+process group it runs on one device, and a `mesh_shape` other than all
+ones raises.
 """
 
 from __future__ import annotations
@@ -24,7 +35,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from riffusion_tpu_torch.models.unet import UNet2DCondition
 from riffusion_tpu_torch.models.weights import load_bundle, save_native
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
 from riffusion_tpu_torch.training.dataset import LatentDataset
@@ -47,6 +60,9 @@ class FinetuneConfig:
     seed: int = 0
     sample_posterior: bool = True
     resume: bool = True
+    # the (data, model, seq) mesh under a process group; None: JAX's rule
+    # (module docstring)
+    mesh_shape: T.Optional[T.Tuple[int, int, int]] = None
     device: str = "cuda"
 
 
@@ -98,6 +114,32 @@ def _copy_tokenizer_files(src_checkpoint: str, export_dir: Path) -> None:
             return
 
 
+def finetune_mesh(cfg: FinetuneConfig, device: torch.device):
+    """The ("data", "model", "seq") mesh over every rank of the process
+    group (module docstring), or None without a group. Raises where the
+    batch does not divide over "data" (JAX's ValueError), and for a
+    mesh_shape other than all ones without a group."""
+    from riffusion_tpu_torch.parallel.mesh import make_mesh
+
+    if not dist.is_initialized():
+        if cfg.mesh_shape is not None and any(n != 1 for n in cfg.mesh_shape):
+            raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} needs an initialized "
+                             "process group (torchrun); without one the fine-tune runs on "
+                             "one device")
+        return None
+    world = dist.get_world_size()
+    if cfg.mesh_shape is not None:
+        shape = tuple(cfg.mesh_shape)
+    else:
+        data = math.gcd(cfg.batch_size, world)
+        shape = (data, world // data, 1)
+    mesh = make_mesh(shape, ("data", "model", "seq"), device_type=device.type)
+    if cfg.batch_size % shape[0]:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by data-parallel "
+                         f"degree {shape[0]}")
+    return mesh
+
+
 @torch.no_grad()
 def ema_update(ema: T.Dict[str, torch.Tensor], params: T.Mapping[str, torch.Tensor],
                decay: float) -> None:
@@ -118,12 +160,14 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
     ckpt_root = out_dir / "checkpoints"
     device = torch_util.check_device(cfg.device)
     dataset = LatentDataset(cfg.dataset_dir)
+    mesh = finetune_mesh(cfg, device)
+    writer = mesh is None or dist.get_rank() == 0  # who writes the files
 
     # fp32 master weights; the compute dtype follows the device
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     bundle = load_bundle(cfg.checkpoint, torch.float32, device=device)
     trainer = DiffusionTrainer(device=device, learning_rate=lr_schedule(cfg),
-                               weight_decay=cfg.weight_decay, dtype=compute_dtype)
+                               weight_decay=cfg.weight_decay, dtype=compute_dtype, mesh=mesh)
     trainer.init_from(bundle.unet)
     bundle.unet = None  # the trainer holds the masters; the export puts them back
     params = dict(trainer.master.named_parameters())
@@ -173,7 +217,8 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
             log(f"step {step + 1}/{cfg.steps} loss {loss_val:.5f} ({rate:.2f} it/s)")
         if (step + 1) % cfg.checkpoint_every == 0 and step + 1 < cfg.steps:
             trainer.save_checkpoint(ckpt_root, step + 1, ema)
-            loss_log_path.write_text(json.dumps(losses))
+            if writer:
+                loss_log_path.write_text(json.dumps(losses))
 
     checkpoint = None  # the final save: its file, size and seconds
     if cfg.steps > start_step:
@@ -181,7 +226,8 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
         path = trainer.save_checkpoint(ckpt_root, cfg.steps, ema)
         checkpoint = {"path": str(path), "bytes": path.stat().st_size,
                       "seconds": time.perf_counter() - start}
-    loss_log_path.write_text(json.dumps(losses))
+    if writer:
+        loss_log_path.write_text(json.dumps(losses))
 
     # ---- export: the EMA (or raw) weights in fp32, VAE and CLIP as loaded
     export_dir = out_dir / "export"
@@ -189,10 +235,20 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
         with torch.no_grad():
             for name, p in params.items():
                 p.copy_(ema[name])
-    bundle.unet = trainer.master
-    save_native(bundle, export_dir)
-    _copy_tokenizer_files(cfg.checkpoint, export_dir)
-    log(f"exported fine-tuned checkpoint to {export_dir}")
+    if mesh is None:
+        bundle.unet = trainer.master
+    else:  # the ranks' cuts made whole (a collective), into a UNet on the CPU
+        whole = trainer.unsharded(trainer.master.state_dict())
+        if writer:
+            with torch.device("meta"):
+                bundle.unet = UNet2DCondition(trainer.master.cfg)
+            bundle.unet.load_state_dict(whole, assign=True)
+    if writer:
+        save_native(bundle, export_dir)
+        _copy_tokenizer_files(cfg.checkpoint, export_dir)
+        log(f"exported fine-tuned checkpoint to {export_dir}")
+    if mesh is not None:
+        dist.barrier()
 
     return {
         "steps": cfg.steps,

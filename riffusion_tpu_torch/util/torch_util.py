@@ -16,7 +16,10 @@ import torch
 
 
 def check_device(device: str) -> torch.device:
-    """Resolve "cuda", "cuda:N" or "cpu" to a torch.device, or raise."""
+    """Resolve "cuda", "cuda:N" or "cpu" to a torch.device, or raise.
+    "cuda" is this process's current card: cuda:0 unless the process chose
+    another (parallel.mesh.init_distributed gives each rank of a host its
+    own, as torchrun's LOCAL_RANK says)."""
     name = str(device).lower()
     if name.startswith("cpu"):
         return torch.device("cpu")
@@ -25,7 +28,7 @@ def check_device(device: str) -> torch.device:
             raise RuntimeError(
                 f"device {device!r} was requested but torch sees no CUDA device"
             )
-        index = name.split(":", 1)[1] if ":" in name else "0"
+        index = name.split(":", 1)[1] if ":" in name else torch.cuda.current_device()
         return torch.device(f"cuda:{int(index)}")
     raise ValueError(f"unknown device {device!r}: use 'cuda', 'cuda:N' or 'cpu'")
 

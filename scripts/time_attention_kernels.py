@@ -11,7 +11,9 @@ The forward: K1 (`ops.attention.attention`) at (2, 4096, 8*40) and
 and K1 at (32, 4096, 8*40), the batched path's seq-4096 sites (K2's); the
 library's forward (torch's scaled_dot_product_attention on heads-first
 copies, a yardstick the port never calls) at each of these shapes. At the
-fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80): K1 writing the
+fine-tuning path's (4, 4096, 8*40) and (4, 1024, 8*80), and at the
+sharded step's sites (tp 2: (4, 4096, 4*40) and (4, 1024, 4*80); seq 2:
+queries (4, 2048 | 512, 8*d) against keys (4, 4096 | 1024, 8*d)): K1 writing the
 log-sum-exp, the plain PyTorch forward (ops.attention.attention_reference)
 and the library's forward on operands that need gradients (so
 that it too keeps its log-sum-exp); the dK/dV and dQ kernels alone,
@@ -25,8 +27,8 @@ this one), so that two versions are compared in one process each on the
 same card: unpack the other into a directory .gitignore lists and run
 parent, change, change, parent. Prints one JSON line with the card's name
 and power limit, each time in ms, and TFLOP/s: each forward's
-(4 * b*h*s*s*d FLOP) and each backward's (8, 6, 14 and 10 * b*h*s*s*d: the
-kernels' products, and the library's five).
+(4 * b*h*s_q*s_kv*d FLOP) and each backward's (8, 6, 14 and 10 *
+b*h*s_q*s_kv*d: the kernels' products, and the library's five).
 """
 
 from __future__ import annotations
@@ -49,10 +51,14 @@ SHAPES = (  # (kernel, batch, seq, heads, head_dim)
     ("library forward", 32, 1024, 8, 80),
     ("library forward", 32, 4096, 8, 40),
 )
-TRAIN_SHAPES = ((4, 4096, 8, 40), (4, 1024, 8, 80))  # (batch, seq, heads, head_dim)
+TRAIN_SHAPES = (  # (batch, queries, keys, heads, head_dim)
+    (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80),  # one device
+    (4, 4096, 4096, 4, 40), (4, 1024, 1024, 4, 80),  # tp 2
+    (4, 2048, 4096, 8, 40), (4, 512, 1024, 8, 80),  # seq 2
+)
 FLOP = {"attention with LSE": 4, "library forward": 4, "plain forward": 4,
         "attention_dkv": 8, "attention_dq": 6,
-        "attention_backward": 14, "library backward": 10}  # times b*h*s*s*d
+        "attention_backward": 14, "library backward": 10}  # times b*h*s_q*s_kv*d
 
 
 def _median_ms(torch, fn) -> float:
@@ -107,15 +113,15 @@ def main() -> int:
         tflops[key] = 4 * b * h * s * s * d / times[key] / 1e9
         del q, k, v
         torch.cuda.empty_cache()
-    for b, s, h, d in TRAIN_SHAPES:
+    for b, s_q, s_kv, h, d in TRAIN_SHAPES:
         scale = d**-0.5
-        q, k, v, dout = (torch.randn(b, s, h * d, generator=gen, device=dev).to(torch.bfloat16)
-                         for _ in range(4))
-        lse = torch.empty(b, h, s, device=dev)
+        q, k, v, dout = (torch.randn(b, n, h * d, generator=gen, device=dev).to(torch.bfloat16)
+                         for n in (s_q, s_kv, s_kv, s_q))
+        lse = torch.empty(b, h, s_q, device=dev)
         out = attn._launch("attention", q, k, v, h, scale, lse=lse)
         delta = attn.backward_delta(out, dout, h)
-        qh, kh, vh, doh = (x.view(b, s, h, d).transpose(1, 2).contiguous().requires_grad_()
-                           for x in (q, k, v, dout))
+        qh, kh, vh, doh = (x.view(b, x.shape[1], h, d).transpose(1, 2).contiguous()
+                           .requires_grad_() for x in (q, k, v, dout))
         lib_out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale)
         fns = {
             "attention with LSE": lambda: attn._launch("attention", q, k, v, h, scale, lse=lse),
@@ -131,10 +137,11 @@ def main() -> int:
             "library backward": lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                                             retain_graph=True),
         }
+        seq = f"{s_q}" if s_q == s_kv else f"{s_q}|{s_kv}"
         for name, fn in fns.items():
-            key = f"{name} ({b}, {s}, {h}*{d})"
+            key = f"{name} ({b}, {seq}, {h}*{d})"
             times[key] = _median_ms(torch, fn)
-            tflops[key] = FLOP[name] * b * h * s * s * d / times[key] / 1e9
+            tflops[key] = FLOP[name] * b * h * s_q * s_kv * d / times[key] / 1e9
         del q, k, v, dout, lse, out, delta, qh, kh, vh, doh, lib_out, fns
         torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

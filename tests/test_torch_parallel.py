@@ -288,11 +288,17 @@ def test_factor_mesh_shape_matches_jax(num_axes):
 
 def test_dryrun_spawns_its_world(capsys):
     """python -m riffusion_tpu_torch.parallel.dryrun --n 2: two gloo ranks
-    run the sharded batch and the tensor-parallel request on random:tiny."""
+    run the sharded train step (JAX's line first, a finite loss), the
+    sharded batch and the tensor-parallel request on random:tiny."""
+    import re
+
     from riffusion_tpu_torch.parallel import dryrun
 
     assert dryrun.main(["--n", "2"]) == 0
     out = capsys.readouterr().out
+    lines = out.strip().splitlines()
+    loss = re.fullmatch(r"dryrun\(2, cpu\): train step OK, loss=(\S+)", lines[0])
+    assert loss and np.isfinite(float(loss.group(1))) and float(loss.group(1)) > 0, out
     assert "sharded serving batch OK, 2 requests" in out
     assert "tensor-parallel serving OK, 0.63 s clip" in out
 
