@@ -68,6 +68,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    latents, so K1 and its backward are reached) on the card against the
    same steps on the CPU with the same t and noise: the losses, and the
    parameters' movement.
+graphs: random:full (SD v1 width) in bf16, its serving programs as CUDA
+   graphs (riffusion_tpu_torch/aot.py; node counts kept). Six calls: a
+   PNDM-50 riffuse_audio, a FAST burst of 16 through a DynamicBatcher, a
+   PNDM-50 riffuse_audio_batch of 16, an off-gate dpmpp-24 request, a
+   512x512 txt2img (pndm-30) and MagicMix (pndm-50). Each runs eagerly
+   (RIFFUSION_TPU_NO_AOT=1) GRAPH_TURNS times (the runs bit-equal), then
+   through the store: the capturing call and GRAPH_TURNS replays, each
+   bit-equal to the eager output or, where cuBLAS or cuDNN chose another
+   algorithm under capture, within GRAPH_IMAGE_BAND of its decoded image
+   (which held is printed); then another request's inputs eagerly and
+   replayed, held alike. Every call launches K1 and K2 exactly as many
+   times as the plans give and no plain version. Prints each call's wall
+   eager and replayed (medians), the capturing call's warm-up and capture
+   seconds, the graph's node count, the largest eager peak and what the
+   card holds with the six keys captured. The later phases find these
+   programs captured and replay them.
 9. slice: random:full (SD v1 width) in bf16 behind the port's HTTP server;
    three POST /run_inference/ requests (og_beat seed, 50 steps, default
    strength) each return 200, a 512x512 image and 5.11 s of non-silent
@@ -123,9 +139,10 @@ cli: the command line on the checkpoint directory, in this process, with
    warm-up, two timed) of E = 12 at UNet batch 16, K2 and K1 each 3*5*E
    times, and writes 16 clips less 15 crossfades; its realtime factor is
    printed. Then warmstart_report on two fresh loads of the directory, each
-   stage's seconds printed: the second load reads every embedding from the
-   disk cache (hits > 0, no miss) and its kernels from csrc/build/
-   (kernel_source "cached").
+   stage's seconds printed: each captures its request's graph (source
+   "captured", K1 2 x 10*E: the warm-up run and the replay), and the second
+   load reads every embedding from the disk cache (hits > 0, no miss) and
+   its kernels from csrc/build/ (kernel_source "cached").
 frontends: the playground's host layer and pages (riffusion_tpu_torch/
    streamlit/) on the checkpoint directory, loaded through
    streamlit/util.load_riffusion_checkpoint, at the UI defaults (50 steps,
@@ -167,7 +184,10 @@ parallel: multi-device serving (riffusion_tpu_torch/parallel/) in worlds of
    the unsharded batch's under 2e-2). A world of one on NCCL
    runs the tiny checks. `python -m riffusion_tpu_torch.parallel.dryrun --n
    2` runs as a command and exits 0. Two ranks on one card give no scaling
-   number.
+   number. The ranks run eagerly (RIFFUSION_TPU_NO_AOT=1), their
+   single-device references too: the mesh and tensor-parallel paths have
+   no graphs yet, and two ranks' graph pools would not fit beside each
+   other on the card.
 
 parallel-train: the sharded fine-tuning step (parallel/train.py
    DiffusionTrainer(mesh=)) in worlds of processes on the one card. Two
@@ -1431,6 +1451,180 @@ def _stop(server, thread) -> None:
         server.batcher.shutdown()
 
 
+#: The decoded-image band a replay is held to where it is not bit-equal to
+#: the eager call (cuBLAS or cuDNN may choose another algorithm under
+#: capture): rel L2 of the uint8 image, the parallel phase's bound.
+GRAPH_IMAGE_BAND = 2e-2
+#: Timed turns of each call, eager and replayed (the median is printed):
+#: five for the single requests, three for the two batches of 16, which the
+#: phase's time limit allows (the batches are device-bound).
+GRAPH_TURNS = {"single": 5, "batch": 3}
+
+
+def _graph_agreement(ours, ref) -> tuple:
+    """(bit-equal, worst image rel L2) of a call's clips against another's:
+    images, and waveforms where the call has audio."""
+    import numpy as np
+
+    equal, worst = True, 0.0
+    for (image, segment), (ref_image, ref_segment) in zip(ours, ref):
+        a, b = np.asarray(image, np.float64), np.asarray(ref_image, np.float64)
+        equal &= bool(np.array_equal(a, b))
+        if segment is not None:
+            equal &= bool(np.array_equal(segment.raw_data, ref_segment.raw_data))
+        worst = max(worst, float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)))
+    return equal, worst
+
+
+def phase_graphs(torch, attn, pipe) -> dict:
+    """The store's CUDA graphs (riffusion_tpu_torch/aot.py) on random:full:
+    six calls each run eagerly (RIFFUSION_TPU_NO_AOT=1), then captured and
+    replayed; outputs, launches, walls, capture seconds, node counts and
+    memory."""
+    import statistics as stats
+
+    from riffusion_tpu_torch import aot
+    from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
+    from riffusion_tpu_torch.diffusion import schedulers as sched
+    from riffusion_tpu_torch.serving import (FAST_PRESET, FAST_PRESET_OFFGATE, DynamicBatcher,
+                                             load_seed_image)
+    from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
+
+    seed = load_seed_image(REPO / "seed_images", "og_beat")
+    params = SpectrogramParams(min_frequency=0, max_frequency=10000, num_frequencies=512)
+    pipe.graph_store = aot.GraphStore(aot.CudaGraphs(count_nodes=True))
+
+    def req(i: int, steps: int = 50, denoising: float = 0.75) -> InferenceInput:
+        return InferenceInput(
+            start=PromptInput(prompt="funky synth solo", seed=42 + i, denoising=denoising),
+            end=PromptInput(prompt="jazzy saxophone", seed=123 + i, denoising=denoising),
+            alpha=0.5, num_inference_steps=steps)
+
+    def evals(scheduler: str, steps: int, strength: float) -> int:
+        return pipe._plan(scheduler, steps, strength)[0].num_steps
+
+    e_pndm = evals("pndm", 50, 0.75)
+    e_fast = evals(FAST_PRESET["scheduler"], FAST_PRESET["steps"], 0.75)
+    e_off = evals(FAST_PRESET_OFFGATE["scheduler"], FAST_PRESET_OFFGATE["steps"], 0.65)
+    e_t2i = sched.make_plan("pndm", 30).num_steps
+    e_mix = sched.make_plan("pndm", 50, pipe._magic_mix_start("pndm", 50, 0.3, 0.5)[0]).num_steps
+    batcher = DynamicBatcher(pipe, max_batch=16, window_ms=3000,
+                             scheduler=FAST_PRESET["scheduler"],
+                             steps_override=FAST_PRESET["steps"], strength_gated=True)
+
+    def burst(offset: int) -> list:
+        results = [None] * 16
+
+        def submit(i):
+            results[i] = batcher.submit(req(offset + i), seed, None, params, "og_beat", None)
+
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(r is None for r in results):
+            raise AssertionError("the DynamicBatcher burst did not return 16 clips")
+        return results
+
+    cases = (  # name, kind, (K1, K2) per call, call(offset) -> [(image, segment or None)]
+        ("single PNDM-50", "single", (10 * e_pndm, 0),
+         lambda o: [pipe.riffuse_audio(req(o), seed, params=params, scheduler="pndm")]),
+        ("FAST batch of 16 through the DynamicBatcher", "batch", (5 * e_fast, 5 * e_fast),
+         burst),
+        ("PNDM-50 batch of 16", "batch", (5 * e_pndm, 5 * e_pndm),
+         lambda o: pipe.riffuse_audio_batch([req(o + i) for i in range(16)], seed,
+                                            params=params, scheduler="pndm")),
+        ("off-gate dpmpp-24 single", "single", (10 * e_off, 0),
+         lambda o: [pipe.riffuse_audio(req(o, steps=FAST_PRESET_OFFGATE["steps"],
+                                           denoising=0.65), seed, params=params,
+                                       scheduler=FAST_PRESET_OFFGATE["scheduler"])]),
+        ("txt2img pndm-30", "single", (10 * e_t2i, 0),
+         lambda o: [(pipe.txt2img("funky synth solo", seed=42 + o, num_inference_steps=30,
+                                  scheduler="pndm"), None)]),
+        ("MagicMix pndm-50", "single", (10 * e_mix, 0),
+         lambda o: [(pipe.img2img_magic_mix("jazzy saxophone", seed, seed=42 + o,
+                                            num_inference_steps=50, scheduler="pndm"), None)]),
+    )
+    counts = {"attention": 0, "row_attention": 0}
+    results, eager_peaks = {}, {}
+
+    def call(what: str, expect: tuple, fn, offset: int, eager: bool) -> tuple:
+        if eager:
+            os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
+        try:
+            attn.COUNTS.reset()
+            t0 = time.perf_counter()
+            out = fn(offset)
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
+        got = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+        if got != expect + (0,):
+            raise AssertionError(f"[graphs] {what} ({'eager' if eager else 'graph'}): (K1, K2, "
+                                 f"plain) {got}, expected {expect + (0,)}")
+        counts["attention"] += got[0]
+        counts["row_attention"] += got[1]
+        for image, segment in out:
+            _check_clip(what, image, segment)
+        return out, wall
+
+    def held(what: str, ours, ref) -> str:
+        equal, rel = _graph_agreement(ours, ref)
+        if not (equal or rel <= GRAPH_IMAGE_BAND):
+            raise AssertionError(f"[graphs] {what}: image rel L2 {rel} outside the band "
+                                 f"{GRAPH_IMAGE_BAND}")
+        return "bit-equal" if equal else f"in the band (image rel L2 {rel:.3e})"
+
+    try:
+        for what, kind, expect, fn in cases:
+            turns = GRAPH_TURNS[kind]
+            torch.cuda.reset_peak_memory_stats()
+            eager = [call(what, expect, fn, 0, True) for _ in range(turns)]
+            eager_peaks[what] = torch.cuda.max_memory_allocated() / 2**30
+            for out, _ in eager[1:]:
+                if _graph_agreement(out, eager[0][0])[0] is not True:
+                    raise AssertionError(f"[graphs] {what}: two eager runs differ")
+            before = set(pipe.graph_store.programs)
+            captured, capture_wall = call(what, expect, fn, 0, False)
+            new_keys = sorted(set(pipe.graph_store.programs) - before)
+            if len(new_keys) != 1:
+                raise AssertionError(f"[graphs] {what}: captured {new_keys}, expected one key")
+            report = pipe.graph_store.programs[new_keys[0]].reports()[0]
+            replays = [call(what, expect, fn, 0, False) for _ in range(turns)]
+            verdicts = [held(what, captured, eager[0][0])]
+            verdicts += [held(what, out, eager[0][0]) for out, _ in replays]
+            other_eager, _ = call(what, expect, fn, 100, True)
+            other_graph, _ = call(what, expect, fn, 100, False)
+            verdicts.append(held(what + " (new inputs)", other_graph, other_eager))
+            if _graph_agreement(other_graph, captured)[0]:
+                raise AssertionError(f"[graphs] {what}: new inputs gave the old outputs")
+            eager_s = stats.median(w for _, w in eager)
+            replay_s = stats.median(w for _, w in replays)
+            results[what] = {"key": new_keys[0], "eager_s": eager_s, "replay_s": replay_s,
+                             "capturing_call_s": capture_wall, "warmup_s": report["warmup_s"],
+                             "capture_s": report["capture_s"], "nodes": report["nodes"],
+                             "eager_peak_gib": eager_peaks[what], "agreement": verdicts}
+            log(f"[graphs] {what} ({new_keys[0]}): wall eager {eager_s:.4f} s, replayed "
+                f"{replay_s:.4f} s (medians of {turns}); the capturing call {capture_wall:.3f} s "
+                f"(warm-up {report['warmup_s']:.3f} s, capture {report['capture_s']:.3f} s), "
+                f"{report['nodes']} graph nodes; K1 {expect[0]} and K2 {expect[1]} a call, 0 "
+                f"plain; the capturing call, each replay and new inputs against eager: "
+                f"{verdicts}")
+    finally:
+        batcher.shutdown()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the eager runs' cached blocks; the graphs' pool stays
+    largest = max(eager_peaks, key=eager_peaks.get)
+    held_gib = torch.cuda.memory_reserved() / 2**30
+    log(f"[graphs] memory: with the {len(pipe.graph_store.programs)} keys captured the card "
+        f"holds {held_gib:.2f} GiB (the weights, the static buffers and the graphs' pool; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated outside the pool); the "
+        f"largest eager peak was {largest}'s {eager_peaks[largest]:.2f} GiB")
+    return {"counts": counts, "results": results, "reserved_gib": held_gib,
+            "eager_peak_gib": eager_peaks[largest]}
+
+
 def phase_slice(torch, attn, pipe) -> dict:
     from riffusion_tpu_torch import server as server_mod
 
@@ -1695,7 +1889,11 @@ def phase_cli(torch, attn, checkpoint: Path) -> dict:
             report = warm.warmstart_report(inputs, seed)
             log(f"[cli] warmstart_report, load {load} of the directory ({load_s:.2f} s to "
                 f"load): {json.dumps(report)}; K1 launches {attn.COUNTS.launches}")
-            _expect_counts(attn, f"warmstart_report {load}", 10 * evals, 0)
+            # a fresh pipeline captures the request's graph (its warm-up runs the
+            # request once) and then executes it, a replay: two requests' launches
+            _expect_counts(attn, f"warmstart_report {load}", 2 * 10 * evals, 0)
+            if report["source"] != "captured" or not report["capture_s"] > 0:
+                raise AssertionError(f"warmstart_report {load} did not capture: {report}")
             counts["attention"] += attn.COUNTS.launches
             reports.append(dict(report, load_s=load_s))
             del warm
@@ -2194,11 +2392,16 @@ def _parallel_full(torch, attn, world: int) -> dict:
 
 
 def _parallel_rank(rank: int, world: int, job: str) -> dict:
-    """One rank of the parallel phase's worlds (parallel.mesh.spawn_world)."""
+    """One rank of the parallel phase's worlds (parallel.mesh.spawn_world).
+    The mesh and tensor-parallel paths run eagerly, and so do the
+    single-device runs they are held to: each rank's graphs would hold their
+    own memory pool on the one card beside the other rank's and this
+    process's parent's."""
     import torch
 
     from riffusion_tpu_torch.ops import attention as attn
 
+    os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
     if job == "gloo":
         return {"tiny": _parallel_tiny(torch, attn, world),
                 "full": _parallel_full(torch, attn, world)}
@@ -2211,6 +2414,7 @@ def phase_parallel(torch, attn) -> dict:
     of one on NCCL (the tiny checks), and the CPU dryrun as a command."""
     from riffusion_tpu_torch.parallel.mesh import spawn_world
 
+    gc.collect()  # a dropped pipeline's graphs, and their pool, go back to the card
     torch.cuda.empty_cache()
     counts = {"attention": 0, "row_attention": 0}
     worlds = {}
@@ -2599,6 +2803,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
     torch.cuda.synchronize()
     log(f"[slice] random:full (UNet/CLIP bf16, VAE fp32) built on the card in "
         f"{time.perf_counter() - start:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    graphs = phase("graphs", phase_graphs, torch, attn, pipe)
     single = phase("slice", phase_slice, torch, attn, pipe)
     batch = phase("batch", phase_batch, torch, attn, pipe)
     modes = phase("modes", phase_modes, torch, attn, pipe)
@@ -2640,7 +2845,8 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          f"{flash}:589 _flash_attention_impl (called from riffusion_tpu/models/layers.py:251)",
          times[("attention", 2, 4096, 40)], times[("plain", 2, 4096, 40)],
          times[("bound", 2, 4096, 40)], times[("library", 2, 4096, 40)],
-         single["attention"] + batch["counts"]["attention"] + modes["counts"]["attention"]
+         graphs["counts"]["attention"] + single["attention"] + batch["counts"]["attention"]
+         + modes["counts"]["attention"]
          + ckpt["launches"] + train["launches"]["attention"] + cli_run["counts"]["attention"]
          + frontends["counts"]["attention"] + parallel["counts"]["attention"]
          + parallel_train["counts"]["attention"]),
@@ -2648,7 +2854,8 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
          times[("row_attention", b, s, d)], times[("plain", b, s, d)],
          times[("bound", b, s, d)], times[("library", b, s, d)],
-         single["row_attention"] + batch["counts"]["row_attention"]
+         graphs["counts"]["row_attention"] + single["row_attention"]
+         + batch["counts"]["row_attention"]
          + modes["counts"]["row_attention"] + cli_run["counts"]["row_attention"]
          + frontends["counts"]["row_attention"] + parallel["counts"]["row_attention"]),
     ] + [

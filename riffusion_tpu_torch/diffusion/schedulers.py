@@ -12,6 +12,12 @@ JAX package's numpy code (it cannot be imported without jax), held to it by
 tests/test_torch_schedulers.py; the denoise loop that calls `step` is a
 plain Python loop in the pipeline, so `i` is a Python int here.
 
+A step reads its scalar coefficients as Python floats (the plan is part of
+a captured program's key, riffusion_tpu_torch/aot.py) and its rows of
+weights from the plan's tables on the device (`device_table`), uploaded
+once per plan and device and held by the plan, so a captured CUDA graph's
+steps copy nothing from the host.
+
 euler_a adds noise at every step. The JAX package keeps a PRNG key per
 batch item in the stepper's state; here the caller draws every step's noise
 up front, one (S, N, C, h, w) tensor (`init_state(..., ancestral=...)`), so
@@ -80,10 +86,23 @@ class SchedulerPlan:
     coeffs: T.Dict[str, np.ndarray]
     init_noise_sigma: float = 1.0  # the scale of txt2img's starting noise
     history: int = 1  # size of the history ring the stepper keeps
+    # device_table's uploads, (name, device, dtype) -> tensor, held as long
+    # as the plan: a captured graph reads them where they were captured
+    _device: T.Dict[T.Tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False)
 
     @property
     def num_steps(self) -> int:
         return len(self.timesteps)
+
+    def device_table(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """coeffs[name] as a tensor in `like`'s dtype on its device, uploaded
+        on first use and kept."""
+        key = (name, like.device, like.dtype)
+        if key not in self._device:  # the first upload stays: a graph may hold its address
+            self._device.setdefault(key, torch.as_tensor(self.coeffs[name], dtype=like.dtype,
+                                                         device=like.device))
+        return self._device[key]
 
 
 # ------------------------------------------------------------- sigma grids
@@ -274,14 +293,9 @@ def _pndm_step(plan, state, i, model_output, sample):
     if c["avg_with_last"][i] > 0:
         e_eff = 0.5 * (model_output + ets[0])
     else:
-        e_eff = torch.tensordot(_row(c["weights"], i, ets), ets, dims=1)
+        e_eff = torch.tensordot(plan.device_table("weights", ets)[i], ets, dims=1)
     prev = float(c["sample_coeff"][i]) * sample_eff - float(c["output_coeff"][i]) * e_eff
     return prev, {"ets": ets, "cur_sample": cur_sample}
-
-
-def _row(table: np.ndarray, i: int, like: torch.Tensor) -> torch.Tensor:
-    """Row i of a plan table as a tensor beside `like`."""
-    return torch.as_tensor(table[i], dtype=like.dtype, device=like.device)
 
 
 # -------------------------------------------------------- LMS, Euler, Euler-a
@@ -340,7 +354,7 @@ def _derivative(plan, i, model_output, sample):
 def _lms_step(plan, state, i, model_output, sample):
     d = _derivative(plan, i, model_output, sample)
     derivs = torch.cat([d[None], state["derivs"][:-1]], dim=0)
-    prev = sample + torch.tensordot(_row(plan.coeffs["lms"], i, derivs), derivs, dims=1)
+    prev = sample + torch.tensordot(plan.device_table("lms", derivs)[i], derivs, dims=1)
     return prev, {"derivs": derivs}
 
 
@@ -541,11 +555,11 @@ def _unipc_step(plan, state, i, model_output, sample):
     x_i = sample
     if c["corr_on"][i] > 0:
         corrected = float(c["corr_ratio"][i]) * state["sample_prev"] + torch.tensordot(
-            _row(c["corr_w"], i, ring), ring, dims=1
+            plan.device_table("corr_w", ring)[i], ring, dims=1
         )
         x_i = sample + (corrected - state["x_pred_prev"])
     x_next = float(c["pred_ratio"][i]) * x_i + torch.tensordot(
-        _row(c["pred_w"], i, ring), ring, dims=1
+        plan.device_table("pred_w", ring)[i], ring, dims=1
     )
     return x_next, {"x0_ring": ring, "sample_prev": x_i, "x_pred_prev": x_next}
 

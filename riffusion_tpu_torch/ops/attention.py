@@ -43,7 +43,11 @@ share of it this process holds (parallel/, riffuse_audio_batch's mesh).
 launches and `COUNTS.plain_calls` wrapper calls that took the plain version
 (forward or backward), so a run can show which one it went through. Calling
 `attention_reference` or `attention_backward_reference` directly counts
-nothing.
+nothing. A wrapper called while a CUDA graph is captured records its launch
+into the graph and counts it there; the graph's program (aot.py) takes
+those counts back and adds them again on each replay, the graph's launches.
+Both forward kernels launch on the current stream, so a capture records
+them like any torch operation.
 
 The kernels are built with nvcc at first use (route (b): shared libraries
 with a plain C entry point each, loaded with ctypes) into csrc/build/, keyed
@@ -144,6 +148,22 @@ class Counts:
     def reset(self) -> None:
         for field in dataclasses.fields(self):
             setattr(self, field.name, 0)
+
+    def snapshot(self) -> T.Dict[str, int]:
+        return dataclasses.asdict(self)
+
+    def since(self, before: T.Mapping[str, int]) -> T.Dict[str, int]:
+        """What was counted after `before` (a snapshot)."""
+        return {k: v - before[k] for k, v in self.snapshot().items()}
+
+    def restore(self, before: T.Mapping[str, int]) -> None:
+        for name, value in before.items():
+            setattr(self, name, value)
+
+    def add(self, counted: T.Mapping[str, int]) -> None:
+        """Count again what `since` gave (a captured graph's replay)."""
+        for name, value in counted.items():
+            setattr(self, name, getattr(self, name) + value)
 
 
 COUNTS = Counts()

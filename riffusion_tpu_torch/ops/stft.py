@@ -16,6 +16,11 @@ above `max_frequency`, so this restriction is exact on the serving path.
 n_fft = 17640 at the default geometry is not a power of two
 (2^3 * 3^2 * 5 * 7^2); cuFFT and pocketfft both take it as a mixed-radix
 transform.
+
+The window and the overlap-add envelope go to a device once per kernel,
+device (and frame count) and stay with the kernel, so Griffin-Lim's
+iterations copy nothing from the host and a captured CUDA graph
+(riffusion_tpu_torch/aot.py) reads them where it was captured.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ class STFTKernel:
     win_length: int
     hop_length: int
     n_bins: int  # number of (lowest) frequency bins computed / consumed
+    # the constants on each device, made on first use and kept
+    _device: T.Dict[T.Tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False)
 
     @property
     def _offset(self) -> int:
@@ -53,8 +61,20 @@ class STFTKernel:
     def _window_np(self) -> np.ndarray:
         return hann_window(self.win_length).astype(np.float32)
 
+    def _on_device(self, key: T.Tuple, make: T.Callable[[], np.ndarray],
+                   device: torch.device) -> torch.Tensor:
+        """make() uploaded to `device` once; the first upload stays."""
+        key = key + (torch.device(device),)
+        if key not in self._device:
+            self._device.setdefault(key, torch.from_numpy(make()).to(device))
+        return self._device[key]
+
     def window(self, device: torch.device) -> torch.Tensor:
-        return torch.from_numpy(self._window_np).to(device)
+        return self._on_device(("window",), lambda: self._window_np, device)
+
+    def ola_envelope(self, n_frames: int, device: torch.device) -> torch.Tensor:
+        """The overlap-add envelope of `n_frames` frames on `device`."""
+        return self._on_device(("ola", n_frames), lambda: self._ola_envelope(n_frames), device)
 
     def num_frames(self, num_samples: int) -> int:
         pad = self.n_fft // 2
@@ -115,7 +135,7 @@ class STFTKernel:
             kernel_size=(1, self.win_length),
             stride=(1, self.hop_length),
         ).reshape(b, out_len)
-        y = y / torch.from_numpy(self._ola_envelope(n_frames)).to(y.device)
+        y = y / self.ola_envelope(n_frames, y.device)
         trim = self.n_fft // 2 - off
         return y[:, trim : trim + self.num_output_samples(n_frames)]
 

@@ -1,24 +1,30 @@
 """
 Where a batch of requests' time goes on the card: the batched serving path
 (`RiffusionPipeline.riffuse_audio_batch`, what the DynamicBatcher launches)
-at full SD v1 width (random weights), og_beat seed, strength 0.75.
+at full SD v1 width (random weights), og_beat seed, strength 0.75, run as
+the server runs it (each batch's program captured into a CUDA graph on its
+first call and replayed, riffusion_tpu_torch/aot.py) and eagerly
+(RIFFUSION_TPU_NO_AOT=1).
 
     python -m riffusion_tpu_torch.profile_batch [--out result.json]
 
 Prints, and writes as JSON with --out:
 - the card's name and power limit;
-- the wall time of batches after one warm-up batch of 16 (host clock,
-  ending in torch.cuda.synchronize): three of 16 and one each of 8 and 4 at
-  the FAST preset (unipc_k:rho=2, 16 steps), one of 16 at PNDM-50;
+- in each mode, the wall time of batches (host clock, ending in
+  torch.cuda.synchronize): a first batch of 16 at the FAST preset
+  (unipc_k:rho=2, 16 steps; with graphs, the warm-up and the capture),
+  three more, and two each of 8 and 4 and of 16 at PNDM-50 (the first of
+  each a capture with graphs);
 - K2 (ops.attention.row_attention) alone at the batch-16 site
   (32, 4096, 8*40) bf16, CUDA events, median of 150 (about a second, so
   that the clock sampler sees it), in the same process;
-- for one further FAST batch of 16 under torch.profiler: each pipeline
-  stage's span on the host and on the device (the riffusion.* spans), the
-  device's busy time (the sum of kernel and copy times; one stream) against
-  the batch's wall time, K1's and K2's device time (their instances of the
-  forward body, `forward_instances`), and the 15 kernels with the most
-  device time;
+- for one further FAST batch of 16 under torch.profiler in each mode: the
+  device's busy time (the sum of kernel and copy times; one stream)
+  against the batch's wall time, K1's and K2's device time (their
+  instances of the forward body, `forward_instances`), and the 15 kernels
+  with the most device time; eagerly also each pipeline stage's span on
+  the host and on the device (the riffusion.* spans), which a replayed
+  graph, one launch to the profiler, does not show;
 - the card's SM clock, power draw, temperature and active clock-event
   reasons, sampled by nvidia-smi every 200 ms, summarised over each of the
   above (min, median, max), so that a kernel's time inside the batch and
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -112,6 +119,52 @@ class ClockSampler:
         return out
 
 
+#: "graph": the programs through the store (the server's way); "eager":
+#: RIFFUSION_TPU_NO_AOT=1
+MODES = ("graph", "eager")
+
+
+def _store(mode: str) -> None:
+    """Run the programs that follow in `mode`."""
+    if mode == "eager":
+        os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
+    else:
+        os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
+
+
+def _trace(prof, wall_s: float, cuda, instances: T.Dict[str, T.Set[str]]) -> dict:
+    """A profiled batch's device side: busy time (kernels and copies), idle
+    share of `wall_s` (None where the trace shows no device work), device
+    operations, K1's and K2's time, the riffusion.* stage spans and the top
+    kernels."""
+    events = prof.events()
+    stages: dict = {}
+    for e in events:
+        if not e.name.startswith("riffusion."):
+            continue
+        entry = stages.setdefault(e.name, {})
+        side = "device_span_ms" if e.device_type == cuda else "host_span_ms"
+        entry[side] = entry.get(side, 0.0) + e.time_range.elapsed_us() / 1e3
+    kernels = [e for e in events if e.device_type == cuda and not e.name.startswith("riffusion.")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + e.time_range.elapsed_us() / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return {
+        "wall_s": wall_s,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3) if kernels else None,
+        "device_ops": len(kernels),
+        "k1_ms": sum(by_name.get(n, (0.0, 0))[0] for n in instances["k1"]),
+        "k2_ms": sum(by_name.get(n, (0.0, 0))[0] for n in instances["k2"]),
+        "forward_instances": {k: sorted(v) for k, v in instances.items()},
+        "stages": stages,
+        "top_kernels": [{"name": n[:120], "ms": t, "count": c} for n, (t, c) in top],
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None, help="write the result as JSON here")
@@ -142,7 +195,7 @@ def main(argv=None) -> int:
     params = SpectrogramParams(min_frequency=0, max_frequency=10000, num_frequencies=512)
     result: dict = {"card": card, "checkpoint": "random:full", "batches": []}
 
-    def batch(n: int, scheduler: str, steps: int, what: str) -> float:
+    def batch(n: int, scheduler: str, steps: int, what: str, mode: str) -> float:
         inputs = [InferenceInput(start=PromptInput(prompt="funky synth solo", seed=42 + i),
                                  end=PromptInput(prompt="jazzy saxophone", seed=123 + i),
                                  alpha=0.5, num_inference_steps=steps) for i in range(n)]
@@ -151,21 +204,25 @@ def main(argv=None) -> int:
         pipe.riffuse_audio_batch(inputs, image, params=params, scheduler=scheduler)
         torch.cuda.synchronize()
         t1 = time.monotonic()
-        entry = {"what": what, "n": n, "scheduler": scheduler, "steps": steps,
+        entry = {"what": what, "mode": mode, "n": n, "scheduler": scheduler, "steps": steps,
                  "wall_s": t1 - t0, "clips_per_s": n / (t1 - t0),
                  "clocks": clocks.summary(t0, t1)}
         result["batches"].append(entry)
-        print(f"{what}: {n} clips in {t1 - t0:.4f} s ({n / (t1 - t0):.4f} clips/s); "
+        print(f"{mode}: {what}: {n} clips in {t1 - t0:.4f} s ({n / (t1 - t0):.4f} clips/s); "
               f"clocks {entry['clocks']}", flush=True)
         return t1 - t0
 
     fast = (FAST_PRESET["scheduler"], FAST_PRESET["steps"])
-    batch(16, *fast, "warm-up, 16 FAST")
-    for i in range(3):
-        batch(16, *fast, f"16 FAST #{i + 1}")
-    batch(8, *fast, "8 FAST")
-    batch(4, *fast, "4 FAST")
-    batch(16, "pndm", 50, "16 PNDM-50")
+    for mode in MODES:
+        _store(mode)
+        batch(16, *fast, "first, 16 FAST", mode)
+        for i in range(3):
+            batch(16, *fast, f"16 FAST #{i + 1}", mode)
+        for n, scheduler, steps, what in ((8, *fast, "8 FAST"), (4, *fast, "4 FAST"),
+                                          (16, "pndm", 50, "16 PNDM-50")):
+            batch(n, scheduler, steps, f"first, {what}", mode)
+            batch(n, scheduler, steps, what, mode)
+    _store("graph")
 
     # K2 alone at the batch-16 site
     b, s, h, d = 32, 4096, 8, 40
@@ -190,56 +247,31 @@ def main(argv=None) -> int:
     del q, k, v
 
     instances = forward_instances(torch, attn)
-    attn.COUNTS.reset()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        profiled_s = batch(16, *fast, "16 FAST, profiled")
-        t1 = time.monotonic()
+    result["profiled"] = {}
+    for mode in MODES:
+        _store(mode)
+        attn.COUNTS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            profiled_s = batch(16, *fast, "16 FAST, profiled", mode)
+            t1 = time.monotonic()
+        result["profiled"][mode] = p = _trace(prof, profiled_s, DeviceType.CUDA, instances)
+        p.update(k1_launches=attn.COUNTS.launches, k2_launches=attn.COUNTS.row_launches,
+                 plain_calls=attn.COUNTS.plain_calls,
+                 max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 clocks=clocks.summary(t0, t1))
+        print(f"{mode}: profiled batch {profiled_s:.4f} s: device busy {p['device_busy_ms']:.1f} "
+              f"ms (idle share {p['device_idle_share']}), {p['device_ops']} device ops, "
+              f"K1/K2/plain {p['k1_launches']}/{p['k2_launches']}/{p['plain_calls']} launches, "
+              f"K1 {p['k1_ms']:.2f} ms, K2 {p['k2_ms']:.2f} ms, peak "
+              f"{p['max_memory_allocated_gib']:.2f} GiB")
+        for name, spans in p["stages"].items():
+            print(f"  {name}: " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
+        for k in p["top_kernels"]:
+            print(f"  {k['ms']:9.2f} ms {k['count']:6d}x {k['name'][:100]}")
+    _store("graph")
     clocks.stop()
-
-    events = prof.events()
-    stages: dict = {}
-    for e in events:
-        if not e.name.startswith("riffusion."):
-            continue
-        entry = stages.setdefault(e.name, {})
-        side = "device_span_ms" if e.device_type == DeviceType.CUDA else "host_span_ms"
-        entry[side] = entry.get(side, 0.0) + e.time_range.elapsed_us() / 1e3
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA and not e.name.startswith("riffusion.")]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name: dict = {}
-    for e in kernels:
-        total, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + e.time_range.elapsed_us() / 1e3, count + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    result["profiled"] = {
-        "wall_s": profiled_s,
-        "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / (profiled_s * 1e3),
-        "device_ops": len(kernels),
-        "k1_launches": attn.COUNTS.launches,
-        "k2_launches": attn.COUNTS.row_launches,
-        "k1_ms": sum(by_name.get(n, (0.0, 0))[0] for n in instances["k1"]),
-        "k2_ms": sum(by_name.get(n, (0.0, 0))[0] for n in instances["k2"]),
-        "forward_instances": {k: sorted(v) for k, v in instances.items()},
-        "plain_calls": attn.COUNTS.plain_calls,
-        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "clocks": clocks.summary(t0, t1),
-        "stages": stages,
-        "top_kernels": [{"name": n[:120], "ms": t, "count": c} for n, (t, c) in top],
-    }
-    p = result["profiled"]
-    print(f"profiled batch {profiled_s:.4f} s: device busy {busy_ms:.1f} ms (idle share "
-          f"{p['device_idle_share']:.4f}), {len(kernels)} device ops, K1/K2/plain "
-          f"{p['k1_launches']}/{p['k2_launches']}/{p['plain_calls']} launches, K1 "
-          f"{p['k1_ms']:.2f} ms, K2 {p['k2_ms']:.2f} ms, peak "
-          f"{p['max_memory_allocated_gib']:.2f} GiB")
-    for name, spans in stages.items():
-        print(f"  {name}: " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
-    for name, (t, c) in top:
-        print(f"  {t:9.2f} ms {c:6d}x {name[:100]}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "w") as f:

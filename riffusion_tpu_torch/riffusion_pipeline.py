@@ -9,14 +9,26 @@ The counterpart of the riffuse paths of riffusion_tpu/riffusion_pipeline.py:
 `preprocess_image`, `preprocess_mask`. Where the JAX package traces one
 program (VAE encode -> seed-noise slerp -> noising -> CFG denoise scan ->
 VAE decode -> codec -> inverse mel -> Griffin-Lim), this runs the same steps
-eagerly, with the denoise loop as a Python loop over `schedulers.step`. A
-single request is a batch of one: `_generate` runs N riffuse requests with
-the UNet at batch 2N, `_txt2img_program` N prompts from pure noise, and
-both share the denoise loop, the VAE decode and the audio tail (codec,
-inverse mel, Griffin-Lim, int16). With a mesh, `riffuse_audio_batch` runs
-this rank's share of a data-parallel batch and gathers the clips
-(riffusion_tpu_torch/parallel/); a tensor-parallel request swaps in a
-split copy of the UNet (parallel/tp_serving.py).
+as torch operations, with the denoise loop as a Python loop over
+`schedulers.step`. A single request is a batch of one: `_generate` runs N
+riffuse requests with the UNet at batch 2N, `_txt2img_program` N prompts
+from pure noise, and both share the denoise loop, the VAE decode and the
+audio tail (codec, inverse mel, Griffin-Lim, int16). With a mesh,
+`riffuse_audio_batch` runs this rank's share of a data-parallel batch and
+gathers the clips (riffusion_tpu_torch/parallel/); a tensor-parallel
+request swaps in a split copy of the UNet (parallel/tp_serving.py).
+
+Each program is split as JAX's `_build_call` splits it. Its host part
+(`_riffuse_call`, and the first half of `_txt2img_program` and
+`_magic_mix_program`) picks the plan, embeds the text, prepares the image
+and the mask, uploads the guidance and slerp weights and draws every noise;
+its device program (`_riffuse_device`, `_txt2img_device`,
+`_magic_mix_device`) is a pure function of those tensors whose Python
+choices come from a key with JAX's names and parts (`_aot_key`: riffuse,
+riffuse_batch, txt2img, txt2img_batch, magic_mix). On the card the store
+(aot.py, `graph_store`) captures the device program into a CUDA graph on
+its key's first call and replays it after; on the CPU, under
+RIFFUSION_TPU_NO_AOT=1, and on the parallel/ paths it runs eagerly.
 
 Randomness. A request draws five tensors: the VAE reparameterization eps,
 the two seed noises `noise_a` / `noise_b`, and the two uniform Griffin-Lim
@@ -41,22 +53,26 @@ checkpoint_id), so a restarted server reads its boot prompts off disk.
 Each stage of a request runs inside a `torch.profiler.record_function` span
 (riffusion.text, .vae_encode, .denoise, .vae_decode, .audio), which a
 profiler attributes device time to (scripts/profile_torch_request.py); with
-no profiler running a span costs a few microseconds.
+no profiler running a span costs a few microseconds. A replayed graph is one
+launch to the profiler, so the device stages' spans are read from an eager
+run (RIFFUSION_TPU_NO_AOT=1).
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import threading
 import time
 import typing as T
+import weakref
 
 import numpy as np
 import torch
 from PIL import Image
 from torch.profiler import record_function
 
-from riffusion_tpu_torch import embed_cache
+from riffusion_tpu_torch import aot, embed_cache
 from riffusion_tpu_torch.audio.segment import AudioSegment
 from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
@@ -72,6 +88,35 @@ from riffusion_tpu_torch.util import audio_util, torch_util
 #: q-sample noise: drawn only by the paths that use them.
 ANCESTRAL, LATENTS, MIX_NOISE = "ancestral", "latents", "noise"
 NoiseSource = T.Callable[[str, T.Tuple[int, ...], torch.device], torch.Tensor]
+
+
+#: The Griffin-Lim iterations that JAX's single-request key names (its
+#: `_riffuse_program` default; the iterations the audio runs come from the
+#: spectrogram parameters, also in the key).
+_NUM_GL_ITERS = 32
+
+
+def _aot_key(name: str, *parts: T.Any) -> str:
+    """Readable, filesystem-safe key of a program's configuration: the
+    port's copy of riffusion_tpu/riffusion_pipeline.py `_aot_key`. Long or
+    structured parts (SpectrogramParams) are folded into a short digest."""
+    toks = []
+    for p in parts:
+        s = "none" if p is None else str(p)
+        if len(s) > 24 or not s.replace("-", "").replace(".", "").isalnum():
+            s = hashlib.sha256(s.encode()).hexdigest()[:10]
+        toks.append(s)
+    return "-".join([name] + toks)
+
+
+class _Program(T.NamedTuple):
+    """What a host part hands to the device: `fn`, a pure function of the
+    tensors (or None) in `args`, whose Python choices all come from `key`;
+    without a key it runs eagerly."""
+
+    key: T.Optional[str]
+    fn: T.Callable
+    args: T.Tuple[T.Optional[torch.Tensor], ...]
 
 
 def _derived_seed(seed: int, salt: int) -> int:
@@ -251,6 +296,8 @@ class RiffusionPipeline:
         self._converters: T.Dict[SpectrogramParams, SpectrogramConverter] = {}
         # One program is queued on the device at a time (see _dispatch).
         self._dispatch_lock = threading.Lock()
+        # The device programs captured as CUDA graphs, by key (aot.py)
+        self.graph_store = aot.GraphStore()
 
     @classmethod
     def load_checkpoint(
@@ -408,13 +455,44 @@ class RiffusionPipeline:
         unet: T.Optional[torch.nn.Module] = None,
         routed_batch: T.Optional[int] = None,
         strength: T.Optional[float] = None,
+        name: str = "riffuse_batch",
     ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
         """N requests as one program on the device: the (N, H, W, 3) uint8
-        images and, with `fused_params`, the (N, C, L) int16 waveforms.
-        `init_images` holds one shared seed image (encoded once) or one per
-        request; one mask applies to every request. Request i draws its
-        noise from noises[i] with the single request's names and shapes, so
-        its result does not depend on its batch position.
+        images and, with `fused_params`, the (N, C, L) int16 waveforms. The
+        host part (`_riffuse_call`) and then the device program through the
+        store (`_run_program`); `name` is the key's ("riffuse" for a single
+        request's call, as the JAX package keys its `_riffuse_program`)."""
+        return self._run_program(self._riffuse_call(
+            inputs_list, init_images, mask_image, use_reweighting, fused_params, noises,
+            scheduler, share=share, unet=unet, routed_batch=routed_batch, strength=strength,
+            name=name,
+        ))
+
+    def _riffuse_call(
+        self,
+        inputs_list: T.Sequence[InferenceInput],
+        init_images: T.Sequence[Image.Image],
+        mask_image: T.Optional[Image.Image],
+        use_reweighting: bool,
+        fused_params: T.Optional[SpectrogramParams],
+        noises: T.Optional[T.Sequence[NoiseSource]],
+        scheduler: T.Optional[str],
+        *,
+        share: T.Optional[T.Tuple[int, int]] = None,
+        unet: T.Optional[torch.nn.Module] = None,
+        routed_batch: T.Optional[int] = None,
+        strength: T.Optional[float] = None,
+        name: str = "riffuse_batch",
+    ) -> _Program:
+        """The host part of N riffuse requests, as JAX's `_build_call`: the
+        plan, the text embeddings, the image and the mask, the guidance and
+        slerp weights, and every noise draw; and the device program
+        (`_riffuse_device`) that takes them. `init_images` holds one shared
+        seed image (encoded once) or one per request; one mask applies to
+        every request. Request i draws its noise from noises[i] with the
+        single request's names and shapes, so its result does not depend on
+        its batch position, nor on whether its program was captured or
+        replayed.
 
         With `share` (start, stop), only those requests run (a rank's share
         of a data-parallel batch), as they would in the whole batch: the
@@ -423,7 +501,9 @@ class RiffusionPipeline:
         the share's text is encoded), and the attention sites route at its
         UNet batch, 2N. `unet` replaces the pipeline's UNet;
         `routed_batch` the UNet batch the sites route at, and `strength`
-        the batch's denoising strength (FrameSweep passes both)."""
+        the batch's denoising strength (FrameSweep passes both). A call
+        with any of these four (the parallel/ paths) has no key: it runs
+        eagerly, as the JAX package sends those paths to a plain jit."""
         n = len(inputs_list)
         steps = {inp.num_inference_steps for inp in inputs_list}
         if len(steps) != 1:
@@ -440,10 +520,10 @@ class RiffusionPipeline:
                 f"{sorted(set(round(s, 4) for s in strengths))}); split the "
                 "batch by strength or use serving.DynamicBatcher"
             )
-        plan, noise_timestep = self._plan(
-            scheduler or self.bundle.scheduler_name, steps.pop(),
-            float(np.mean(strengths)) if strength is None else strength,
-        )
+        scheduler_name = scheduler or self.bundle.scheduler_name
+        num_steps = steps.pop()
+        batch_strength = float(np.mean(strengths)) if strength is None else strength
+        plan, noise_timestep = self._plan(scheduler_name, num_steps, batch_strength)
         dev = self.device
         if noises is not None and len(noises) != n:
             raise ValueError(f"need one noise source per request: {len(noises)} for {n}")
@@ -453,13 +533,14 @@ class RiffusionPipeline:
             seq = max(self._embedding_length(inp, use_reweighting) for inp in inputs_list)
             inputs_list = inputs_list[rows]
             pairs = [self._embedding_pair(inp, use_reweighting) for inp in inputs_list]
-        if len(init_images) > 1:
+        per_item_image = len(init_images) > 1
+        if per_item_image:
             init_images = init_images[rows]
         if noises is None:
             noises = [GeneratorNoise(inp.start.seed, inp.end.seed, dev) for inp in inputs_list]
         else:
             noises = noises[rows]
-        routed_batch = 2 * n if routed_batch is None else routed_batch
+        routed = 2 * n if routed_batch is None else routed_batch
         n = len(inputs_list)
         alphas = [float(inp.alpha) for inp in inputs_list]
         guidance = torch.tensor(
@@ -467,6 +548,9 @@ class RiffusionPipeline:
              for inp, a in zip(inputs_list, alphas)],
             dtype=torch.float32, device=dev,
         ).view(n, 1, 1, 1)
+        # slerp's (t, 1 - t) per request, the difference taken in float64 as
+        # a Python float's is
+        weights = torch.tensor([[a, 1.0 - a] for a in alphas], dtype=torch.float32, device=dev)
         text_emb = torch.cat(
             [self._pad_seq(u, seq) for u, _ in pairs] + [self._pad_seq(c, seq) for _, c in pairs]
         )
@@ -481,43 +565,92 @@ class RiffusionPipeline:
             mask_np = preprocess_mask(mask_image, scale_factor=8, size=(width // 8, height // 8))
             mask = torch.from_numpy(mask_np).to(dev).permute(0, 3, 1, 2)
 
+        shape = self._latent_shape(height, width)
+        vae_eps, noise_a, noise_b = (torch.cat([nz(draw, shape, dev) for nz in noises])
+                                     for draw in ("vae_eps", "noise_a", "noise_b"))
+        ancestral = None
+        if sched.draws_noise(plan):
+            ancestral = torch.cat(
+                [nz(ANCESTRAL, (plan.num_steps,) + shape, dev) for nz in noises], dim=1
+            )
+        gl_real, gl_imag = self._phase_draws(fused_params, width, noises)
+        key = None
+        if share is None and unet is None and routed_batch is None and strength is None:
+            t_start = img2img_start(num_steps, batch_strength, self.noise_config)[0]
+            config = (scheduler_name, num_steps, t_start, noise_timestep, f"{height}x{width}",
+                      f"L{seq}")
+            key = (_aot_key("riffuse", *config, f"m{int(mask is not None)}",
+                            repr(fused_params), _NUM_GL_ITERS) if name == "riffuse" else
+                   _aot_key("riffuse_batch", *config, f"b{n}", repr(fused_params),
+                            f"p{int(per_item_image)}", f"m{int(mask is not None)}"))
+        program = functools.partial(RiffusionPipeline._riffuse_device, weakref.proxy(self),
+                                    plan, noise_timestep, fused_params, routed, unet)
+        return _Program(key, program, (text_emb, image, mask, guidance, weights, vae_eps,
+                                       noise_a, noise_b, ancestral, gl_real, gl_imag))
+
+    def _riffuse_device(
+        self, plan: sched.SchedulerPlan, noise_timestep: int,
+        fused_params: T.Optional[SpectrogramParams], routed_batch: int,
+        unet: T.Optional[torch.nn.Module], text_emb: torch.Tensor, image: torch.Tensor,
+        mask: T.Optional[torch.Tensor], guidance: torch.Tensor, weights: torch.Tensor,
+        vae_eps: torch.Tensor, noise_a: torch.Tensor, noise_b: torch.Tensor,
+        ancestral: T.Optional[torch.Tensor], gl_real: T.Optional[torch.Tensor],
+        gl_imag: T.Optional[torch.Tensor],
+    ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
+        """The device program of N riffuse requests, a pure function of its
+        tensors: VAE encode, the seed noises' slerp, noising, the denoise
+        loop, the VAE decode and the audio tail. Its Python arguments (the
+        plan, the noising timestep, the spectrogram parameters, the routed
+        batch, a replacement UNet) come from the call's key."""
         scale = self.bundle.vae_config.scaling_factor
         with record_function("riffusion.vae_encode"):
             mean, logvar = self.vae.encode_moments(image)
-            shape = (1,) + tuple(mean.shape[1:])
-            eps = torch.cat([nz("vae_eps", shape, dev) for nz in noises])
-            init_latents = (scale * self.vae.sample(mean, logvar, eps)).to(torch.float32)
+            init_latents = (scale * self.vae.sample(mean, logvar, vae_eps)).to(torch.float32)
         seed_noise = torch.cat([
-            torch_util.slerp(a, nz("noise_a", shape, dev), nz("noise_b", shape, dev))
-            for a, nz in zip(alphas, noises)
+            torch_util.slerp(weights[i, 0], noise_a[i:i + 1], noise_b[i:i + 1],
+                             one_minus_t=weights[i, 1])
+            for i in range(weights.shape[0])
         ])
         if plan.name in sched.SIGMA_BASED:
             # the k-diffusion samplers start at x0 + sigma_0 * eps
             latents = sched.add_noise_sigma(plan, init_latents, seed_noise, 0)
         else:
             latents = sched.add_noise(self.noise_config, init_latents, seed_noise, noise_timestep)
-        ancestral = None
-        if sched.draws_noise(plan):
-            ancestral = torch.cat(
-                [nz(ANCESTRAL, (plan.num_steps,) + shape, dev) for nz in noises], dim=1
-            )
         with record_function("riffusion.denoise"), attention_ops.route_batch(routed_batch):
             latents = self._denoise(
                 plan, latents, text_emb, guidance, mask, init_latents, seed_noise, ancestral,
                 unet=unet,
             )
-        return self._decode_and_audio(latents, fused_params, noises)
+        return self._decode_and_audio(latents, fused_params, gl_real, gl_imag)
+
+    def _latent_shape(self, height: int, width: int) -> T.Tuple[int, int, int, int]:
+        """One request's latent shape for an image of height x width."""
+        cfg = self.bundle.vae_config
+        factor = 2 ** (len(cfg.block_out_channels) - 1)
+        return (1, cfg.latent_channels, height // factor, width // factor)
+
+    def _phase_draws(
+        self, fused_params: T.Optional[SpectrogramParams], width: int,
+        noises: T.Sequence[NoiseSource],
+    ) -> T.Tuple[T.Optional[torch.Tensor], T.Optional[torch.Tensor]]:
+        """Each request's Griffin-Lim phase, "gl_real" and "gl_imag" of
+        (C, n_active, width), concatenated over the requests (None, None
+        without audio)."""
+        if fused_params is None:
+            return None, None
+        shape = (2 if fused_params.stereo else 1, self.converter(fused_params).n_active, width)
+        return tuple(torch.cat([nz(draw, shape, self.device) for nz in noises])
+                     for draw in ("gl_real", "gl_imag"))
 
     def _decode_and_audio(
         self, latents: torch.Tensor, fused_params: T.Optional[SpectrogramParams],
-        noises: T.Sequence[NoiseSource],
+        gl_real: T.Optional[torch.Tensor], gl_imag: T.Optional[torch.Tensor],
     ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
         """The tail every generating program shares: the VAE decode of N
         latents to (N, H, W, 3) uint8 images and, with `fused_params`, the
-        codec -> inverse mel -> Griffin-Lim -> int16 waveforms (N, C, L),
-        request i's Griffin-Lim phase drawn from noises[i]."""
+        codec -> inverse mel -> Griffin-Lim -> int16 waveforms (N, C, L)
+        from the drawn phase (`_phase_draws`)."""
         n = latents.shape[0]
-        dev = self.device
         with record_function("riffusion.vae_decode"):
             decoded = self.vae.decode(latents / self.bundle.vae_config.scaling_factor)
             images_u8 = torch.stack(
@@ -535,13 +668,17 @@ class RiffusionPipeline:
                 codes, fused_params.power_for_image, max_value=30e6
             )  # (N * C, F, T): Griffin-Lim treats every row alike
             channels = mel_amps.shape[0] // n
-            phase_shape = (channels, converter.n_active, mel_amps.shape[2])
             waveforms = converter.waveform_from_mel_amplitudes(
-                mel_amps,
-                init_real=torch.cat([nz("gl_real", phase_shape, dev) for nz in noises]),
-                init_imag=torch.cat([nz("gl_imag", phase_shape, dev) for nz in noises]),
-            )
+                mel_amps, init_real=gl_real, init_imag=gl_imag)
             return images_u8, _waveform_to_int16(waveforms.view(n, channels, -1))
+
+    def _run_program(self, program: _Program) -> T.Any:
+        """A device program through the store (aot.py): captured on its key's
+        first call and replayed after, on the card with the store on; run
+        eagerly on the CPU, without a key, or under RIFFUSION_TPU_NO_AOT=1."""
+        if program.key is None or not aot.captures(self.device):
+            return program.fn(*program.args)
+        return self.graph_store.program(program.key, program.fn)(*program.args)
 
     def _dispatch(
         self, *args, **kwargs
@@ -553,19 +690,22 @@ class RiffusionPipeline:
     def _dispatch_program(
         self, program: T.Callable, *args, **kwargs
     ) -> T.Callable[[], T.Tuple[np.ndarray, T.Optional[np.ndarray]]]:
-        """Queue `program(*args)` on the device and the copies of its
-        results (images, waveforms or None) to the host; return a function
-        that waits for the copies.
+        """Queue `program(*args)` (a host part and its device program) on
+        the device and the copies of its results (images, waveforms or None)
+        to the host; return a function that waits for the copies.
 
         On CUDA the copies go into pinned host memory behind an event, so
         the waiting function (the DynamicBatcher calls it from its finalizer
         thread) blocks on this batch only, not on work queued after it on
-        the device's stream.
+        the device's stream; it waits under aot.CAPTURE_LOCK, so that it
+        never synchronises while a graph is being captured.
 
         Threads take turns here: a server thread's /run_inference_batch/
         and the batcher's worker never queue two programs at once, so the
-        device holds one program's memory at a time and the kernel counters
-        (ops.attention.COUNTS) count one program's launches together."""
+        device holds one program's memory at a time, the kernel counters
+        (ops.attention.COUNTS) count one program's launches together, and
+        the store's graphs, which share one memory pool, replay one at a
+        time with their outputs copied out before the next (aot.py)."""
         with self._dispatch_lock:
             outputs = program(*args, **kwargs)
             if self.device.type != "cuda":
@@ -581,7 +721,8 @@ class RiffusionPipeline:
             done.record()
 
         def wait() -> T.Tuple[np.ndarray, T.Optional[np.ndarray]]:
-            done.synchronize()
+            with aot.CAPTURE_LOCK:
+                done.synchronize()
             return tuple(None if h is None else h.numpy() for h in host)
 
         return wait
@@ -602,7 +743,7 @@ class RiffusionPipeline:
         `scheduler` overrides the bundle's (e.g. "unipc_k:rho=2")."""
         images, _ = self._dispatch(
             [inputs], [init_image], mask_image, use_reweighting, None,
-            None if noise is None else [noise], scheduler,
+            None if noise is None else [noise], scheduler, name="riffuse",
         )()
         return Image.fromarray(images[0], mode="RGB")
 
@@ -632,12 +773,14 @@ class RiffusionPipeline:
         noise: T.Optional[NoiseSource] = None,
     ) -> T.Tuple[Image.Image, AudioSegment]:
         """Spectrogram image AND reconstructed audio; the image never goes
-        through PIL on its way to Griffin-Lim. A batch of one."""
-        return self.riffuse_audio_batch(
-            [inputs], init_image, params=params, use_reweighting=use_reweighting,
-            apply_filters=apply_filters, mask_image=mask_image, scheduler=scheduler,
-            noises=None if noise is None else [noise],
-        )[0]
+        through PIL on its way to Griffin-Lim. A batch of one, under the
+        single request's key ("riffuse", as JAX's `_riffuse_program`)."""
+        params = params or SpectrogramParams()
+        images_np, waveforms_np = self._dispatch(
+            [inputs], [init_image], mask_image, use_reweighting, params,
+            None if noise is None else [noise], scheduler, name="riffuse",
+        )()
+        return self._results(images_np, waveforms_np, params, apply_filters)[0]
 
     def riffuse_audio_batch(
         self,
@@ -728,13 +871,16 @@ class RiffusionPipeline:
         self, prompts: T.Sequence[str], negative_prompts: T.Sequence[T.Optional[str]],
         guidances: T.Sequence[float], num_steps: int, width: int, height: int, scheduler: str,
         fused_params: T.Optional[SpectrogramParams], noises: T.Sequence[NoiseSource],
+        name: str = "txt2img_batch",
     ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
         """N text-to-image generations as one program on the device: each
         weighted prompt against its negative one, the UNet at batch 2N with
         per-item guidance; the (N, H, W, 3) uint8 images and, with
         `fused_params`, the (N, C, L) int16 waveforms. Request i draws
         "latents" (and euler_a's "ancestral", and the phase) from noises[i]
-        with a single request's shapes."""
+        with a single request's shapes. The host part here, the device
+        program (`_txt2img_device`) through the store under JAX's key:
+        "txt2img" for `txt2img`'s single image, else "txt2img_batch"."""
         n = len(prompts)
         plan = sched.make_plan(scheduler, num_steps, 0, self.noise_config)
         dev = self.device
@@ -746,17 +892,35 @@ class RiffusionPipeline:
                        for neg in negative_prompts]
             text_emb = torch.cat(unconds + conds, dim=0)
         shape = (1, self.unet.cfg.in_channels, height // 8, width // 8)
-        latents = torch.cat([nz(LATENTS, shape, dev) for nz in noises]).to(torch.float32)
-        latents = latents * plan.init_noise_sigma
+        latents = torch.cat([nz(LATENTS, shape, dev) for nz in noises])
         ancestral = None
         if sched.draws_noise(plan):
             ancestral = torch.cat([nz(ANCESTRAL, (plan.num_steps,) + shape, dev) for nz in noises],
                                   dim=1)
         guidance = torch.tensor([float(g) for g in guidances], dtype=torch.float32,
                                 device=dev).view(n, 1, 1, 1)
+        gl_real, gl_imag = self._phase_draws(fused_params, width, noises)
+        config = (scheduler, num_steps, f"{height}x{width}", f"L{seq}")
+        key = (_aot_key("txt2img", *config) if name == "txt2img" else
+               _aot_key("txt2img_batch", *config, f"b{n}", repr(fused_params)))
+        program = functools.partial(RiffusionPipeline._txt2img_device, weakref.proxy(self),
+                                    plan, fused_params)
+        return self._run_program(_Program(key, program, (text_emb, latents, guidance,
+                                                         ancestral, gl_real, gl_imag)))
+
+    def _txt2img_device(
+        self, plan: sched.SchedulerPlan, fused_params: T.Optional[SpectrogramParams],
+        text_emb: torch.Tensor, latents: torch.Tensor, guidance: torch.Tensor,
+        ancestral: T.Optional[torch.Tensor], gl_real: T.Optional[torch.Tensor],
+        gl_imag: T.Optional[torch.Tensor],
+    ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
+        """The device program of N text-to-image generations: the drawn
+        latents at the plan's init_noise_sigma, the denoise loop, the VAE
+        decode and the audio tail."""
+        latents = latents.to(torch.float32) * plan.init_noise_sigma
         with record_function("riffusion.denoise"):
             latents = self._denoise(plan, latents, text_emb, guidance, None, None, None, ancestral)
-        return self._decode_and_audio(latents, fused_params, noises)
+        return self._decode_and_audio(latents, fused_params, gl_real, gl_imag)
 
     def txt2img_audio_batch(
         self,
@@ -790,9 +954,19 @@ class RiffusionPipeline:
             noises = [GeneratorNoise(s, s, self.device) for s in seeds]
         if len(noises) != n:
             raise ValueError(f"need one noise source per prompt: {len(noises)} for {n}")
+        return self._txt2img_results(prompts, negative_prompts, guidances, num_inference_steps,
+                                     width, height, scheduler, params, apply_filters, noises,
+                                     "txt2img_batch")
+
+    def _txt2img_results(
+        self, prompts: T.Sequence[str], negative_prompts: T.Sequence[T.Optional[str]],
+        guidances: T.Sequence[float], num_steps: int, width: int, height: int,
+        scheduler: T.Optional[str], params: T.Optional[SpectrogramParams], apply_filters: bool,
+        noises: T.Sequence[NoiseSource], name: str,
+    ) -> T.List[T.Tuple[Image.Image, T.Optional[AudioSegment]]]:
         images_np, waveforms_np = self._dispatch_program(
-            self._txt2img_program, prompts, negative_prompts, guidances, num_inference_steps,
-            width, height, scheduler or self.bundle.scheduler_name, params, noises,
+            self._txt2img_program, prompts, negative_prompts, guidances, num_steps,
+            width, height, scheduler or self.bundle.scheduler_name, params, noises, name,
         )()
         if waveforms_np is None:
             return [(Image.fromarray(im, mode="RGB"), None) for im in images_np]
@@ -814,10 +988,12 @@ class RiffusionPipeline:
         """Plain text-to-image generation: the denoise loop from pure noise
         at the plan's init_noise_sigma, the weighted prompt against the
         negative one. `noise` draws "latents" (and euler_a's "ancestral");
-        by default GeneratorNoise of `seed`. A batch of one, without audio."""
-        return self.txt2img_audio_batch(
-            [prompt], [negative_prompt], [seed], num_inference_steps, [guidance], width, height,
-            scheduler, params=None, noises=None if noise is None else [noise],
+        by default GeneratorNoise of `seed`. A batch of one, without audio,
+        under JAX's "txt2img" key."""
+        noise = noise or GeneratorNoise(seed, seed, self.device)
+        return self._txt2img_results(
+            [prompt], [negative_prompt], [guidance], num_inference_steps, width, height,
+            scheduler, None, False, [noise], "txt2img",
         )[0][0]
 
     def img2img(
@@ -848,7 +1024,9 @@ class RiffusionPipeline:
         scheduler: str, t_start: int, noise_timestep: int, kmin_t: int, mix_factor: float,
         noise: NoiseSource,
     ) -> T.Tuple[torch.Tensor, None]:
-        """One MagicMix program: the (1, H, W, 3) uint8 image on the device."""
+        """One MagicMix program: the (1, H, W, 3) uint8 image on the device.
+        The host part here, the device program (`_magic_mix_device`) through
+        the store under JAX's "magic_mix" key."""
         plan = sched.make_plan(scheduler, num_steps, t_start, self.noise_config)
         dev = self.device
         with record_function("riffusion.text"):
@@ -856,32 +1034,48 @@ class RiffusionPipeline:
             uncond = self._uncond_embedding(None, cond.shape[1]).to(cond.dtype)
             text_emb = torch.cat([uncond, cond], dim=0)
         image = torch.from_numpy(preprocess_image(init_image)).to(dev).permute(0, 3, 1, 2)
+        height, width = image.shape[2], image.shape[3]
+        shape = self._latent_shape(height, width)
+        vae_eps, q_noise = noise("vae_eps", shape, dev), noise(MIX_NOISE, shape, dev)
+        ancestral = noise(ANCESTRAL, (plan.num_steps,) + shape, dev) \
+            if sched.draws_noise(plan) else None
+        g = torch.full((1, 1, 1, 1), float(guidance), dtype=torch.float32, device=dev)
+        key = _aot_key("magic_mix", scheduler, num_steps, t_start, noise_timestep,
+                       f"{height}x{width}", f"L{text_emb.shape[1]}", kmin_t, mix_factor)
+        program = functools.partial(RiffusionPipeline._magic_mix_device, weakref.proxy(self),
+                                    plan, noise_timestep, kmin_t, mix_factor)
+        return self._run_program(_Program(key, program, (text_emb, image, g, vae_eps, q_noise,
+                                                         ancestral)))
+
+    def _magic_mix_device(
+        self, plan: sched.SchedulerPlan, noise_timestep: int, kmin_t: int, mix_factor: float,
+        text_emb: torch.Tensor, image: torch.Tensor, guidance: torch.Tensor,
+        vae_eps: torch.Tensor, q_noise: torch.Tensor, ancestral: T.Optional[torch.Tensor],
+    ) -> T.Tuple[torch.Tensor, None]:
+        """The device program of one MagicMix request: the original's
+        latent, its noising at the start, and the denoise loop with the
+        q-sampled original blended in while t > kmin."""
         with record_function("riffusion.vae_encode"):
             mean, logvar = self.vae.encode_moments(image)
-            shape = tuple(mean.shape)
-            orig = self.bundle.vae_config.scaling_factor * self.vae.sample(
-                mean, logvar, noise("vae_eps", shape, dev))
+            orig = self.bundle.vae_config.scaling_factor * self.vae.sample(mean, logvar, vae_eps)
             orig = orig.to(torch.float32)
-        q_noise = noise(MIX_NOISE, shape, dev)
         if plan.name in sched.SIGMA_BASED:
             latents = sched.add_noise_sigma(plan, orig, q_noise, 0)
         else:
             latents = sched.add_noise(self.noise_config, orig, q_noise, noise_timestep)
-        ancestral = noise(ANCESTRAL, (plan.num_steps,) + shape, dev) \
-            if sched.draws_noise(plan) else None
 
         def blend(i: int, lat: torch.Tensor) -> torch.Tensor:
-            # layout from the image while t > kmin: the q-sampled original
+            # layout from the image while t > kmin: the q-sampled original,
+            # from the program's own tensors and the plan's Python floats
             if int(plan.timesteps[i]) <= kmin_t:
                 return lat
             q_sampled = sched.add_noise_at_index(plan, self.noise_config, orig, q_noise, i)
             return q_sampled * (1.0 - mix_factor) + lat * mix_factor
 
-        g = torch.full((1, 1, 1, 1), float(guidance), dtype=torch.float32, device=dev)
         with record_function("riffusion.denoise"):
-            latents = self._denoise(plan, latents, text_emb, g, None, None, None, ancestral,
+            latents = self._denoise(plan, latents, text_emb, guidance, None, None, None, ancestral,
                                     blend=blend)
-        return self._decode_and_audio(latents, None, [noise])
+        return self._decode_and_audio(latents, None, None, None)
 
     def img2img_magic_mix(
         self,
@@ -938,19 +1132,24 @@ class RiffusionPipeline:
     ) -> T.Dict[str, T.Any]:
         """A first request timed by stage, for restart diagnostics:
 
-        - host_prep_s: the text encode (the disk cache's hits and misses are
-          `embed_cache_hits` / `embed_cache_misses`) and the plan;
+        - host_prep_s: the request's host part (`_riffuse_call`: the text
+          encode, whose disk-cache hits and misses are `embed_cache_hits` /
+          `embed_cache_misses`, the plan, the image and the noise draws);
         - weights_ready_s: a synchronised read of one element of the
           largest UNet and VAE tensors;
         - kernel_build_s: what ops/attention.py's loader spent on the
           forward kernels (nvcc, or loading an earlier build), with
           kernel_source "built" or "cached" by whether csrc/build/ already
           held them ("none" on the CPU, which runs no kernel);
-        - execute_s: the request through readback.
+        - source, warmup_s, capture_s: how the request's CUDA graph was
+          obtained (aot.GraphProgram.stage_report): "captured" now (its
+          warm-up run and its capture, the counterparts of JAX's
+          trace_lower_s and compile_s) or "replayed" (captured earlier:
+          both 0); "eager" with both 0 on the CPU or with the store off;
+        - execute_s: the request through readback (a replay on the card).
 
-        Eager torch has no trace, lower, compile or executable-load stage,
-        so the JAX report's trace_lower_s, compile_s and aot_load_s have no
-        counterpart here."""
+        A restart cannot load a graph from disk (aot.py), so JAX's
+        aot_load_s has no counterpart."""
         from riffusion_tpu_torch.ops import attention
 
         params = params or SpectrogramParams()
@@ -959,10 +1158,8 @@ class RiffusionPipeline:
         hits, misses = disk.hits, disk.misses
         t0 = time.perf_counter()
         with torch.inference_mode():
-            self._embedding_pair(inputs, True)
-            strength = ((1.0 - float(inputs.alpha)) * inputs.start.denoising
-                        + float(inputs.alpha) * inputs.end.denoising)
-            self._plan(self.bundle.scheduler_name, inputs.num_inference_steps, strength)
+            program = self._riffuse_call([inputs], [init_image], None, True, params, None, None,
+                                         name="riffuse")
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         report["host_prep_s"] = time.perf_counter() - t0
@@ -986,10 +1183,29 @@ class RiffusionPipeline:
             report["kernel_build_s"] = 0.0
             report["kernel_source"] = "none"
 
+        if aot.captures(self.device):
+            with self._dispatch_lock, torch.inference_mode():
+                stage = self.graph_store.program(program.key, program.fn).stage_report(
+                    *program.args)
+            report.update(source=stage["source"], warmup_s=stage["warmup_s"],
+                          capture_s=stage["capture_s"])
+        else:
+            report.update(source="eager", warmup_s=0.0, capture_s=0.0)
+
         t0 = time.perf_counter()
         self.riffuse_audio(inputs, init_image, params=params)
         report["execute_s"] = time.perf_counter() - t0
         return report
+
+
+def img2img_start(
+    num_steps: int, strength: float, noise_config: sched.NoiseConfig = sched.NoiseConfig(),
+) -> T.Tuple[int, int]:
+    """(t_start, init_timestep) of an img2img run: the plan position it
+    starts at, and how many steps from the end its start noise sits."""
+    offset = noise_config.steps_offset
+    init_timestep = min(int(num_steps * strength) + offset, num_steps)
+    return max(num_steps - init_timestep + offset, 0), init_timestep
 
 
 def img2img_plan(
@@ -998,9 +1214,7 @@ def img2img_plan(
 ) -> T.Tuple[sched.SchedulerPlan, int]:
     """The img2img plan for a denoising strength, and the DDPM timestep
     that PNDM's start noising uses."""
-    offset = noise_config.steps_offset
-    init_timestep = min(int(num_steps * strength) + offset, num_steps)
-    t_start = max(num_steps - init_timestep + offset, 0)
+    t_start, init_timestep = img2img_start(num_steps, strength, noise_config)
     full_plan = sched.make_plan(scheduler_name, num_steps, 0, noise_config)
     noise_timestep = int(full_plan.timesteps[-init_timestep])
     return sched.make_plan(scheduler_name, num_steps, t_start, noise_config), noise_timestep

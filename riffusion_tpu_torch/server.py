@@ -292,8 +292,11 @@ class RiffusionThreadingServer(ThreadingMixIn, RiffusionServer):
 def _warmup(pipeline: RiffusionPipeline, seed_images_dir: T.Union[str, Path], steps: int,
             batch_sizes: T.Sequence[int], batch_steps: int,
             batch_scheduler: T.Optional[str]) -> None:
-    """Run the standard request, and a batch of each size, once: the first
-    call of a process sets up cuDNN, cuBLAS, cuFFT and builds the kernels."""
+    """Run the standard request, and a batch of each size, once: each one's
+    program is captured into its CUDA graph (riffusion_tpu_torch/aot.py;
+    the warm-up run builds the kernels and sets up cuDNN, cuBLAS and cuFFT),
+    so that the first request of each key replays it. The counterpart of
+    the JAX server fetching its programs while the model loads."""
     seed_path = Path(seed_images_dir) / "og_beat.png"
     if seed_path.exists():
         init = PIL.Image.open(seed_path).convert("RGB")
@@ -310,6 +313,10 @@ def _warmup(pipeline: RiffusionPipeline, seed_images_dir: T.Union[str, Path], st
 
     logger.info("warmup: the standard request...")
     pipeline.riffuse_audio(request(0, steps), init_image=init, params=params)
+    if batch_sizes:  # the batcher runs a lone request as one riffuse_audio
+        logger.info("warmup: a lone request of the batcher's...")
+        pipeline.riffuse_audio(request(0, batch_steps), init_image=init, params=params,
+                               scheduler=batch_scheduler)
     for size in batch_sizes:
         logger.info(f"warmup: a batch of {size}...")
         pipeline.riffuse_audio_batch([request(i, batch_steps) for i in range(size)], init,
@@ -416,7 +423,8 @@ def parse_args(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
     parser.add_argument("--no-traced-unet", action="store_true",
                         help="accepted for the reference's command line; no effect")
     parser.add_argument("--warmup", action="store_true",
-                        help="run the standard request (and each batch size) at startup")
+                        help="capture the standard request's program (and each batch "
+                             "size's) into its CUDA graph at startup")
     parser.add_argument("--warmup-steps", type=int, default=50)
     parser.add_argument("--dynamic-batching", action="store_true",
                         help="coalesce concurrent requests into batched programs")

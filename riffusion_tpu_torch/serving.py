@@ -17,6 +17,9 @@ and every caller gets its own result back.
   for the H100 is open work.
 - Only requests with the same program signature batch together (seed
   image, mask, step count, strength to 3 decimals, resolved scheduler).
+- Each bucket size and strength is a program key of the pipeline's store
+  (riffusion_tpu_torch/aot.py): its first launch captures the CUDA graph,
+  later launches replay it.
 """
 
 from __future__ import annotations

@@ -12,6 +12,8 @@ for the card can never carry on on the host.
 
 from __future__ import annotations
 
+import typing as T
+
 import torch
 
 
@@ -53,13 +55,19 @@ def configure_numerics() -> None:
 
 
 def slerp(
-    t: float, v0: torch.Tensor, v1: torch.Tensor, dot_threshold: float = 0.9995
+    t: T.Union[float, torch.Tensor], v0: torch.Tensor, v1: torch.Tensor,
+    dot_threshold: float = 0.9995, one_minus_t: T.Union[float, torch.Tensor, None] = None,
 ) -> torch.Tensor:
     """Spherical interpolation between two tensors, with a lerp where they
-    are nearly parallel (jax_util.slerp)."""
+    are nearly parallel (jax_util.slerp). `t` may be a 0-dim float32 tensor
+    (an input of a captured program); `one_minus_t`, 1 - t, defaults to
+    that difference, and a caller with a tensor `t` passes it as the float32
+    rounding of the float64 difference, which is what a float `t` gives."""
+    if one_minus_t is None:
+        one_minus_t = 1.0 - t
     norm = torch.linalg.vector_norm(v0) * torch.linalg.vector_norm(v1)
     dot = torch.sum(v0 * v1) / torch.clamp(norm, min=1e-20)
-    lerp = (1.0 - t) * v0 + t * v1
+    lerp = one_minus_t * v0 + t * v1
 
     theta_0 = torch.arccos(torch.clamp(dot, -1.0, 1.0))
     sin_theta_0 = torch.sin(theta_0)

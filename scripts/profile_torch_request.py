@@ -1,21 +1,27 @@
 """
 Where one /run_inference/ request's time goes on the card, for the PyTorch
 port (riffusion_tpu_torch): the single-clip path at full SD v1 width
-(random weights), og_beat seed, 50 PNDM steps, default strength.
+(random weights), og_beat seed, 50 PNDM steps, default strength, run as the
+server runs it (its program captured into a CUDA graph and replayed,
+riffusion_tpu_torch/aot.py) and eagerly (RIFFUSION_TPU_NO_AOT=1).
 
     python scripts/profile_torch_request.py [--out result.json]
 
-Prints, and writes as JSON with --out:
-- the card's name and power limit;
-- the wall time of each of 5 requests after one warm-up request
-  (host clock, ending in torch.cuda.synchronize);
-- for one further request under torch.profiler: each pipeline stage's span
-  on the host and on the device (the riffusion.* record_function spans), the
-  device's busy time (the sum of kernel and copy times; one stream, so they
-  do not overlap) against the same request's wall time, the 15 kernels with
-  the most device time, and the attention kernel's share. The profiler slows
-  the host, so that request's idle share is larger than an unprofiled one's;
-  the unprofiled requests' device time is not measured.
+Prints, and writes as JSON with --out, the card's name and power limit and,
+for each of "graph" and "eager":
+- the wall time of the first request (with graphs: the warm-up and the
+  capture) and of 5 requests after it (host clock, ending in
+  torch.cuda.synchronize);
+- for one further request under torch.profiler: the device's busy time
+  (the sum of kernel and copy times; one stream, so they do not overlap)
+  against the request's wall time, the device operations, the 15 kernels
+  with the most device time, and the attention kernel's share. The
+  profiler slows the host, so an eager request's idle share is larger
+  under it than without it.
+- eager only: each pipeline stage's span on the host and on the device
+  (the riffusion.* record_function spans). A replayed graph is one launch
+  to the profiler, so the stages are read from the eager run, which runs
+  the same kernels.
 """
 
 from __future__ import annotations
@@ -77,62 +83,70 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    warmup_s = request(0)
-    walls = [request(1 + i) for i in range(5)]
-    print(f"warm-up request {warmup_s:.3f} s; requests {[round(w, 4) for w in walls]} s, "
-          f"median {statistics.median(walls):.4f} s", flush=True)
+    result = {"card": card, "checkpoint": "random:full"}
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
+        first_s = request(0)
+        walls = [request(1 + i) for i in range(5)]
+        print(f"{mode}: first request {first_s:.3f} s; requests {[round(w, 4) for w in walls]} "
+              f"s, median {statistics.median(walls):.4f} s", flush=True)
+        attn.COUNTS.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled_s = request(99)
+        result[mode] = _trace(prof, profiled_s, DeviceType.CUDA)
+        result[mode].update(first_request_s=first_s, request_s=walls,
+                            request_s_median=statistics.median(walls),
+                            attention_kernel_launches=attn.COUNTS.launches)
+        r = result[mode]
+        print(f"{mode}: profiled request {profiled_s:.4f} s: device busy "
+              f"{r['device_busy_ms']:.1f} ms (idle share {r['device_idle_share']}), "
+              f"{r['kernel_launches']} device ops, attention kernel "
+              f"{r['attention_kernel_ms']:.1f} ms over {attn.COUNTS.launches} launches")
+        for name, spans in r["stages"].items():
+            print(f"  {name}: " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
+        for k in r["top_kernels"]:
+            print(f"  {k['ms']:9.2f} ms {k['count']:6d}x {k['name'][:100]}")
+    os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
+    result["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps({mode: {k: v for k, v in result[mode].items()
+                             if k not in ("top_kernels", "stages")} for mode in ("graph", "eager")}))
+    return 0
 
-    attn.COUNTS.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_s = request(99)
 
+def _trace(prof, wall_s: float, cuda) -> dict:
+    """A profiled request's device side: busy time (kernels and copies),
+    idle share of `wall_s` (None where the trace shows no device work),
+    operations, the riffusion.* stage spans, the top kernels and the
+    attention kernel's time."""
     events = prof.events()
-    device_events = [e for e in events if e.device_type == DeviceType.CUDA]
     stages: dict = {}
     for e in events:
         if not e.name.startswith("riffusion."):
             continue
         entry = stages.setdefault(e.name, {})
-        side = "device_span_ms" if e.device_type == DeviceType.CUDA else "host_span_ms"
+        side = "device_span_ms" if e.device_type == cuda else "host_span_ms"
         entry[side] = entry.get(side, 0.0) + e.time_range.elapsed_us() / 1e3
-    kernels = [e for e in device_events if not e.name.startswith("riffusion.")]
+    kernels = [e for e in events if e.device_type == cuda and not e.name.startswith("riffusion.")]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name: dict = {}
     for e in kernels:
         total, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + e.time_range.elapsed_us() / 1e3, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    attn_ms = sum(t for name, (t, _) in by_name.items()
-                  if any(key in name for key in ATTENTION_KERNELS))
-
-    result = {
-        "card": card,
-        "checkpoint": "random:full",
-        "warmup_request_s": warmup_s,
-        "request_s": walls,
-        "request_s_median": statistics.median(walls),
-        "profiled_request_s": profiled_s,
+    return {
+        "profiled_request_s": wall_s,
         "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / (profiled_s * 1e3),
+        "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3) if kernels else None,
         "kernel_launches": len(kernels),
-        "attention_kernel_ms": attn_ms,
-        "attention_kernel_launches": attn.COUNTS.launches,
+        "attention_kernel_ms": sum(t for name, (t, _) in by_name.items()
+                                   if any(key in name for key in ATTENTION_KERNELS)),
         "stages": stages,
         "top_kernels": [{"name": n[:120], "ms": t, "count": c} for n, (t, c) in top],
-        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    print(f"profiled request {profiled_s:.4f} s: device busy {busy_ms:.1f} ms "
-          f"(idle share {result['device_idle_share']:.3f}), {len(kernels)} device ops, "
-          f"attention kernel {attn_ms:.1f} ms over {attn.COUNTS.launches} launches")
-    for name, spans in stages.items():
-        print(f"  {name}: " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
-    for name, (t, c) in top:
-        print(f"  {t:9.2f} ms {c:6d}x {name[:100]}")
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
-    print(json.dumps({k: v for k, v in result.items() if k not in ("top_kernels", "stages")}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -199,7 +199,8 @@ def test_disk_cached_embeddings_match_jax(cache_dir, jax_tiny):
 
 
 def test_warmstart_report_on_the_cpu(cache_dir):
-    """The port's stages (no trace, lower, compile or executable load), and
+    """The port's stages (no trace, lower, compile or executable load; on
+    the CPU the program runs eagerly, so no warm-up or capture either), and
     a second fresh load whose prompts all come from the disk cache."""
     rng = np.random.default_rng(0)
     image = Image.fromarray(rng.integers(0, 255, (64, 64, 3), dtype=np.uint8))
@@ -211,9 +212,10 @@ def test_warmstart_report_on_the_cpu(cache_dir):
                .warmstart_report(inputs, image, params=params) for _ in range(2)]
     for report in reports:
         assert set(report) == {"host_prep_s", "weights_ready_s", "kernel_build_s",
-                               "kernel_source", "execute_s", "embed_cache_hits",
-                               "embed_cache_misses"}
+                               "kernel_source", "source", "warmup_s", "capture_s", "execute_s",
+                               "embed_cache_hits", "embed_cache_misses"}
         assert report["kernel_source"] == "none" and report["kernel_build_s"] == 0.0
+        assert (report["source"], report["warmup_s"], report["capture_s"]) == ("eager", 0.0, 0.0)
         assert all(report[k] >= 0 for k in ("host_prep_s", "weights_ready_s", "execute_s"))
     assert (reports[0]["embed_cache_hits"], reports[0]["embed_cache_misses"]) == (0, 3)
     assert (reports[1]["embed_cache_hits"], reports[1]["embed_cache_misses"]) == (3, 0)
