@@ -63,11 +63,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    launched in each (euler_a's batch among them), no plain-version call.
    Then txt2img_audio_batch of 5 prompts at 512 px (pndm-10, UNet batch 10,
    fused through the audio tail) with the same noise per prompt: the same
-   image bound, K2 launched, no plain call.
+   image bound, K2 launched, no plain call. The CPU references run in a
+   worker process (niced, two cores left to this one) from the phase's
+   start, while the card runs the later phases; "tiny batch check", after
+   "frontends", waits for them and holds the card's outputs to them.
 8. tiny train: three trainer steps of the tiny UNet in fp32 (32x32
-   latents, so K1 and its backward are reached) on the card against the
-   same steps on the CPU with the same t and noise: the losses, and the
-   parameters' movement.
+   latents, so K1 and its backward are reached) on the card, through the
+   trainer's "train_step" graph (captured at the first step, replayed
+   after), against the same steps on the CPU with the same t and noise:
+   the losses, and the parameters' movement.
 graphs: random:full (SD v1 width) in bf16, its serving programs as CUDA
    graphs (riffusion_tpu_torch/aot.py; node counts kept). Six calls: a
    PNDM-50 riffuse_audio, a FAST burst of 16 through a DynamicBatcher, a
@@ -123,9 +127,17 @@ checkpoint: a diffusers-layout directory (under .chipwork/, deleted at the
    checkpoint's pipeline, then run_finetune(checkpoint=DIR, steps=4,
    batch_size=4) (fp32 masters, bf16 compute, AdamW,
    EMA, the final checkpoint and the export) in a directory under .chipwork/
-   that is deleted at the end. Every step takes exactly 10 K1 forwards,
-   10 dK/dV and 10 dQ launches and no plain call, with a finite loss.
-   Prints the step time (median of steps 2-4), the peak device memory, the
+   that is deleted at the end: twice eagerly (RIFFUSION_TPU_NO_AOT=1), then
+   through the trainer's graphs, "train_step" and "ema_update" (step 1
+   warms up and captures, steps 2-4 replay; the main path). Every step of
+   every run takes exactly 10 K1 forwards, 10 dK/dV and 10 dQ launches and
+   no plain call, with a finite loss. The eager runs' distance is printed
+   (each step's loss, the masters after the 4 steps); the replayed run
+   must be bit-equal to them where they are bit-equal to each other, else
+   within twice their distance, and always within TRAIN_REPLAY_BOUND.
+   Prints each run's step 1 and steps 2-4 (median), the captures' warm-up
+   and capture seconds, the peak device memory allocated and reserved
+   since the first run (the serving pipeline's graphs stay), the
    checkpoint's bytes and seconds and the free disk before the run. One
    full-width step's gradients with the kernels against the same step with
    the plain attention (the smoke swaps models.layers._ATTENTION_OPS in
@@ -221,6 +233,7 @@ lines are the kernel table and {"ok": true, "device": {"platform": "gpu",
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import gc
 import io
@@ -265,6 +278,12 @@ SMS, EXP2_PER_SM_CLOCK = 132, 16
 # attention's (PERF.md "Fine-tuning", written before the first run): the
 # relative L2 of the difference over all parameters, and of the loss.
 TRAIN_GRAD_BOUND = {"grad_rel_l2": 5e-2, "loss_rel": 1e-2}
+
+# The replayed run_finetune against the eager one (train phase): the
+# difference of the masters' movement over their movement (relative L2),
+# and each step's loss, at most this far apart in every case; bit-equal
+# where two eager runs are, else within twice their distance.
+TRAIN_REPLAY_BOUND = {"movement_rel_l2": 1e-2, "loss_rel": 1e-2}
 
 # The audio engine's check (frontends phase): seeded int16 buffers made from
 # integer arithmetic, cumulative sums and np.sin (_engine_pcm), held to the
@@ -881,10 +900,15 @@ def _image_agreement(a_img, b_img):
     return float((a == b).mean()), int(np.abs(a - b).max())
 
 
-def phase_tiny_batch(torch, attn) -> None:
-    """5 requests in one batch on the card and on the CPU. Guidance 1.5-1.9:
-    the random tiny UNet amplifies float32 rounding from step to step, and
+def _tiny_batch_calls(torch, device: str) -> list:
+    """The tiny batch's six calls on `device`, as (label, kind, call): the
+    tiny model in fp32 from its seed, every input from one seeded rng drawn
+    in the same order in every process, so the card's calls and the CPU
+    reference's (_tiny_batch_reference) see the same. Guidance 1.5-1.9: the
+    random tiny UNet amplifies float32 rounding from step to step, and
     guidance multiplies it by up to 1 + 2g (tests/test_torch_pipeline.py)."""
+    import functools
+
     import numpy as np
     from PIL import Image
 
@@ -897,10 +921,9 @@ def phase_tiny_batch(torch, attn) -> None:
     rng = np.random.default_rng(1)
     image = Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8), mode="RGB")
     params = SpectrogramParams(num_frequencies=size)
-    cpu_bundle = random_bundle("tiny", seed=0, device="cpu", dtype=torch.float32)
-    gpu_pipe = RiffusionPipeline(copy.deepcopy(cpu_bundle), device="cuda")
-    cpu_pipe = RiffusionPipeline(cpu_bundle, device="cpu")
-    n_active = cpu_pipe.converter(params).n_active
+    pipe = RiffusionPipeline(random_bundle("tiny", seed=0, device="cpu", dtype=torch.float32),
+                             device=device)
+    n_active = pipe.converter(params).n_active
     latent = (1, 4, size // 8, size // 8)
     draws = [{
         "vae_eps": rng.standard_normal(latent),
@@ -916,54 +939,123 @@ def phase_tiny_batch(torch, attn) -> None:
                        alpha=0.2 * i, num_inference_steps=10)
         for i in range(n)
     ]
+    calls = []
     for scheduler in ("unipc_k:rho=2",) + SAMPLERS:
         if scheduler == "euler_a":
-            steps = cpu_pipe._plan(scheduler, 10, 0.75)[0].num_steps
+            steps = pipe._plan(scheduler, 10, 0.75)[0].num_steps
             noises = [FixedNoise({**d, "ancestral": rng.standard_normal((steps,) + latent)})
                       for d in draws]
-        attn.COUNTS.reset()
-        out_g = gpu_pipe.riffuse_audio_batch(inputs_list, image, params=params, noises=noises,
-                                             scheduler=scheduler)
-        torch.cuda.synchronize()
-        launches, rows = attn.COUNTS.launches, attn.COUNTS.row_launches
-        plain = attn.COUNTS.plain_calls
-        out_c = cpu_pipe.riffuse_audio_batch(inputs_list, image, params=params, noises=noises,
-                                             scheduler=scheduler)
-        agreement = [_image_agreement(g[0], c[0]) for g, c in zip(out_g, out_c)]
-        log(f"[tiny batch] {n} requests at {size}px ({scheduler}, UNet batch {2 * n}), cuda "
-            f"fp32 vs cpu fp32, (pixels equal, max diff) per request: "
-            f"{[(f'{e:.4%}', m) for e, m in agreement]}; K1 launches {launches}, K2 launches "
-            f"{rows}, plain calls {plain}")
-        if rows == 0 or launches == 0 or plain != 0:
-            raise AssertionError(f"the tiny batch ({scheduler}) on the card did not go through "
-                                 "both kernels")
-        if any(m > 1 or e < 0.99 for e, m in agreement):
-            raise AssertionError(f"the card's tiny batch ({scheduler}) disagrees with the CPU's")
-
+        calls.append((f"{n} requests at {size}px ({scheduler}, UNet batch {2 * n})", scheduler,
+                      functools.partial(pipe.riffuse_audio_batch, inputs_list, image,
+                                        params=params, noises=noises, scheduler=scheduler)))
     # txt2img_audio_batch of 5 prompts (UNet batch 10), fused through the audio
     t2i = [FixedNoise({"latents": rng.standard_normal(latent), "gl_real": d["gl_real"],
                        "gl_imag": d["gl_imag"]}) for d in draws]
-    kw = dict(negative_prompts=["noise"] * n, seeds=list(range(n)), num_inference_steps=10,
-              guidances=[1.5 + 0.1 * i for i in range(n)], width=size, height=size,
-              scheduler="pndm", params=params, apply_filters=False, noises=t2i)
-    prompts = [f"church bells {i}" for i in range(n)]
-    attn.COUNTS.reset()
-    out_g = gpu_pipe.txt2img_audio_batch(prompts, **kw)
-    torch.cuda.synchronize()
-    launches, rows, plain = attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls
-    out_c = cpu_pipe.txt2img_audio_batch(prompts, **kw)
-    agreement = [_image_agreement(g[0], c[0]) for g, c in zip(out_g, out_c)]
-    log(f"[tiny batch] txt2img_audio_batch of {n} prompts at {size}px (pndm-10, UNet batch "
-        f"{2 * n}), cuda fp32 vs cpu fp32, (pixels equal, max diff) per prompt: "
-        f"{[(f'{e:.4%}', m) for e, m in agreement]}; K1 launches {launches}, K2 launches "
-        f"{rows}, plain calls {plain}")
-    if rows == 0 or plain != 0:
-        raise AssertionError("the tiny txt2img batch on the card did not go through K2")
-    if any(m > 1 or e < 0.99 for e, m in agreement):
-        raise AssertionError("the card's tiny txt2img batch disagrees with the CPU's")
-    if any(a is None or a.raw_data.shape != b.raw_data.shape for (_, a), (_, b) in
-           zip(out_g, out_c)):
-        raise AssertionError("the card's tiny txt2img batch lost its audio")
+    calls.append((f"txt2img_audio_batch of {n} prompts at {size}px (pndm-10, UNet batch "
+                  f"{2 * n})", "txt2img", functools.partial(
+                      pipe.txt2img_audio_batch, [f"church bells {i}" for i in range(n)],
+                      negative_prompts=["noise"] * n, seeds=list(range(n)),
+                      num_inference_steps=10, guidances=[1.5 + 0.1 * i for i in range(n)],
+                      width=size, height=size, scheduler="pndm", params=params,
+                      apply_filters=False, noises=t2i)))
+    return calls
+
+
+def _batch_outputs(out) -> list:
+    """Each (image, audio) of a batch call as (uint8 array, audio shape or None)."""
+    import numpy as np
+
+    return [(np.asarray(image, np.uint8), None if audio is None else audio.raw_data.shape)
+            for image, audio in out]
+
+
+def _tiny_batch_reference(conn) -> None:
+    """The tiny batch's six calls on the CPU, in a worker process (spawned
+    by phase_tiny_batch; niced, with two fewer threads than torch's default,
+    so the card's host work comes first): ("ok", each call's outputs) or
+    ("error", the traceback), sent down `conn`."""
+    import traceback
+
+    try:
+        os.nice(10)
+        if str(REPO) not in sys.path:
+            sys.path.insert(0, str(REPO))
+        import torch
+
+        torch.set_num_threads(max(1, torch.get_num_threads() - 2))
+        message = ("ok", [_batch_outputs(call())
+                          for _, _, call in _tiny_batch_calls(torch, "cpu")])
+    except BaseException:
+        message = ("error", traceback.format_exc())
+    conn.send(message)
+    conn.close()
+
+
+def phase_tiny_batch(torch, attn) -> tuple:
+    """The tiny batch's card side: starts its CPU references in a worker
+    process (they take most of the time, all on the host), runs the six
+    calls on the card with their launch checks, and returns what
+    phase_tiny_batch_check holds to the references. The worker is a daemon:
+    a failure anywhere stops it at exit."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe(duplex=False)
+    worker = ctx.Process(target=_tiny_batch_reference, args=(child,), daemon=True)
+    worker.start()
+    child.close()
+    log(f"[tiny batch] the CPU references started in worker process {worker.pid}")
+    card = []
+    for label, kind, call in _tiny_batch_calls(torch, "cuda"):
+        attn.COUNTS.reset()
+        out = call()
+        torch.cuda.synchronize()
+        counts = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+        log(f"[tiny batch] {label} on the card: (K1, K2, plain) launches {counts}")
+        if counts[1] == 0 or counts[2] != 0 or (kind != "txt2img" and counts[0] == 0):
+            raise AssertionError(f"the tiny batch ({kind}) on the card did not go through "
+                                 f"{'K2' if kind == 'txt2img' else 'both kernels'}")
+        card.append((label, kind, _batch_outputs(out)))
+    return worker, conn, card
+
+
+#: How long "tiny batch check" waits for the CPU references at most (run
+#: in-process, the references and the card's calls took about 230 s on an
+#: H100 machine's 8 cores; the worker starts some 450 s before the check).
+TINY_BATCH_WAIT_S = 600.0
+
+
+def phase_tiny_batch_check(pending: tuple) -> None:
+    """The card's tiny batch outputs (phase_tiny_batch) against the CPU
+    references from its worker process: at most a level off, 99% of the
+    pixels equal, for every request of every call; the txt2img batch's
+    audio present with the CPU's shape."""
+    worker, conn, card = pending
+    start = time.perf_counter()
+    try:
+        if not conn.poll(TINY_BATCH_WAIT_S):
+            raise TimeoutError(f"the tiny batch's CPU references took over {TINY_BATCH_WAIT_S} s "
+                               "past the check's start")
+        status, refs = conn.recv()
+    finally:
+        worker.join(timeout=30)
+        if worker.is_alive():
+            worker.terminate()
+            worker.join()
+    log(f"[tiny batch] waited {time.perf_counter() - start:.1f} s for the CPU references "
+        f"(worker exit code {worker.exitcode})")
+    if status != "ok":
+        raise AssertionError(f"the tiny batch's CPU references failed:\n{refs}")
+    for (label, kind, out_g), out_c in zip(card, refs, strict=True):
+        agreement = [_image_agreement(g[0], c[0]) for g, c in zip(out_g, out_c, strict=True)]
+        log(f"[tiny batch] {label}, cuda fp32 vs cpu fp32, (pixels equal, max diff) per "
+            f"{'prompt' if kind == 'txt2img' else 'request'}: "
+            f"{[(f'{e:.4%}', m) for e, m in agreement]}")
+        if any(m > 1 or e < 0.99 for e, m in agreement):
+            raise AssertionError(f"the card's tiny batch ({kind}) disagrees with the CPU's")
+        if kind == "txt2img" and any(g[1] is None or g[1] != c[1]
+                                     for g, c in zip(out_g, out_c)):
+            raise AssertionError("the card's tiny txt2img batch lost its audio")
 
 
 # ------------------------------------------------------------- the checkpoint
@@ -1186,8 +1278,10 @@ def _movement_agreement(torch, ours: dict, ref: dict, start: dict) -> tuple:
 
 
 def phase_tiny_train(torch, attn) -> None:
-    """Three fp32 trainer steps of the tiny UNet on the card and on the CPU,
-    with the same weights, batch, t and noise: losses within 1e-4 relative,
+    """Three fp32 trainer steps of the tiny UNet on the card (through the
+    trainer's graphs: the first step warms up and captures, the others
+    replay) and on the CPU (eagerly), with the same weights, batch, t and
+    noise: losses within 1e-4 relative,
     the parameters' movement within 1e-2 relative L2 (another sum order,
     which Adam amplifies on single elements whose gradient is near 0: their
     update is the gradient over its own magnitude, so the largest elementwise
@@ -1214,15 +1308,18 @@ def phase_tiny_train(torch, attn) -> None:
         counts = (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches,
                   attn.COUNTS.bwd_dq_launches, attn.COUNTS.plain_calls)
         runs[device] = (losses, {k: v.cpu() for k, v in trainer.master.state_dict().items()},
-                        counts)
-    (loss_g, params_g, counts), (loss_c, params_c, _) = runs["cuda"], runs["cpu"]
+                        counts, [len(p) for p in trainer.graph_store.programs.values()])
+    (loss_g, params_g, counts, graphs), (loss_c, params_c, _, _) = runs["cuda"], runs["cpu"]
     rel, worst = _movement_agreement(torch, params_g, params_c, start)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c))
     log(f"[tiny train] 3 fp32 steps, cuda vs cpu: losses {[f'{x:.6f}' for x in loss_g]} vs "
         f"{[f'{x:.6f}' for x in loss_c]} (rel {loss_err:.2e}); movement rel L2 {rel:.3e}, "
-        f"max abs {worst:.3e}; (K1, dK/dV, dQ, plain) launches on the card {counts}")
+        f"max abs {worst:.3e}; (K1, dK/dV, dQ, plain) launches on the card {counts}; the "
+        f"card's graphs per key {graphs}")
     if not (counts[0] > 0 and counts[0] == counts[1] == counts[2] and counts[3] == 0):
         raise AssertionError("the tiny train on the card did not go through K1 and its backward")
+    if graphs != [1]:
+        raise AssertionError("the tiny train on the card did not go through its train_step graph")
     if not (loss_err < 1e-4 and rel < 1e-2):
         raise AssertionError("the card's tiny train disagrees with the CPU's")
 
@@ -1286,25 +1383,102 @@ def _full_width_gradients(torch, attn, layers, ds_dir: Path) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def _aot_switch(eager: bool):
+    """RIFFUSION_TPU_NO_AOT=1 inside the block where `eager`, unset where
+    not, and as the caller had it after."""
+    prior = os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
+    if eager:
+        os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
+        if prior is not None:
+            os.environ["RIFFUSION_TPU_NO_AOT"] = prior
+
+
+def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str) -> dict:
+    """run_finetune(checkpoint=DIR, steps=4, batch_size=4) into `out`, in
+    `mode` ("eager": RIFFUSION_TPU_NO_AOT=1; "graph": the trainer's graphs):
+    its stats, each step's (K1, dK/dV, dQ, plain) launches, the seconds of
+    steps 2-4, each step's loss (loss_log.json) and the masters after the
+    steps (the final checkpoint's params, on the CPU)."""
+    from riffusion_tpu_torch.training import FinetuneConfig, run_finetune
+
+    marks = []
+
+    def on_log(msg: str) -> None:
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), (
+            attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
+            attn.COUNTS.plain_calls), msg))
+        log(f"[train] {mode}: {msg}")
+
+    with _aot_switch(mode == "eager"):
+        attn.COUNTS.reset()
+        start = time.perf_counter()
+        stats = run_finetune(FinetuneConfig(
+            checkpoint=str(checkpoint), dataset_dir=str(dataset), output_dir=str(out), steps=4,
+            batch_size=4, log_every=1, device="cuda",
+        ), log=on_log)
+        wall = time.perf_counter() - start
+    step_marks = [m for m in marks if m[2].startswith("step ")]
+    per_step = [tuple(b - a for a, b in zip(prev[1], cur[1]))
+                for prev, cur in zip([(0, (0, 0, 0, 0), "")] + step_marks, step_marks)]
+    state = torch.load(stats["checkpoint"]["path"], map_location="cpu", weights_only=True,
+                       mmap=True)
+    params = {k: v.clone() for k, v in state["params"].items()}
+    del state
+    return {"stats": stats, "wall": wall, "per_step": per_step,
+            "step_s": [b[0] - a[0] for a, b in zip(step_marks, step_marks[1:])],
+            # run_finetune's rate at step 1 is 1 / the step's seconds
+            "first_step_s": 1.0 / float(re.search(r"\(([0-9.]+) it/s\)", step_marks[0][2])[1]),
+            "losses": [v for _, v in json.loads((out / "loss_log.json").read_text())],
+            "params": params}
+
+
+def _run_distance(torch, a: dict, b: dict, start) -> tuple:
+    """(bit-equal, relative L2 of the difference of the masters' movement,
+    largest relative difference of a step's loss) of two fine-tune runs;
+    `start()` gives the masters before the steps, read only where the runs
+    are not bit-equal (their distance is 0 where they are)."""
+    if a["losses"] == b["losses"] and all(torch.equal(a["params"][k], b["params"][k])
+                                          for k in a["params"]):
+        return True, 0.0, 0.0
+    start = start()
+    diff = sum(float(torch.sum(torch.square((a["params"][k] - b["params"][k]).double())))
+               for k in start)
+    moved = sum(float(torch.sum(torch.square((b["params"][k] - start[k]).double())))
+                for k in start)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    return False, (diff / moved) ** 0.5, loss_rel
+
+
 def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
     """Fine-tuning at full width from the checkpoint directory: the latent
     dataset from its pipeline (into `dataset`, which the parallel-train
-    phase reads too), run_finetune of 4 steps at batch 4, the kernels'
-    gradients against the plain attention's, and the export reloaded and
-    served."""
+    phase reads too), run_finetune of 4 steps at batch 4 eagerly twice and
+    then through the trainer's graphs (the main path: step 1 warms up and
+    captures, steps 2-4 replay), the replayed run against the eager ones,
+    the kernels' gradients against the plain attention's, and the export
+    reloaded and served."""
     import numpy as np
 
     from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
     from riffusion_tpu_torch.models import layers
+    from riffusion_tpu_torch.models.weights import load_bundle
     from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
     from riffusion_tpu_torch.serving import load_seed_image
-    from riffusion_tpu_torch.training import FinetuneConfig, build_latent_dataset, run_finetune
+    from riffusion_tpu_torch.training import build_latent_dataset
 
     work = REPO / ".chipwork"
     work.mkdir(exist_ok=True)
     free_gb = shutil.disk_usage(work).free / 1e9
     tmp = Path(tempfile.mkdtemp(prefix="train-", dir=work))
-    log(f"[train] free disk before the run: {free_gb:.1f} GB ({work})")
+    log(f"[train] free disk before the run: {free_gb:.1f} GB ({work}); the serving pipeline "
+        f"holds {len(pipe.graph_store.programs)} captured keys, the card "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     try:
         _synth_clips(tmp / "audio", files=2, clips_per_file=4)
         start = time.perf_counter()
@@ -1313,44 +1487,72 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
             f"{meta.context_shape}, in {time.perf_counter() - start:.1f} s")
         if meta.num_clips != 8 or tuple(meta.latent_shape) != (64, 64, 4):
             raise AssertionError(f"unexpected dataset: {meta}")
+        start: dict = {}
 
-        marks = []
+        def start_params() -> dict:  # the checkpoint's UNet, read once if needed
+            if not start:
+                start.update(load_bundle(str(checkpoint), torch.float32,
+                                         device="cpu").unet.state_dict())
+            return start
 
-        def on_log(msg: str) -> None:
-            torch.cuda.synchronize()
-            marks.append((time.perf_counter(), (
-                attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
-                attn.COUNTS.plain_calls), msg))
-            log(f"[train] {msg}")
-
+        runs, peaks = {}, {}
         torch.cuda.reset_peak_memory_stats()
-        attn.COUNTS.reset()
-        start = time.perf_counter()
-        stats = run_finetune(FinetuneConfig(
-            checkpoint=str(checkpoint), dataset_dir=str(dataset),
-            output_dir=str(tmp / "run"), steps=4, batch_size=4, log_every=1, device="cuda",
-        ), log=on_log)
-        wall = time.perf_counter() - start
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        step_marks = [m for m in marks if m[2].startswith("step ")]
-        per_step = [tuple(b - a for a, b in zip(prev[1], cur[1]))
-                    for prev, cur in zip([(0, (0, 0, 0, 0), "")] + step_marks, step_marks)]
-        step_s = [b[0] - a[0] for a, b in zip(step_marks, step_marks[1:])]
-        ckpt = stats["checkpoint"]
-        log(f"[train] run_finetune: 4 steps at batch 4 in {wall:.2f} s wall (dataset load, "
-            f"weights, steps, checkpoint, export); step time {statistics.median(step_s):.4f} s "
-            f"(median of steps 2-4: {[f'{x:.4f}' for x in step_s]}); final loss "
-            f"{stats['final_loss']:.5f}; peak device memory {peak:.2f} GiB; checkpoint "
-            f"{ckpt['bytes'] / 1e9:.3f} GB in {ckpt['seconds']:.2f} s; (K1, dK/dV, dQ, plain) "
-            f"launches per step {per_step}")
-        if per_step != [(LAUNCHES_PER_STEP,) * 3 + (0,)] * 4:
-            raise AssertionError(f"the training steps' launches {per_step} are not "
-                                 f"{LAUNCHES_PER_STEP} K1, dK/dV and dQ each and no plain call")
-        if not np.isfinite(stats["final_loss"]):
-            raise AssertionError("non-finite training loss")
-        launches = {"attention": sum(c[0] for c in per_step),
-                    "attention_dkv": sum(c[1] for c in per_step),
-                    "attention_dq": sum(c[2] for c in per_step)}
+        for name, mode in (("eager 1", "eager"), ("eager 2", "eager"), ("graph", "graph")):
+            runs[name] = _finetune(torch, attn, checkpoint, dataset, tmp / name.replace(" ", ""),
+                                   mode)
+            peaks[name] = (torch.cuda.max_memory_allocated() / 2**30,
+                           torch.cuda.max_memory_reserved() / 2**30)
+            if mode == "eager":
+                shutil.rmtree(tmp / name.replace(" ", ""))
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = runs[name]
+            ckpt = run["stats"]["checkpoint"]
+            log(f"[train] {name}: run_finetune, 4 steps at batch 4, in {run['wall']:.2f} s wall "
+                f"(dataset load, weights, steps, checkpoint, export); step 1 "
+                f"{run['first_step_s']:.4f} s, steps 2-4 {[f'{x:.4f}' for x in run['step_s']]} "
+                f"(median {statistics.median(run['step_s']):.4f}); losses "
+                f"{[f'{x:.6f}' for x in run['losses']]}; peak device memory since the first run "
+                f"{peaks[name][0]:.2f} GiB allocated, {peaks[name][1]:.2f} GiB reserved; "
+                f"checkpoint {ckpt['bytes'] / 1e9:.3f} GB in {ckpt['seconds']:.2f} s; "
+                f"(K1, dK/dV, dQ, plain) launches per step {run['per_step']}")
+            if run["per_step"] != [(LAUNCHES_PER_STEP,) * 3 + (0,)] * 4:
+                raise AssertionError(f"the training steps' launches {run['per_step']} are not "
+                                     f"{LAUNCHES_PER_STEP} K1, dK/dV and dQ each and no plain "
+                                     "call")
+            if not all(np.isfinite(run["losses"])):
+                raise AssertionError("non-finite training loss")
+        graph = runs["graph"]
+        reports = graph["stats"]["graphs"]
+        if sorted(reports) != ["ema_update", "train_step"] or runs["eager 1"]["stats"]["graphs"]:
+            raise AssertionError(f"the graph run captured {sorted(reports)}, the eager run "
+                                 f"{sorted(runs['eager 1']['stats']['graphs'])}")
+        for key, (report,) in sorted(reports.items()):
+            log(f"[train] graph: {key} warm-up {report['warmup_s']:.3f} s, capture "
+                f"{report['capture_s']:.3f} s, last replay's host {report['replay_s']:.6f} s")
+
+        eager_equal, eager_rel, eager_loss = _run_distance(torch, runs["eager 1"],
+                                                           runs["eager 2"], start_params)
+        to_eager = [_run_distance(torch, graph, runs[n], start_params)
+                    for n in ("eager 1", "eager 2")]
+        graph_equal = all(d[0] for d in to_eager)
+        graph_rel, graph_loss = min(d[1] for d in to_eager), min(d[2] for d in to_eager)
+        log(f"[train] eager against eager: bit-equal {eager_equal}, movement rel L2 "
+            f"{eager_rel:.3e}, loss rel {eager_loss:.3e}; replayed against eager: bit-equal "
+            f"{graph_equal}, movement rel L2 {graph_rel:.3e}, loss rel {graph_loss:.3e} (bound "
+            f"{TRAIN_REPLAY_BOUND}, and {'bit-equality' if eager_equal else 'twice the eager'})")
+        if eager_equal and not graph_equal:
+            raise AssertionError("the replayed fine-tune is not bit-equal to the eager runs, "
+                                 "which are bit-equal to each other")
+        if not (graph_rel <= TRAIN_REPLAY_BOUND["movement_rel_l2"]
+                and graph_loss <= TRAIN_REPLAY_BOUND["loss_rel"]
+                and (eager_equal or (graph_rel <= 2 * eager_rel
+                                     and graph_loss <= 2 * eager_loss))):
+            raise AssertionError("the replayed fine-tune disagrees with the eager runs")
+        launches = {"attention": sum(c[0] for c in graph["per_step"]),
+                    "attention_dkv": sum(c[1] for c in graph["per_step"]),
+                    "attention_dq": sum(c[2] for c in graph["per_step"])}
+        del runs, start
 
         grads = _full_width_gradients(torch, attn, layers, dataset)
         log(f"[train] one full-width step, kernels against the plain attention: loss "
@@ -1364,7 +1566,7 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
             raise AssertionError("the kernels' gradients disagree with the plain attention's")
 
         start = time.perf_counter()
-        tuned = RiffusionPipeline.load_checkpoint(stats["export_dir"], device="cuda")
+        tuned = RiffusionPipeline.load_checkpoint(graph["stats"]["export_dir"], device="cuda")
         attn.COUNTS.reset()
         image, segment = tuned.riffuse_audio(
             InferenceInput(start=PromptInput(prompt="funky synth solo", seed=42),
@@ -1387,8 +1589,8 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
-    return {"launches": launches, "step_s": statistics.median(step_s), "peak_gib": peak,
-            "grads": grads}
+    return {"launches": launches, "step_s": statistics.median(graph["step_s"]),
+            "peak_gib": peaks["graph"][0], "grads": grads}
 
 
 def _check_response(out: dict) -> None:
@@ -1550,15 +1752,11 @@ def phase_graphs(torch, attn, pipe) -> dict:
     results, eager_peaks = {}, {}
 
     def call(what: str, expect: tuple, fn, offset: int, eager: bool) -> tuple:
-        if eager:
-            os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
-        try:
+        with _aot_switch(eager):
             attn.COUNTS.reset()
             t0 = time.perf_counter()
             out = fn(offset)
             wall = time.perf_counter() - t0
-        finally:
-            os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
         got = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
         if got != expect + (0,):
             raise AssertionError(f"[graphs] {what} ({'eager' if eager else 'graph'}): (K1, K2, "
@@ -2795,7 +2993,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
     grad = phase("kernel-grad", phase_kernel_grad, torch, attn, clock_hz)
     phase("dsp", phase_dsp, torch)
     phase("tiny", phase_tiny, torch, attn)
-    phase("tiny batch", phase_tiny_batch, torch, attn)
+    tiny_batch = phase("tiny batch", phase_tiny_batch, torch, attn)
     phase("tiny train", phase_tiny_train, torch, attn)
 
     start = time.perf_counter()
@@ -2829,6 +3027,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
         gc.collect()
         cli_run = phase("cli", phase_cli, torch, attn, ckpt_dir)
         frontends = phase("frontends", phase_frontends, torch, attn, ckpt_dir)
+        phase("tiny batch check", phase_tiny_batch_check, tiny_batch)
         parallel_train = phase("parallel-train", phase_parallel_train, torch, attn, ckpt_dir,
                                data_dir)
     finally:

@@ -10,7 +10,12 @@ the card the counterpart of a compiled whole program is a captured CUDA
 graph. `GraphProgram(fn, key)` holds one: `fn` is a pure function of
 tensors (or None) whose Python choices all come from `key`, and its
 signature is the key with the inputs' shapes and dtypes (`signature`, as
-JAX's `_aval_signature`).
+JAX's `_aval_signature`). The trainer's programs (parallel/train.py
+"train_step", training/finetune.py "ema_update", the counterparts of the
+JAX trainer's jitted step and EMA) also update state outside their inputs
+in place, as JAX's step donates its parameters: their warm-up is a real
+step, the capture runs nothing, and every replay is a step; their owner
+drops them (`GraphStore.clear`) when it replaces that state's tensors.
 
 - The first call with a signature copies the inputs into static buffers
   and runs `fn` on them once, eagerly, on a side stream: the warm-up, which
@@ -34,14 +39,14 @@ JAX's `_aval_signature`).
   replay; the card runs on) and "nodes" (the graph's node count, when the
   store was asked to count them).
 
-Memory. The programs of one `GraphStore` (one per pipeline) capture into
-one pool (`torch.cuda.graph_pool_handle()`), so a capture reuses what the
-earlier ones freed. That is safe for two reasons:
-- the pipeline's `_dispatch_lock` (riffusion_pipeline.py
-  `_dispatch_program`) serialises its programs: one is queued at a time,
-  on the current stream, and its outputs are copied out of the static
-  buffers before another replays, so no two graphs' scratch is live at
-  once;
+Memory. The programs of one `GraphStore` (one per pipeline, one per
+trainer) capture into one pool (`torch.cuda.graph_pool_handle()`), so a
+capture reuses what the earlier ones freed. That is safe for two reasons:
+- the owner serialises its programs: the pipeline's `_dispatch_lock`
+  (riffusion_pipeline.py `_dispatch_program`) queues one at a time, the
+  trainer's caller steps one thread; each runs on the current stream, and
+  its outputs are copied out of the static buffers before another
+  replays, so no two graphs' scratch is live at once;
 - the store holds every graph's static inputs and outputs, so a later
   capture never takes their memory.
 
@@ -143,8 +148,9 @@ class CudaGraphs:
 
     def warmup(self, fn: T.Callable, args: Args) -> T.Any:
         """fn(*args) on a side stream, ordered after the current stream's
-        work and before its later work, synchronised."""
-        device = next(x.device for x in args if x is not None)
+        work and before its later work, synchronised (on the current device
+        for a program without inputs)."""
+        device = next((x.device for x in args if x is not None), None)
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
@@ -276,8 +282,8 @@ class GraphProgram:
 
 
 class GraphStore:
-    """One pipeline's programs, one GraphProgram per key, all capturing into
-    one pool."""
+    """One owner's programs (a pipeline's, or a trainer's), one GraphProgram
+    per key, all capturing into one pool."""
 
     def __init__(self, graphs: T.Optional[CudaGraphs] = None):
         self.graphs = graphs or CudaGraphs()
@@ -291,3 +297,9 @@ class GraphStore:
                 self._pool = self.graphs.pool()
             self.programs[key] = GraphProgram(fn, key, pool=self._pool, graphs=self.graphs)
         return self.programs[key]
+
+    def clear(self) -> None:
+        """Drop every program and its graphs (the pool stays for the next
+        captures): for an owner whose programs read state outside their
+        inputs, after that state was replaced by other tensors."""
+        self.programs.clear()

@@ -674,21 +674,29 @@ def scale_model_input(plan: SchedulerPlan, sample: torch.Tensor, i: int) -> torc
 
 def add_noise(
     noise_cfg: NoiseConfig, sample: torch.Tensor, noise: torch.Tensor,
-    timestep: T.Union[int, torch.Tensor],
+    timestep: T.Union[int, torch.Tensor], table: T.Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Forward-process noising at an integer train timestep (DDPM), one for
     the whole batch or, as a (B,) integer tensor, one per batch element (the
-    training step's)."""
+    training step's). `table`, for a tensor timestep: `alphas_cumprod_table`
+    already on the sample's device (a captured program cannot upload it)."""
     acp = noise_cfg.alphas_cumprod.astype(np.float32)
     # both coefficients in fp32, as the JAX function computes them
     if isinstance(timestep, torch.Tensor):
-        a = torch.from_numpy(acp).to(sample.device)[timestep.long()]
+        if table is None:
+            table = alphas_cumprod_table(noise_cfg, sample.device)
+        a = table[timestep.long()]
         a = a.view(-1, *([1] * (sample.dim() - 1)))
         return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
     a = acp[int(timestep)]
     sqrt_a = float(np.sqrt(a))
     sqrt_1ma = float(np.sqrt(np.float32(1.0) - a))
     return sqrt_a * sample + sqrt_1ma * noise
+
+
+def alphas_cumprod_table(noise_cfg: NoiseConfig, device: torch.device) -> torch.Tensor:
+    """The fp32 cumulative alphas on `device`, indexed by train timestep."""
+    return torch.from_numpy(noise_cfg.alphas_cumprod.astype(np.float32)).to(device)
 
 
 def add_noise_sigma(

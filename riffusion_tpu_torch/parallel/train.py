@@ -53,10 +53,39 @@ them in the single-device layout and every rank waits for it, and a
 restore cuts the state for the trainer's own mesh, so a checkpoint resumes
 on another mesh or on one device (JAX's restore onto the template).
 
+A step is split as the serving programs are (riffusion_pipeline.py, aot.py):
+- the host part (`_host_inputs`, and in `step` the schedule): the batch
+  moved to the device, t and then the noise drawn from the caller's
+  generator when not given, and the learning rate for this step's count as
+  a 0-d tensor;
+- the device program (`_train_step`, JAX's jitted `_train_step`), a
+  function of those tensors that updates the trainer's state in place, as
+  JAX's step donates its params and optimizer state: the masters copied
+  into the working copy, add_noise, the forward and the fp32 MSE, the
+  backward, the gradients handed to the masters, AdamW; it returns the loss
+  as a 0-d device tensor and reads nothing back to the host.
+On the card, without a mesh and with the store on (aot.captures), the
+device program runs through the trainer's own GraphStore (`graph_store`,
+made at init_from, with its own pool) under the key "train_step": the
+first call of an input signature is a real step run eagerly (the warm-up,
+which also creates AdamW's state), then captured; every later call
+replays. `program(key, fn)` gives other programs over the trainer's state
+the same treatment (training/finetune.py's "ema_update"). On the CPU,
+under RIFFUSION_TPU_NO_AOT=1 and over a mesh (any), the same programs run
+eagerly. A capture that fails raises aot.CaptureError; nothing falls back.
+On one card the optimizer is AdamW(capturable=True), its step counts on
+the device and its lr the program's tensor, eager or replayed alike; on the
+CPU (capturable is CUDA-only) and over a mesh, which never captures, it
+keeps a Python float lr and its step counts on the host.
+
+A graph replays addresses, so `restore_checkpoint`, whose optimizer load
+replaces the moments and step counts with new tensors, drops the trainer's
+graphs: the next call captures again.
+
 Each part of a step runs inside a `torch.profiler.record_function` span
 (riffusion.train.copy, .forward, .backward, .grads, .allreduce over a
-mesh, .optimizer), which a profiler attributes device time to
-(`python -m riffusion_tpu_torch.profile_train`);
+mesh, .optimizer), which a profiler attributes device time to in an eager
+step (`python -m riffusion_tpu_torch.profile_train`);
 with no profiler running a span costs a few microseconds.
 """
 
@@ -65,9 +94,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import math
 import os
 import typing as T
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -76,6 +107,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.profiler import record_function
 
+from riffusion_tpu_torch import aot
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.models.layers import precise
 from riffusion_tpu_torch.models.unet import UNet2DCondition
@@ -226,11 +258,14 @@ class DiffusionTrainer:
         )
         self.weight_decay = weight_decay
         self.noise_config = noise_config
+        # on the device once: the step's program indexes it (no upload in a graph)
+        self._alphas_cumprod = sched.alphas_cumprod_table(noise_config, self.device)
         self.dtype = dtype
         self.mesh = mesh
         self.master: T.Optional[UNet2DCondition] = None
         self.unet: T.Optional[UNet2DCondition] = None
         self.optimizer: T.Optional[torch.optim.AdamW] = None
+        self.graph_store: T.Optional[aot.GraphStore] = None
         self.step_count = 0
 
     def _axis(self, name: str):
@@ -262,9 +297,26 @@ class DiffusionTrainer:
                      else compute_copy(self.master, self.dtype))
         self.optimizer = torch.optim.AdamW(
             self.master.parameters(), lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=self.weight_decay,
+            weight_decay=self.weight_decay, capturable=self._capturable,
         )
+        self.graph_store = aot.GraphStore()
         self.step_count = 0
+
+    @property
+    def _capturable(self) -> bool:
+        """Whether the optimizer runs in a graph: on one card (a mesh stays
+        eager, on the optimizer it had before graphs)."""
+        return self.device.type == "cuda" and self.mesh is None
+
+    def program(self, key: str, fn: T.Callable) -> T.Callable:
+        """`fn` (a device program over the trainer's state) as the program
+        of `key`: captured and replayed through the trainer's GraphStore on
+        the card without a mesh while the store is on, `fn` itself (eager)
+        otherwise. The store keeps the `fn` of a key's first call until
+        `restore_checkpoint` drops it."""
+        if self.mesh is None and aot.captures(self.device):
+            return self.graph_store.program(key, fn)
+        return fn
 
     def _share(self, latents: torch.Tensor, *batched: torch.Tensor) -> T.List[torch.Tensor]:
         """This rank's share of the global batch tensors: its rows of the
@@ -290,22 +342,13 @@ class DiffusionTrainer:
             for group in groups:
                 dist.all_reduce(x, group=group)
 
-    def loss_and_grads(
-        self,
-        latents: T.Any,
-        context: T.Any,
-        *,
-        t: T.Optional[T.Any] = None,
-        noise: T.Optional[T.Any] = None,
-        generator: T.Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """The loss on clean latents (B, H, W, C) (the JAX layout) and text
-        embeddings (B, L, D), with its gradient left in the masters' `.grad`
-        in their dtype; returns the loss (a 0-d tensor on the device, not
-        synchronized without a mesh). `t` (B,) integer timesteps and `noise`
-        (B, H, W, C) are drawn from `generator` when not given. Over a mesh
-        every argument is the global batch's and the loss is the global
-        mean, on every rank."""
+    def _host_inputs(
+        self, latents: T.Any, context: T.Any, t: T.Optional[T.Any], noise: T.Optional[T.Any],
+        generator: T.Optional[torch.Generator],
+    ) -> T.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The step's host part: latents, context, t and noise on the device
+        in their dtypes, t and then the noise drawn from `generator` where
+        not given."""
         if self.master is None:
             raise RuntimeError("DiffusionTrainer used before init_from")
         dev, p = self.device, precise(self.dtype)
@@ -322,14 +365,20 @@ class DiffusionTrainer:
                               generator=generator, device=dev)
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator, device=dev)
-        t = on_device(t, torch.int64)
-        noise = on_device(noise, p)
+        return latents, context, on_device(t, torch.int64), on_device(noise, p)
+
+    def _loss_and_grads(self, latents: torch.Tensor, context: torch.Tensor, t: torch.Tensor,
+                        noise: torch.Tensor) -> torch.Tensor:
+        """The loss and the masters' gradients from the host part's tensors
+        (the device part of `loss_and_grads`)."""
+        p = precise(self.dtype)
+        b = latents.shape[0]
         count = latents.numel()
         routing = contextlib.nullcontext()
         if self.mesh is not None:
             latents, noise, t, context = self._share(latents, noise, t, context)
             routing = attention_ops.route_batch(b)
-        noisy = sched.add_noise(self.noise_config, latents, noise, t)
+        noisy = sched.add_noise(self.noise_config, latents, noise, t, self._alphas_cumprod)
 
         if self.unet is not self.master:
             with record_function("riffusion.train.copy"), torch.no_grad():
@@ -355,6 +404,36 @@ class DiffusionTrainer:
                 loss = loss[0]
         return loss
 
+    def loss_and_grads(
+        self,
+        latents: T.Any,
+        context: T.Any,
+        *,
+        t: T.Optional[T.Any] = None,
+        noise: T.Optional[T.Any] = None,
+        generator: T.Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The loss on clean latents (B, H, W, C) (the JAX layout) and text
+        embeddings (B, L, D), with its gradient left in the masters' `.grad`
+        in their dtype; returns the loss (a 0-d tensor on the device, not
+        synchronized without a mesh). `t` (B,) integer timesteps and `noise`
+        (B, H, W, C) are drawn from `generator` when not given. Over a mesh
+        every argument is the global batch's and the loss is the global
+        mean, on every rank. Always eager (no graph)."""
+        return self._loss_and_grads(*self._host_inputs(latents, context, t, noise, generator))
+
+    def _train_step(self, latents: torch.Tensor, context: torch.Tensor, t: torch.Tensor,
+                    noise: torch.Tensor, lr: torch.Tensor) -> torch.Tensor:
+        """The step's device program: the loss and gradients, then AdamW at
+        `lr` (a 0-d tensor: the capturable optimizer reads it on the card,
+        the others take its value from the host); returns the loss."""
+        loss = self._loss_and_grads(latents, context, t, noise)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr if self._capturable else float(lr)
+        with record_function("riffusion.train.optimizer"):
+            self.optimizer.step()
+        return loss
+
     def step(
         self,
         latents: T.Any,
@@ -364,14 +443,20 @@ class DiffusionTrainer:
         noise: T.Optional[T.Any] = None,
         generator: T.Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """One update: `loss_and_grads`, then AdamW at the schedule's rate
-        for this step; returns the loss."""
-        loss = self.loss_and_grads(latents, context, t=t, noise=noise, generator=generator)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step_count)
-        with record_function("riffusion.train.optimizer"):
-            self.optimizer.step()
-        self.step_count += 1
+        """One update: the host part, then the device program (`_train_step`
+        through `program("train_step")`: a captured graph on the card), with
+        AdamW at the schedule's rate for this step; returns the loss (a 0-d
+        device tensor)."""
+        inputs = self._host_inputs(latents, context, t, noise, generator)
+        # fp32 on the card is what the capturable optimizer computes in; the
+        # others read a float64 on the host back exactly, with no sync
+        lr = (torch.full((), self.schedule(self.step_count), dtype=torch.float32,
+                         device=self.device)
+              if self._capturable else
+              torch.full((), self.schedule(self.step_count), dtype=torch.float64))
+        program = functools.partial(DiffusionTrainer._train_step, weakref.proxy(self))
+        loss = self.program("train_step", program)(*inputs, lr)
+        self.step_count += 1  # after the program: a step that raised is retried at its own lr
         return loss
 
     # ----------------------------------------------------------- checkpoints
@@ -391,6 +476,8 @@ class DiffusionTrainer:
         unsharded state, written by global rank 0 while every rank waits."""
         out = Path(path) / f"state_{step}"
         opt = self.optimizer.state_dict()
+        for group in opt["param_groups"]:  # a copy; the layout keeps a float lr
+            group["lr"] = float(group["lr"])
         if self.mesh is not None:  # the moments, by parameter name, made whole
             names = [n for n, _ in self.master.named_parameters()]
             opt["state"] = {i: {k: (self.unsharded({names[i]: v})[names[i]] if v.dim() else v)
@@ -421,7 +508,10 @@ class DiffusionTrainer:
         names = [n for n, _ in self.master.named_parameters()]
         opt["state"] = {i: {k: (shard_state({names[i]: v}, self.mesh)[names[i]] if v.dim() else v)
                             for k, v in s.items()} for i, s in opt["state"].items()}
+        for group in opt["param_groups"]:  # this device's optimizer, wherever it was written
+            group["capturable"] = self._capturable
         self.optimizer.load_state_dict(opt)
+        self.graph_store.clear()  # the graphs read the state tensors the load replaced
         self.step_count = int(state["step"])
         ema = state.get("ema")
         if ema is not None:

@@ -1143,13 +1143,13 @@ class RiffusionPipeline:
           held them ("none" on the CPU, which runs no kernel);
         - source, warmup_s, capture_s: how the request's CUDA graph was
           obtained (aot.GraphProgram.stage_report): "captured" now (its
-          warm-up run and its capture, the counterparts of JAX's
-          trace_lower_s and compile_s) or "replayed" (captured earlier:
+          warm-up run and its capture) or "replayed" (captured earlier:
           both 0); "eager" with both 0 on the CPU or with the store off;
-        - execute_s: the request through readback (a replay on the card).
-
-        A restart cannot load a graph from disk (aot.py), so JAX's
-        aot_load_s has no counterpart."""
+        - trace_lower_s, compile_s, aot_load_s: JAX's names for the same
+          stages, so that a caller written against JAX's report reads this
+          one: the warm-up's seconds, the capture's, and 0.0 (a restart
+          cannot load a graph from disk, aot.py);
+        - execute_s: the request through readback (a replay on the card)."""
         from riffusion_tpu_torch.ops import attention
 
         params = params or SpectrogramParams()
@@ -1191,6 +1191,8 @@ class RiffusionPipeline:
                           capture_s=stage["capture_s"])
         else:
             report.update(source="eager", warmup_s=0.0, capture_s=0.0)
+        report.update(trace_lower_s=report["warmup_s"], compile_s=report["capture_s"],
+                      aot_load_s=0.0)
 
         t0 = time.perf_counter()
         self.riffuse_audio(inputs, init_image, params=params)

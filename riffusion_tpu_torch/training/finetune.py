@@ -11,6 +11,14 @@ an export in the port's native layout that
 The UNet computes in bf16 over fp32 masters on CUDA and in fp32 on the CPU
 (as the JAX driver picks bf16 on a TPU only).
 
+On the card the step and the EMA update run as captured CUDA graphs, the
+counterparts of the JAX fine-tune's jitted train step and jitted ema_update:
+the trainer's "train_step" program and an "ema_update" program over this
+run's EMA and masters (parallel/train.py `DiffusionTrainer.program`; the
+decay is a constant of the program, as JAX's closure holds it). The first
+step runs both eagerly and captures them; later steps replay.
+RIFFUSION_TPU_NO_AOT=1, the CPU and a mesh run them eagerly.
+
 Under an initialized process group (torchrun, or parallel.mesh.spawn_world)
 every rank calls `run_finetune` with the same config and the step is
 sharded over a ("data", "model", "seq") mesh, by JAX's rule: `mesh_shape`
@@ -26,6 +34,7 @@ ones raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import shutil
@@ -152,7 +161,9 @@ def ema_update(ema: T.Dict[str, torch.Tensor], params: T.Mapping[str, torch.Tens
 def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> dict:
     """Run the fine-tune loop; returns summary stats (first/final logged
     loss, steps, export path, clip count, the final checkpoint's path, bytes
-    and seconds). Re-invoking with a larger
+    and seconds, and under "graphs" each captured program's stage reports:
+    its warm-up and capture seconds, none where the run was eager).
+    Re-invoking with a larger
     cfg.steps resumes from the newest checkpoint in output_dir, with the
     data stream replayed to that step."""
     out_dir = Path(cfg.output_dir).absolute()
@@ -194,6 +205,8 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
     for _ in range(start_step):
         next(batches)
 
+    ema_step = (None if ema is None else trainer.program(
+        "ema_update", functools.partial(ema_update, ema, params, cfg.ema_decay)))
     # one generator for t and noise, reseeded per step from (seed, step), so
     # a resumed run draws what the uninterrupted one drew
     generator = torch.Generator(device=device)
@@ -204,8 +217,8 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
         latents, context = next(batches)
         generator.manual_seed(int(np.random.SeedSequence([cfg.seed, step]).generate_state(1)[0]))
         loss = trainer.step(latents, context, generator=generator)
-        if ema is not None:
-            ema_update(ema, params, cfg.ema_decay)
+        if ema_step is not None:
+            ema_step()
         if step == start_step or (step + 1) % cfg.log_every == 0 or step + 1 == cfg.steps:
             loss_val = float(loss)
             if not np.isfinite(loss_val):
@@ -257,4 +270,6 @@ def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> d
         "export_dir": str(export_dir),
         "num_clips": len(dataset),
         "checkpoint": checkpoint,
+        "graphs": {key: program.reports()
+                   for key, program in trainer.graph_store.programs.items()},
     }

@@ -5,7 +5,8 @@ strings, the store's round trip, key sensitivity, corrupt-entry recovery and
 the disable switch (as tests/test_embed_cache.py holds the JAX package's),
 the pipeline's wiring (a fresh pipeline serves its prompts from disk,
 bit-equal, without touching the text encoder, and the embeddings equal the
-JAX package's on the same weights), and warmstart_report's keys on the CPU.
+JAX package's on the same weights), and warmstart_report's keys on the CPU
+(JAX's keys among them, from a CPU run of its own report).
 """
 
 import os
@@ -16,7 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
-from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
+from torch_port_util import jax_twin, torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu import riffusion_pipeline as jax_pipeline
 from riffusion_tpu.models import weights as jax_weights
 from riffusion_tpu_torch import embed_cache
@@ -213,11 +214,34 @@ def test_warmstart_report_on_the_cpu(cache_dir):
     for report in reports:
         assert set(report) == {"host_prep_s", "weights_ready_s", "kernel_build_s",
                                "kernel_source", "source", "warmup_s", "capture_s", "execute_s",
-                               "embed_cache_hits", "embed_cache_misses"}
+                               "embed_cache_hits", "embed_cache_misses", "trace_lower_s",
+                               "compile_s", "aot_load_s"}
         assert report["kernel_source"] == "none" and report["kernel_build_s"] == 0.0
         assert (report["source"], report["warmup_s"], report["capture_s"]) == ("eager", 0.0, 0.0)
+        assert (report["trace_lower_s"], report["compile_s"], report["aot_load_s"]) == \
+            (0.0, 0.0, 0.0)
         assert all(report[k] >= 0 for k in ("host_prep_s", "weights_ready_s", "execute_s"))
     assert (reports[0]["embed_cache_hits"], reports[0]["embed_cache_misses"]) == (0, 3)
     assert (reports[1]["embed_cache_hits"], reports[1]["embed_cache_misses"]) == (3, 0)
     jax_report_keys = {"host_prep_s", "weights_ready_s", "execute_s"}
     assert jax_report_keys <= set(reports[0])
+
+
+def test_warmstart_report_carries_the_jax_keys(jax_tiny, cache_dir):
+    """Every key of JAX's warmstart_report (a CPU run of the JAX package's
+    own, on random:tiny: its plain-jit branch) is in the port's, and the
+    keys JAX's store branch adds (source, aot_load_s) too, so a caller
+    written against JAX's report (bench.py reads trace_lower_s and
+    compile_s) reads the port's."""
+    rng = np.random.default_rng(1)
+    image = Image.fromarray(rng.integers(0, 255, (64, 64, 3), dtype=np.uint8))
+    inputs = InferenceInput(start=PromptInput(prompt="a", seed=1), end=PromptInput(prompt="b",
+                            seed=2), alpha=0.5, num_inference_steps=2)
+    params = SpectrogramParams(num_frequencies=64)
+    jax_report = jax_tiny.warmstart_report(jax_twin(inputs), image, params=jax_twin(params))
+    jax_store_keys = {"source", "aot_load_s"}  # riffusion_tpu/riffusion_pipeline.py:587-602
+    assert {"trace_lower_s", "compile_s", "execute_s"} <= set(jax_report)
+    ours = RiffusionPipeline.load_checkpoint("random:tiny", device="cpu").warmstart_report(
+        inputs, image, params=params)
+    assert set(jax_report) | jax_store_keys <= set(ours)
+
