@@ -129,12 +129,15 @@ checkpoint: a diffusers-layout directory (under .chipwork/, deleted at the
    EMA, the final checkpoint and the export) in a directory under .chipwork/
    that is deleted at the end: twice eagerly (RIFFUSION_TPU_NO_AOT=1), then
    through the trainer's graphs, "train_step" and "ema_update" (step 1
-   warms up and captures, steps 2-4 replay; the main path). Every step of
-   every run takes exactly 10 K1 forwards, 10 dK/dV and 10 dQ launches and
-   no plain call, with a finite loss. The eager runs' distance is printed
-   (each step's loss, the masters after the 4 steps); the replayed run
-   must be bit-equal to them where they are bit-equal to each other, else
-   within twice their distance, and always within TRAIN_REPLAY_BOUND.
+   warms up and captures, steps 2-4 replay; the main path), then through
+   graphs captured with RIFFUSION_TPU_TRACE=1, whose replays' stage times
+   must read positive (the launch spans and stage times are printed).
+   Every step of every run takes exactly 10 K1 forwards, 10 dK/dV and 10
+   dQ launches and no plain call, with a finite loss. The eager runs'
+   distance is printed (each step's loss, the masters after the 4 steps);
+   each replayed run must be bit-equal to them where they are bit-equal to
+   each other, else within twice their distance, and always within
+   TRAIN_REPLAY_BOUND.
    Prints each run's step 1 and steps 2-4 (median), the captures' warm-up
    and capture seconds, the peak device memory allocated and reserved
    since the first run (the serving pipeline's graphs stay), the
@@ -1384,26 +1387,34 @@ def _full_width_gradients(torch, attn, layers, ds_dir: Path) -> dict:
 
 
 @contextlib.contextmanager
-def _aot_switch(eager: bool):
-    """RIFFUSION_TPU_NO_AOT=1 inside the block where `eager`, unset where
-    not, and as the caller had it after."""
-    prior = os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
-    if eager:
-        os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
+def _switch(name: str, on: bool):
+    """The environment switch `name` set to 1 inside the block where `on`,
+    unset where not, and as the caller had it after."""
+    prior = os.environ.pop(name, None)
+    if on:
+        os.environ[name] = "1"
     try:
         yield
     finally:
-        os.environ.pop("RIFFUSION_TPU_NO_AOT", None)
+        os.environ.pop(name, None)
         if prior is not None:
-            os.environ["RIFFUSION_TPU_NO_AOT"] = prior
+            os.environ[name] = prior
+
+
+def _aot_switch(eager: bool):
+    """RIFFUSION_TPU_NO_AOT=1 inside the block where `eager`."""
+    return _switch("RIFFUSION_TPU_NO_AOT", eager)
 
 
 def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str) -> dict:
     """run_finetune(checkpoint=DIR, steps=4, batch_size=4) into `out`, in
-    `mode` ("eager": RIFFUSION_TPU_NO_AOT=1; "graph": the trainer's graphs):
-    its stats, each step's (K1, dK/dV, dQ, plain) launches, the seconds of
-    steps 2-4, each step's loss (loss_log.json) and the masters after the
-    steps (the final checkpoint's params, on the CPU)."""
+    `mode` ("eager": RIFFUSION_TPU_NO_AOT=1; "graph": the trainer's graphs;
+    "traced": its graphs captured with RIFFUSION_TPU_TRACE=1): its stats,
+    each step's (K1, dK/dV, dQ, plain) launches, the seconds of steps 2-4,
+    each step's loss (loss_log.json), the masters after the steps (the
+    final checkpoint's params, on the CPU) and, in "traced" mode,
+    tracing.export()."""
+    from riffusion_tpu_torch import tracing
     from riffusion_tpu_torch.training import FinetuneConfig, run_finetune
 
     marks = []
@@ -1415,7 +1426,8 @@ def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str
             attn.COUNTS.plain_calls), msg))
         log(f"[train] {mode}: {msg}")
 
-    with _aot_switch(mode == "eager"):
+    tracing.reset()
+    with _aot_switch(mode == "eager"), _switch("RIFFUSION_TPU_TRACE", mode == "traced"):
         attn.COUNTS.reset()
         start = time.perf_counter()
         stats = run_finetune(FinetuneConfig(
@@ -1423,6 +1435,8 @@ def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str
             batch_size=4, log_every=1, device="cuda",
         ), log=on_log)
         wall = time.perf_counter() - start
+    traced = tracing.export() if mode == "traced" else None
+    tracing.reset()
     step_marks = [m for m in marks if m[2].startswith("step ")]
     per_step = [tuple(b - a for a, b in zip(prev[1], cur[1]))
                 for prev, cur in zip([(0, (0, 0, 0, 0), "")] + step_marks, step_marks)]
@@ -1435,7 +1449,7 @@ def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str
             # run_finetune's rate at step 1 is 1 / the step's seconds
             "first_step_s": 1.0 / float(re.search(r"\(([0-9.]+) it/s\)", step_marks[0][2])[1]),
             "losses": [v for _, v in json.loads((out / "loss_log.json").read_text())],
-            "params": params}
+            "params": params, "tracing": traced}
 
 
 def _run_distance(torch, a: dict, b: dict, start) -> tuple:
@@ -1497,12 +1511,13 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
 
         runs, peaks = {}, {}
         torch.cuda.reset_peak_memory_stats()
-        for name, mode in (("eager 1", "eager"), ("eager 2", "eager"), ("graph", "graph")):
+        for name, mode in (("eager 1", "eager"), ("eager 2", "eager"), ("graph", "graph"),
+                           ("traced", "traced")):
             runs[name] = _finetune(torch, attn, checkpoint, dataset, tmp / name.replace(" ", ""),
                                    mode)
             peaks[name] = (torch.cuda.max_memory_allocated() / 2**30,
                            torch.cuda.max_memory_reserved() / 2**30)
-            if mode == "eager":
+            if mode != "graph":  # the graph run's export is loaded below
                 shutil.rmtree(tmp / name.replace(" ", ""))
             gc.collect()
             torch.cuda.empty_cache()
@@ -1523,32 +1538,47 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
             if not all(np.isfinite(run["losses"])):
                 raise AssertionError("non-finite training loss")
         graph = runs["graph"]
-        reports = graph["stats"]["graphs"]
-        if sorted(reports) != ["ema_update", "train_step"] or runs["eager 1"]["stats"]["graphs"]:
-            raise AssertionError(f"the graph run captured {sorted(reports)}, the eager run "
+        for name in ("graph", "traced"):
+            reports = runs[name]["stats"]["graphs"]
+            if sorted(reports) != ["ema_update", "train_step"]:
+                raise AssertionError(f"the {name} run captured {sorted(reports)}")
+            for key, (report,) in sorted(reports.items()):
+                log(f"[train] {name}: {key} warm-up {report['warmup_s']:.3f} s, capture "
+                    f"{report['capture_s']:.3f} s")
+        if runs["eager 1"]["stats"]["graphs"]:
+            raise AssertionError(f"the eager run captured "
                                  f"{sorted(runs['eager 1']['stats']['graphs'])}")
-        for key, (report,) in sorted(reports.items()):
-            log(f"[train] graph: {key} warm-up {report['warmup_s']:.3f} s, capture "
-                f"{report['capture_s']:.3f} s, last replay's host {report['replay_s']:.6f} s")
+        traced = runs["traced"]["tracing"]
+        launches = sorted(s["dur_ns"] / 1e6 for s in traced["spans"]
+                          if s["name"] == "riffusion.launch")
+        stages = {n: t["s"] * 1e3 / t["count"] for n, t in sorted(traced["stages"].items())}
+        log(f"[train] traced: riffusion.launch spans (host ms, the captures among them) "
+            f"{[f'{x:.3f}' for x in launches]}; stage device ms per replay read "
+            f"{ {n: round(v, 3) for n, v in stages.items()} }; {traced['counters']}")
+        if not traced["counters"]["stage_read"] or any(v <= 0 for v in stages.values()):
+            raise AssertionError(f"the traced replays read no positive stage time: {traced}")
 
         eager_equal, eager_rel, eager_loss = _run_distance(torch, runs["eager 1"],
                                                            runs["eager 2"], start_params)
-        to_eager = [_run_distance(torch, graph, runs[n], start_params)
-                    for n in ("eager 1", "eager 2")]
-        graph_equal = all(d[0] for d in to_eager)
-        graph_rel, graph_loss = min(d[1] for d in to_eager), min(d[2] for d in to_eager)
         log(f"[train] eager against eager: bit-equal {eager_equal}, movement rel L2 "
-            f"{eager_rel:.3e}, loss rel {eager_loss:.3e}; replayed against eager: bit-equal "
-            f"{graph_equal}, movement rel L2 {graph_rel:.3e}, loss rel {graph_loss:.3e} (bound "
-            f"{TRAIN_REPLAY_BOUND}, and {'bit-equality' if eager_equal else 'twice the eager'})")
-        if eager_equal and not graph_equal:
-            raise AssertionError("the replayed fine-tune is not bit-equal to the eager runs, "
-                                 "which are bit-equal to each other")
-        if not (graph_rel <= TRAIN_REPLAY_BOUND["movement_rel_l2"]
-                and graph_loss <= TRAIN_REPLAY_BOUND["loss_rel"]
-                and (eager_equal or (graph_rel <= 2 * eager_rel
-                                     and graph_loss <= 2 * eager_loss))):
-            raise AssertionError("the replayed fine-tune disagrees with the eager runs")
+            f"{eager_rel:.3e}, loss rel {eager_loss:.3e}")
+        for name in ("graph", "traced"):
+            to_eager = [_run_distance(torch, runs[name], runs[n], start_params)
+                        for n in ("eager 1", "eager 2")]
+            graph_equal = all(d[0] for d in to_eager)
+            graph_rel, graph_loss = min(d[1] for d in to_eager), min(d[2] for d in to_eager)
+            log(f"[train] {name}, replayed against eager: bit-equal {graph_equal}, movement "
+                f"rel L2 {graph_rel:.3e}, loss rel {graph_loss:.3e} (bound {TRAIN_REPLAY_BOUND}, "
+                f"and {'bit-equality' if eager_equal else 'twice the eager'})")
+            if eager_equal and not graph_equal:
+                raise AssertionError(f"the {name} replayed fine-tune is not bit-equal to the "
+                                     "eager runs, which are bit-equal to each other")
+            if not (graph_rel <= TRAIN_REPLAY_BOUND["movement_rel_l2"]
+                    and graph_loss <= TRAIN_REPLAY_BOUND["loss_rel"]
+                    and (eager_equal or (graph_rel <= 2 * eager_rel
+                                         and graph_loss <= 2 * eager_loss))):
+                raise AssertionError(f"the {name} replayed fine-tune disagrees with the eager "
+                                     "runs")
         launches = {"attention": sum(c[0] for c in graph["per_step"]),
                     "attention_dkv": sum(c[1] for c in graph["per_step"]),
                     "attention_dq": sum(c[2] for c in graph["per_step"])}

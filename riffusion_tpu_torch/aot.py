@@ -34,10 +34,18 @@ drops them (`GraphStore.clear`) when it replaces that state's tensors.
   host-to-device copy, is the usual one). Nothing retries eagerly.
 - `stage_report(*args)` says how the graph was obtained: "source"
   ("captured" by this call, or "replayed" when it existed), "warmup_s" and
-  "capture_s" (the counterparts of JAX's trace_lower_s and compile_s),
-  "replay_s" (the host's seconds to copy the inputs and launch the last
-  replay; the card runs on) and "nodes" (the graph's node count, when the
-  store was asked to count them).
+  "capture_s" (the counterparts of JAX's trace_lower_s and compile_s) and
+  "nodes" (the graph's node count, when the store was asked to count
+  them).
+- Every call runs inside a `riffusion.launch` span (tracing.py): the
+  copies, the replay and the output copies on the host (the card runs on),
+  or the warm-up and the capture; `eager(fn)` opens the same span around a
+  program that runs without a graph, so an owner opens none. A graph captured with
+  RIFFUSION_TPU_TRACE=1 also records a pair of timing events at each of
+  the program's stages (`tracing.stage`), which its entry keeps: each
+  replay's stage times are read at the graph's next launch, where the
+  replay has completed (tracing.StageTimes). A graph captured with the
+  switch off has only the program's own nodes.
 
 Memory. The programs of one `GraphStore` (one per pipeline, one per
 trainer) capture into one pool (`torch.cuda.graph_pool_handle()`), so a
@@ -65,6 +73,7 @@ kernels' builds (csrc/build/) and the text embeddings (embed_cache.py).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
@@ -75,6 +84,7 @@ import typing as T
 import torch
 from torch.overrides import TorchFunctionMode
 
+from riffusion_tpu_torch import tracing
 from riffusion_tpu_torch.ops import attention
 
 Args = T.Tuple[T.Optional[torch.Tensor], ...]
@@ -92,6 +102,18 @@ def captures(device: torch.device) -> bool:
     """Whether programs on `device` go through the store: on a CUDA device
     while the store is on."""
     return device.type == "cuda" and enabled()
+
+
+def eager(fn: T.Callable) -> T.Callable:
+    """`fn` as a device program run without a graph (on the CPU, over a
+    mesh, or with the store off): each call inside the `riffusion.launch`
+    span that a GraphProgram's call opens."""
+
+    def launch(*args: T.Any) -> T.Any:
+        with tracing.span("riffusion.launch"):
+            return fn(*args)
+
+    return launch
 
 
 def signature(key: str, args: Args) -> str:
@@ -175,6 +197,11 @@ class CudaGraphs:
     def replay(self, graph: T.Any) -> None:
         graph.replay()
 
+    def timing_event(self) -> T.Any:
+        """An event a stage records inside a capture, as a node of the
+        graph, for its device time (tracing.stage)."""
+        return torch.cuda.Event(enable_timing=True, external=True)
+
     def nodes(self, graph: T.Any) -> T.Optional[int]:
         if not self.count_nodes:
             return None
@@ -196,6 +223,7 @@ class _Captured:
     outputs: T.Any  # the static outputs every replay writes
     launched: T.Dict[str, int]  # COUNTS' increments of one run
     report: T.Dict[str, T.Any]
+    stages: T.Optional[tracing.StageTimes]  # captured with the tracing switch on
 
 
 class GraphProgram:
@@ -219,19 +247,22 @@ class GraphProgram:
         return [dict(entry.report) for entry in self._captured.values()]
 
     def __call__(self, *args: T.Optional[torch.Tensor]) -> T.Any:
-        sig = signature(self.key, args)
-        entry = self._captured.get(sig)
-        if entry is None:
-            return self._capture(sig, args)
-        t0 = time.perf_counter()
-        for static, x in zip(entry.inputs, args):
-            if static is not None:
-                static.copy_(x)
-        self.graphs.replay(entry.graph)
-        attention.COUNTS.add(entry.launched)
-        outputs = _clone(entry.outputs)
-        entry.report["replay_s"] = time.perf_counter() - t0
-        return outputs
+        with tracing.span("riffusion.launch"):
+            sig = signature(self.key, args)
+            entry = self._captured.get(sig)
+            if entry is None:
+                return self._capture(sig, args)
+            if entry.stages is not None:
+                entry.stages.read()
+            for static, x in zip(entry.inputs, args):
+                if static is not None:
+                    static.copy_(x)
+            start_ns = time.time_ns()
+            self.graphs.replay(entry.graph)
+            if entry.stages is not None:
+                entry.stages.replayed(start_ns)
+            attention.COUNTS.add(entry.launched)
+            return _clone(entry.outputs)
 
     def _capture(self, sig: str, args: Args) -> T.Any:
         static = tuple(None if x is None else x.clone() for x in args)
@@ -250,9 +281,11 @@ class GraphProgram:
                 raise
 
         before = attention.COUNTS.snapshot()
+        timed = (tracing.TRACER.capture(self.graphs.timing_event) if tracing.enabled()
+                 else contextlib.nullcontext(None))
         t0 = time.perf_counter()
         try:
-            with CAPTURE_LOCK:
+            with CAPTURE_LOCK, timed as pairs:
                 graph, static_out = self.graphs.capture(traced, static, self.pool)
         except Exception as exc:
             attention.COUNTS.restore(before)
@@ -265,7 +298,8 @@ class GraphProgram:
         self._captured[sig] = _Captured(
             graph=graph, inputs=static, outputs=static_out, launched=launched,
             report={"key": self.key, "warmup_s": warmup_s, "capture_s": capture_s,
-                    "replay_s": 0.0, "nodes": self.graphs.nodes(graph)},
+                    "nodes": self.graphs.nodes(graph)},
+            stages=tracing.StageTimes(self.key, pairs) if pairs else None,
         )
         return outputs
 

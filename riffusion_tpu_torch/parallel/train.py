@@ -82,11 +82,17 @@ A graph replays addresses, so `restore_checkpoint`, whose optimizer load
 replaces the moments and step counts with new tensors, drops the trainer's
 graphs: the next call captures again.
 
-Each part of a step runs inside a `torch.profiler.record_function` span
-(riffusion.train.copy, .forward, .backward, .grads, .allreduce over a
-mesh, .optimizer), which a profiler attributes device time to in an eager
-step (`python -m riffusion_tpu_torch.profile_train`);
-with no profiler running a span costs a few microseconds.
+Spans (tracing.py, each a `torch.profiler.record_function` range). `step`
+runs inside `riffusion.train.step` (a new id per step), with children
+`riffusion.train.upload` (the host part: its copies to the device wait for
+the card's earlier work) and `riffusion.launch` (the device program
+queued). The device program's stages are `riffusion.train.copy`,
+`.forward`, `.backward`, `.grads`, `.allreduce` over a mesh and
+`.optimizer`: a profiler attributes an eager step's device time to them
+(`python -m riffusion_tpu_torch.profile_train`), and a graph captured with
+RIFFUSION_TPU_TRACE=1 times each of them on the card at every replay
+(aot.py). With the switch off and no profiler running a span costs a few
+microseconds.
 """
 
 from __future__ import annotations
@@ -105,9 +111,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.profiler import record_function
 
-from riffusion_tpu_torch import aot
+from riffusion_tpu_torch import aot, tracing
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.models.layers import precise
 from riffusion_tpu_torch.models.unet import UNet2DCondition
@@ -311,12 +316,13 @@ class DiffusionTrainer:
     def program(self, key: str, fn: T.Callable) -> T.Callable:
         """`fn` (a device program over the trainer's state) as the program
         of `key`: captured and replayed through the trainer's GraphStore on
-        the card without a mesh while the store is on, `fn` itself (eager)
-        otherwise. The store keeps the `fn` of a key's first call until
-        `restore_checkpoint` drops it."""
+        the card without a mesh while the store is on, `fn` run eagerly
+        (`aot.eager`) otherwise; either way each call opens a
+        `riffusion.launch` span. The store keeps the `fn` of a key's first
+        call until `restore_checkpoint` drops it."""
         if self.mesh is None and aot.captures(self.device):
             return self.graph_store.program(key, fn)
-        return fn
+        return aot.eager(fn)
 
     def _share(self, latents: torch.Tensor, *batched: torch.Tensor) -> T.List[torch.Tensor]:
         """This rank's share of the global batch tensors: its rows of the
@@ -381,24 +387,24 @@ class DiffusionTrainer:
         noisy = sched.add_noise(self.noise_config, latents, noise, t, self._alphas_cumprod)
 
         if self.unet is not self.master:
-            with record_function("riffusion.train.copy"), torch.no_grad():
+            with tracing.stage("riffusion.train.copy"), torch.no_grad():
                 for work, master in zip(self.unet.parameters(), self.master.parameters()):
                     work.copy_(master)
-        with record_function("riffusion.train.forward"), routing:
+        with tracing.stage("riffusion.train.forward"), routing:
             eps = self.unet(noisy.permute(0, 3, 1, 2), t, context)
             err = torch.square(eps.to(p) - noise.permute(0, 3, 1, 2))
             loss = torch.mean(err) if self.mesh is None else torch.sum(err) / count
         self.optimizer.zero_grad(set_to_none=True)
-        with record_function("riffusion.train.backward"):
+        with tracing.stage("riffusion.train.backward"):
             loss.backward()
         if self.unet is not self.master:
-            with record_function("riffusion.train.grads"):
+            with tracing.stage("riffusion.train.grads"):
                 for work, master in zip(self.unet.parameters(), self.master.parameters()):
                     master.grad = work.grad.to(p)
                     work.grad = None
         loss = loss.detach()
         if self.mesh is not None:
-            with record_function("riffusion.train.allreduce"):
+            with tracing.stage("riffusion.train.allreduce"):
                 loss = loss.reshape(1)
                 self._sum_over_shares([m.grad for m in self.master.parameters()] + [loss])
                 loss = loss[0]
@@ -430,7 +436,7 @@ class DiffusionTrainer:
         loss = self._loss_and_grads(latents, context, t, noise)
         for group in self.optimizer.param_groups:
             group["lr"] = lr if self._capturable else float(lr)
-        with record_function("riffusion.train.optimizer"):
+        with tracing.stage("riffusion.train.optimizer"):
             self.optimizer.step()
         return loss
 
@@ -447,15 +453,17 @@ class DiffusionTrainer:
         through `program("train_step")`: a captured graph on the card), with
         AdamW at the schedule's rate for this step; returns the loss (a 0-d
         device tensor)."""
-        inputs = self._host_inputs(latents, context, t, noise, generator)
-        # fp32 on the card is what the capturable optimizer computes in; the
-        # others read a float64 on the host back exactly, with no sync
-        lr = (torch.full((), self.schedule(self.step_count), dtype=torch.float32,
-                         device=self.device)
-              if self._capturable else
-              torch.full((), self.schedule(self.step_count), dtype=torch.float64))
-        program = functools.partial(DiffusionTrainer._train_step, weakref.proxy(self))
-        loss = self.program("train_step", program)(*inputs, lr)
+        with tracing.span("riffusion.train.step", root=True):
+            with tracing.span("riffusion.train.upload"):
+                inputs = self._host_inputs(latents, context, t, noise, generator)
+                # fp32 on the card is what the capturable optimizer computes in; the
+                # others read a float64 on the host back exactly, with no sync
+                lr = (torch.full((), self.schedule(self.step_count), dtype=torch.float32,
+                                 device=self.device)
+                      if self._capturable else
+                      torch.full((), self.schedule(self.step_count), dtype=torch.float64))
+            program = functools.partial(DiffusionTrainer._train_step, weakref.proxy(self))
+            loss = self.program("train_step", program)(*inputs, lr)
         self.step_count += 1  # after the program: a step that raised is retried at its own lr
         return loss
 

@@ -32,10 +32,11 @@ then for each mode:
   sum of kernel and copy times; one stream) against the steps' wall time
   (the idle share), the device operations, the launch counts, the
   attention kernels' time (K1 forward, dK/dV, dQ) and the 15 kernels with
-  the most device time; in eager mode also each part's kernel time (the
-  kernels that start in the device range of the riffusion.train.copy,
-  .forward, .grads or .ema span or of AdamW's own annotation, and the
-  backward's, which start in none of them: a replay has no ranges);
+  the most device time; in eager mode also each part's kernel time
+  (`kernel_ms_by_part`: the kernels that start in the device range of a
+  stage of STAGES or of AdamW's own annotation, and the backward's, which
+  start in none of them; a replay has no ranges) and each
+  riffusion.train.* span's host time;
 - the SM clock, power and clock-event reasons over each window
   (profile_batch.ClockSampler).
 The batch is random (a seeded torch.Generator on the card): a step's work
@@ -62,6 +63,22 @@ ATTENTION_KERNELS = {"k1_forward": "attention_fwd_bf16_kernel",
 #: The single-device modes in the order they run: eager first, so that its
 #: peak holds no graph pool.
 MODES = ("eager", "graph")
+
+#: The device stages of a step (parallel/train.py, and training/finetune.py's
+#: ema_update), the parts an eager step's kernel time is given to. The spans
+#: around them (riffusion.train.step, .upload, riffusion.launch) are no
+#: parts.
+STAGES = ("riffusion.train.copy", "riffusion.train.forward", "riffusion.train.backward",
+          "riffusion.train.grads", "riffusion.train.allreduce", "riffusion.train.optimizer",
+          "riffusion.train.ema")
+
+#: The profiler gives a kernel to the innermost annotation open at its
+#: launch, so AdamW's kernels lie in the device range of its own annotation
+#: (Optimizer.step#AdamW.step), which stands for riffusion.train.optimizer.
+OPTIMIZER_ANNOTATION = "Optimizer.step#"
+
+#: The part of the kernels that start in no stage's range.
+BACKWARD = "backward (outside every stage)"
 
 
 def main(argv=None) -> int:
@@ -96,7 +113,6 @@ def _profile(rank: int, world: int, mesh_shape) -> dict:
     import functools
 
     import torch
-    from torch.profiler import record_function
 
     from riffusion_tpu_torch import aot
     from riffusion_tpu_torch.models.weights import random_bundle
@@ -138,8 +154,7 @@ def _profile(rank: int, world: int, mesh_shape) -> dict:
             torch.cuda.synchronize()
             t0 = time.monotonic()
             trainer.step(latents, context, generator=gen)
-            with record_function("riffusion.train.ema"):
-                ema_step()
+            ema_step()  # inside its stage, riffusion.train.ema
             torch.cuda.synchronize()
             return time.monotonic() - t0
 
@@ -197,10 +212,7 @@ def _profiled(step, clocks, step_s_median: float, parts: bool) -> dict:
         t0 = time.monotonic()
         wall = sum(step() for _ in range(2))
         t1 = time.monotonic()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    annotations = [e for e in events if getattr(e, "is_user_annotation", False)
-                   or e.name.startswith("riffusion.")]
-    kernels = [e for e in events if e not in annotations]
+    annotations, kernels = device_events(prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name: dict = {}
     for e in kernels:
@@ -229,17 +241,7 @@ def _profiled(step, clocks, step_s_median: float, parts: bool) -> dict:
           f"launches {out['launches']}, attention "
           f"{', '.join(f'{k} {v:.2f} ms' for k, v in attention_ms.items())}", flush=True)
     if parts:
-        # The device-side ranges of the riffusion.train.* spans and of AdamW's
-        # own annotation; each kernel's time goes to the range it starts in.
-        # The backward runs on autograd's thread, whose launches no range of
-        # this thread covers: its kernels are those outside every range.
-        ranges = [(a.time_range.start, a.time_range.end, a.name) for a in annotations
-                  if a.name != "riffusion.train.optimizer"]  # AdamW's annotation is inside
-        spans: dict = {}
-        for k in kernels:
-            part = next((name for start, end, name in ranges
-                         if start <= k.time_range.start < end), "backward (outside every range)")
-            spans[part] = spans.get(part, 0.0) + k.time_range.elapsed_us() / 1e3
+        spans = kernel_ms_by_part(annotations, kernels)
         host_ms: dict = {}  # each span's host time (a gloo all-reduce is host time)
         for e in prof.events():
             if e.device_type == DeviceType.CPU and e.name.startswith("riffusion.train."):
@@ -252,6 +254,35 @@ def _profiled(step, clocks, step_s_median: float, parts: bool) -> dict:
     for name, (t, c) in top:
         print(f"  {t:9.2f} ms {c:6d}x {name[:100]}")
     return out
+
+
+def device_events(prof) -> tuple:
+    """A profile's device events: (the device ranges of the host's
+    annotations, the kernels and copies that ran)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    annotations = [e for e in events if getattr(e, "is_user_annotation", False)
+                   or e.name.startswith("riffusion.")]
+    return annotations, [e for e in events if e not in annotations]
+
+
+def kernel_ms_by_part(annotations, kernels) -> dict:
+    """Each part's kernel ms in an eager step, from the profiler's device
+    events: a kernel's time goes to the stage (STAGES, AdamW's annotation
+    for the optimizer's) whose device range it starts in, or to BACKWARD
+    where it starts in none. The backward runs on autograd's thread, whose
+    launches no range of the caller's thread covers: its kernels are those
+    outside every stage."""
+    ranges = [(a.time_range.start, a.time_range.end,
+               "riffusion.train.optimizer" if a.name.startswith(OPTIMIZER_ANNOTATION) else a.name)
+              for a in annotations if a.name in STAGES or a.name.startswith(OPTIMIZER_ANNOTATION)]
+    parts: dict = {}
+    for k in kernels:
+        part = next((name for start, end, name in ranges if start <= k.time_range.start < end),
+                    BACKWARD)
+        parts[part] = parts.get(part, 0.0) + k.time_range.elapsed_us() / 1e3
+    return parts
 
 
 if __name__ == "__main__":

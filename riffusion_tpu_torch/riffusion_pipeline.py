@@ -50,12 +50,19 @@ across processes on disk (embed_cache.py, keyed on the bundle's
 checkpoint_id), so a restarted server reads its boot prompts off disk.
 `embed_cache_counts` gives the disk cache's hits and misses.
 
-Each stage of a request runs inside a `torch.profiler.record_function` span
-(riffusion.text, .vae_encode, .denoise, .vae_decode, .audio), which a
-profiler attributes device time to (scripts/profile_torch_request.py); with
-no profiler running a span costs a few microseconds. A replayed graph is one
-launch to the profiler, so the device stages' spans are read from an eager
-run (RIFFUSION_TPU_NO_AOT=1).
+Spans (tracing.py, each a `torch.profiler.record_function` range).
+`riffuse_audio` and `riffuse_audio_batch` run inside `riffusion.call`, with
+children `riffusion.prepare` (the host part, `riffusion.text` inside it),
+`riffusion.launch` (the device program queued: a graph's replay, or the
+eager program), `riffusion.readback` (the wait for the results' copies) and
+`riffusion.finish` (PIL images, AudioSegments, the filters; with
+`async_dispatch` these two open when `finalize` is called). The device
+program's stages are `riffusion.vae_encode`, `.denoise`, `.vae_decode` and
+`.audio`: a profiler attributes an eager run's device time to them
+(scripts/profile_torch_request.py), and a graph captured with
+RIFFUSION_TPU_TRACE=1 times each of them on the card at every replay
+(aot.py). With the switch off and no profiler running a span costs a few
+microseconds.
 """
 
 from __future__ import annotations
@@ -70,9 +77,8 @@ import weakref
 import numpy as np
 import torch
 from PIL import Image
-from torch.profiler import record_function
 
-from riffusion_tpu_torch import aot, embed_cache
+from riffusion_tpu_torch import aot, embed_cache, tracing
 from riffusion_tpu_torch.audio.segment import AudioSegment
 from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
@@ -462,11 +468,13 @@ class RiffusionPipeline:
         host part (`_riffuse_call`) and then the device program through the
         store (`_run_program`); `name` is the key's ("riffuse" for a single
         request's call, as the JAX package keys its `_riffuse_program`)."""
-        return self._run_program(self._riffuse_call(
-            inputs_list, init_images, mask_image, use_reweighting, fused_params, noises,
-            scheduler, share=share, unet=unet, routed_batch=routed_batch, strength=strength,
-            name=name,
-        ))
+        with tracing.span("riffusion.prepare"):
+            program = self._riffuse_call(
+                inputs_list, init_images, mask_image, use_reweighting, fused_params, noises,
+                scheduler, share=share, unet=unet, routed_batch=routed_batch, strength=strength,
+                name=name,
+            )
+        return self._run_program(program)
 
     def _riffuse_call(
         self,
@@ -529,7 +537,7 @@ class RiffusionPipeline:
             raise ValueError(f"need one noise source per request: {len(noises)} for {n}")
         start, stop = share if share is not None else (0, n)
         rows = slice(start, stop)
-        with record_function("riffusion.text"):
+        with tracing.span("riffusion.text"):
             seq = max(self._embedding_length(inp, use_reweighting) for inp in inputs_list)
             inputs_list = inputs_list[rows]
             pairs = [self._embedding_pair(inp, use_reweighting) for inp in inputs_list]
@@ -603,7 +611,7 @@ class RiffusionPipeline:
         plan, the noising timestep, the spectrogram parameters, the routed
         batch, a replacement UNet) come from the call's key."""
         scale = self.bundle.vae_config.scaling_factor
-        with record_function("riffusion.vae_encode"):
+        with tracing.stage("riffusion.vae_encode"):
             mean, logvar = self.vae.encode_moments(image)
             init_latents = (scale * self.vae.sample(mean, logvar, vae_eps)).to(torch.float32)
         seed_noise = torch.cat([
@@ -616,7 +624,7 @@ class RiffusionPipeline:
             latents = sched.add_noise_sigma(plan, init_latents, seed_noise, 0)
         else:
             latents = sched.add_noise(self.noise_config, init_latents, seed_noise, noise_timestep)
-        with record_function("riffusion.denoise"), attention_ops.route_batch(routed_batch):
+        with tracing.stage("riffusion.denoise"), attention_ops.route_batch(routed_batch):
             latents = self._denoise(
                 plan, latents, text_emb, guidance, mask, init_latents, seed_noise, ancestral,
                 unet=unet,
@@ -651,7 +659,7 @@ class RiffusionPipeline:
         codec -> inverse mel -> Griffin-Lim -> int16 waveforms (N, C, L)
         from the drawn phase (`_phase_draws`)."""
         n = latents.shape[0]
-        with record_function("riffusion.vae_decode"):
+        with tracing.stage("riffusion.vae_decode"):
             decoded = self.vae.decode(latents / self.bundle.vae_config.scaling_factor)
             images_u8 = torch.stack(
                 [codec.image_u8_from_vae_output(decoded[i:i + 1]) for i in range(n)]
@@ -659,7 +667,7 @@ class RiffusionPipeline:
         if fused_params is None:
             return images_u8, None
 
-        with record_function("riffusion.audio"):
+        with tracing.stage("riffusion.audio"):
             converter = self.converter(fused_params)
             codes = torch.cat(
                 [codec.codes_from_rgb_image(im, stereo=fused_params.stereo) for im in images_u8]
@@ -677,7 +685,7 @@ class RiffusionPipeline:
         first call and replayed after, on the card with the store on; run
         eagerly on the CPU, without a key, or under RIFFUSION_TPU_NO_AOT=1."""
         if program.key is None or not aot.captures(self.device):
-            return program.fn(*program.args)
+            return aot.eager(program.fn)(*program.args)
         return self.graph_store.program(program.key, program.fn)(*program.args)
 
     def _dispatch(
@@ -721,7 +729,7 @@ class RiffusionPipeline:
             done.record()
 
         def wait() -> T.Tuple[np.ndarray, T.Optional[np.ndarray]]:
-            with aot.CAPTURE_LOCK:
+            with tracing.span("riffusion.readback"), aot.CAPTURE_LOCK:
                 done.synchronize()
             return tuple(None if h is None else h.numpy() for h in host)
 
@@ -776,11 +784,12 @@ class RiffusionPipeline:
         through PIL on its way to Griffin-Lim. A batch of one, under the
         single request's key ("riffuse", as JAX's `_riffuse_program`)."""
         params = params or SpectrogramParams()
-        images_np, waveforms_np = self._dispatch(
-            [inputs], [init_image], mask_image, use_reweighting, params,
-            None if noise is None else [noise], scheduler, name="riffuse",
-        )()
-        return self._results(images_np, waveforms_np, params, apply_filters)[0]
+        with tracing.span("riffusion.call"):
+            images_np, waveforms_np = self._dispatch(
+                [inputs], [init_image], mask_image, use_reweighting, params,
+                None if noise is None else [noise], scheduler, name="riffuse",
+            )()
+            return self._results(images_np, waveforms_np, params, apply_filters)[0]
 
     def riffuse_audio_batch(
         self,
@@ -828,21 +837,22 @@ class RiffusionPipeline:
 
             self._check_mesh(mesh)
             share = mesh_mod.data_share(mesh, len(inputs_list))
-        wait = self._dispatch(
-            inputs_list, images, mask_image, use_reweighting, params, noises, scheduler,
-            share=share,
-        )
+        with tracing.span("riffusion.call"):
+            wait = self._dispatch(
+                inputs_list, images, mask_image, use_reweighting, params, noises, scheduler,
+                share=share,
+            )
 
-        def finalize() -> T.List[T.Tuple[Image.Image, AudioSegment]]:
-            images_np, waveforms_np = wait()
-            if mesh is not None:
-                images_np, waveforms_np = (
-                    mesh_mod.gather_rows(torch.from_numpy(x).to(self.device), mesh).cpu().numpy()
-                    for x in (images_np, waveforms_np)
-                )
-            return self._results(images_np, waveforms_np, params, apply_filters)
+            def finalize() -> T.List[T.Tuple[Image.Image, AudioSegment]]:
+                images_np, waveforms_np = wait()
+                if mesh is not None:
+                    images_np, waveforms_np = (
+                        mesh_mod.gather_rows(torch.from_numpy(x).to(self.device), mesh)
+                        .cpu().numpy() for x in (images_np, waveforms_np)
+                    )
+                return self._results(images_np, waveforms_np, params, apply_filters)
 
-        return finalize if async_dispatch else finalize()
+            return finalize if async_dispatch else finalize()
 
     def _check_mesh(self, mesh: T.Any) -> None:
         """A mesh's collectives run on the pipeline's device type."""
@@ -858,11 +868,12 @@ class RiffusionPipeline:
         """(PIL image, AudioSegment) per row of a program's uint8 images and
         int16 (N, C, L) waveforms, the filters applied on request."""
         results = []
-        for image_np, waveform_np in zip(images_np, waveforms_np):
-            segment = AudioSegment(waveform_np.T, params.sample_rate)
-            if apply_filters:
-                segment = audio_util.apply_filters(segment, compression=False)
-            results.append((Image.fromarray(image_np, mode="RGB"), segment))
+        with tracing.span("riffusion.finish"):
+            for image_np, waveform_np in zip(images_np, waveforms_np):
+                segment = AudioSegment(waveform_np.T, params.sample_rate)
+                if apply_filters:
+                    segment = audio_util.apply_filters(segment, compression=False)
+                results.append((Image.fromarray(image_np, mode="RGB"), segment))
         return results
 
     # --------------------------------------------------------- txt2img/img2img
@@ -884,7 +895,7 @@ class RiffusionPipeline:
         n = len(prompts)
         plan = sched.make_plan(scheduler, num_steps, 0, self.noise_config)
         dev = self.device
-        with record_function("riffusion.text"):
+        with tracing.span("riffusion.text"):
             conds = [self.embed_text_weighted(p) for p in prompts]
             seq = max(c.shape[1] for c in conds)
             conds = [self._pad_seq(c, seq) for c in conds]
@@ -918,7 +929,7 @@ class RiffusionPipeline:
         latents at the plan's init_noise_sigma, the denoise loop, the VAE
         decode and the audio tail."""
         latents = latents.to(torch.float32) * plan.init_noise_sigma
-        with record_function("riffusion.denoise"):
+        with tracing.stage("riffusion.denoise"):
             latents = self._denoise(plan, latents, text_emb, guidance, None, None, None, ancestral)
         return self._decode_and_audio(latents, fused_params, gl_real, gl_imag)
 
@@ -1029,7 +1040,7 @@ class RiffusionPipeline:
         the store under JAX's "magic_mix" key."""
         plan = sched.make_plan(scheduler, num_steps, t_start, self.noise_config)
         dev = self.device
-        with record_function("riffusion.text"):
+        with tracing.span("riffusion.text"):
             cond = self.embed_text_weighted(prompt)
             uncond = self._uncond_embedding(None, cond.shape[1]).to(cond.dtype)
             text_emb = torch.cat([uncond, cond], dim=0)
@@ -1055,7 +1066,7 @@ class RiffusionPipeline:
         """The device program of one MagicMix request: the original's
         latent, its noising at the start, and the denoise loop with the
         q-sampled original blended in while t > kmin."""
-        with record_function("riffusion.vae_encode"):
+        with tracing.stage("riffusion.vae_encode"):
             mean, logvar = self.vae.encode_moments(image)
             orig = self.bundle.vae_config.scaling_factor * self.vae.sample(mean, logvar, vae_eps)
             orig = orig.to(torch.float32)
@@ -1072,7 +1083,7 @@ class RiffusionPipeline:
             q_sampled = sched.add_noise_at_index(plan, self.noise_config, orig, q_noise, i)
             return q_sampled * (1.0 - mix_factor) + lat * mix_factor
 
-        with record_function("riffusion.denoise"):
+        with tracing.stage("riffusion.denoise"):
             latents = self._denoise(plan, latents, text_emb, guidance, None, None, None, ancestral,
                                     blend=blend)
         return self._decode_and_audio(latents, None, None, None)

@@ -14,6 +14,12 @@ surface (riffusion_tpu/server.py):
 Malformed JSON, an input that does not decode, an unknown seed or mask
 image id, and a batch that breaks the rules above give 400.
 
+Each POST runs inside a `riffusion.request` span (tracing.py; a new id per
+request), with children `riffusion.front.decode` (the body's JSON and
+InferenceInput, then the seed and mask images), `riffusion.call` (the
+pipeline's, or the wait for the batcher), `riffusion.front.encode` (JPEG,
+WAV or MP3, base64 and the response's JSON) and `riffusion.front.send`.
+
 Without --dynamic-batching the server is single-threaded: one request at a
 time owns the device. With it, a thread per connection parses and encodes,
 and concurrent /run_inference/ requests join a serving.DynamicBatcher, whose
@@ -51,6 +57,7 @@ from socketserver import ThreadingMixIn
 import numpy as np
 import PIL.Image
 
+from riffusion_tpu_torch import tracing
 from riffusion_tpu_torch.audio.segment import _ffmpeg_path
 from riffusion_tpu_torch.datatypes import InferenceInput, InferenceOutput, PromptInput
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
@@ -122,21 +129,24 @@ def compute_request(
 ) -> T.Union[str, T.Tuple[str, int]]:
     """Run one inference request; returns a JSON string or (error, status).
     With `batcher`, the request joins its coalescing queue."""
-    loaded = _load_images(seed_images_dir, inputs.seed_image_id, inputs.mask_image_id)
+    with tracing.span("riffusion.front.decode"):
+        loaded = _load_images(seed_images_dir, inputs.seed_image_id, inputs.mask_image_id)
     if len(loaded) == 2:  # (error, status)
         return loaded  # type: ignore[return-value]
     init_image, mask_image, params = loaded
     if batcher is not None:
-        image, segment = batcher.submit(
-            inputs, init_image, mask_image, params,
-            seed_image_id=inputs.seed_image_id, mask_image_id=inputs.mask_image_id,
-        )
+        with tracing.span("riffusion.call"):
+            image, segment = batcher.submit(
+                inputs, init_image, mask_image, params,
+                seed_image_id=inputs.seed_image_id, mask_image_id=inputs.mask_image_id,
+            )
     else:
         image, segment = pipeline.riffuse_audio(
             inputs, init_image=init_image, mask_image=mask_image, params=params,
             apply_filters=True,
         )
-    return json.dumps(_encode_output(image, segment))
+    with tracing.span("riffusion.front.encode"):
+        return json.dumps(_encode_output(image, segment))
 
 
 def compute_batch_request(
@@ -147,9 +157,10 @@ def compute_batch_request(
     """Run N requests as one batched program; returns {"outputs": [...]}
     JSON or (error, status). The route has checked that they share one seed
     image, one step count and one mask id."""
-    loaded = _load_images(
-        seed_images_dir, inputs_list[0].seed_image_id, inputs_list[0].mask_image_id
-    )
+    with tracing.span("riffusion.front.decode"):
+        loaded = _load_images(
+            seed_images_dir, inputs_list[0].seed_image_id, inputs_list[0].mask_image_id
+        )
     if len(loaded) == 2:  # (error, status)
         return loaded  # type: ignore[return-value]
     init_image, mask_image, params = loaded
@@ -159,9 +170,10 @@ def compute_batch_request(
         )
     except ValueError as exception:  # e.g. mixed denoising strengths
         return str(exception), 400
-    return json.dumps(
-        {"outputs": [_encode_output(image, segment) for image, segment in results]}
-    )
+    with tracing.span("riffusion.front.encode"):
+        return json.dumps(
+            {"outputs": [_encode_output(image, segment) for image, segment in results]}
+        )
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -203,25 +215,32 @@ class _Handler(BaseHTTPRequestHandler):
         if route not in ("/run_inference", "/run_inference_batch"):
             self._send(404, b"Not found", "text/plain")
             return
+        with tracing.span("riffusion.request", root=True):
+            status, body, content_type = self._post(route)
+            with tracing.span("riffusion.front.send"):
+                self._send(status, body, content_type)
+
+    def _post(self, route: str) -> T.Tuple[int, bytes, str]:
+        """(status, body, content type) of a POST to `route`."""
         start_time = time.time()
         length = int(self.headers.get("Content-Length", 0))
         data = self.rfile.read(length)
 
-        try:
-            json_data = json.loads(data)
-        except json.JSONDecodeError as exception:
-            self._send(400, str(exception).encode(), "text/plain")
-            return
+        with tracing.span("riffusion.front.decode"):
+            try:
+                json_data = json.loads(data)
+            except json.JSONDecodeError as exception:
+                return 400, str(exception).encode(), "text/plain"
+            logger.info(json_data)
+            if route == "/run_inference":
+                try:
+                    inputs = from_dict(InferenceInput, json_data)
+                except DecodeError as exception:
+                    return 400, str(exception).encode(), "text/plain"
 
-        logger.info(json_data)
         if route == "/run_inference_batch":
             result = self._handle_batch(json_data)
         else:
-            try:
-                inputs = from_dict(InferenceInput, json_data)
-            except DecodeError as exception:
-                self._send(400, str(exception).encode(), "text/plain")
-                return
             result = compute_request(
                 inputs=inputs,
                 pipeline=PIPELINE,
@@ -237,9 +256,8 @@ class _Handler(BaseHTTPRequestHandler):
 
         if isinstance(result, tuple):
             body, status = result
-            self._send(status, body.encode(), "text/plain")
-        else:
-            self._send(200, result.encode())
+            return status, body.encode(), "text/plain"
+        return 200, result.encode(), "application/json"
 
     def _handle_batch(self, json_data) -> T.Union[str, T.Tuple[str, int]]:
         """{"requests": [InferenceInput, ...]} sharing num_inference_steps,
@@ -247,7 +265,8 @@ class _Handler(BaseHTTPRequestHandler):
         if not isinstance(json_data, dict) or "requests" not in json_data:
             return 'expected {"requests": [...]}', 400
         try:
-            inputs_list = [from_dict(InferenceInput, r) for r in json_data["requests"]]
+            with tracing.span("riffusion.front.decode"):
+                inputs_list = [from_dict(InferenceInput, r) for r in json_data["requests"]]
         except DecodeError as exception:
             return str(exception), 400
         if not inputs_list:

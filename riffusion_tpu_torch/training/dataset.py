@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from riffusion_tpu_torch import tracing
 from riffusion_tpu_torch.audio.segment import AudioSegment
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 
@@ -225,7 +226,8 @@ class LatentDataset:
     ) -> T.Iterator[T.Tuple[np.ndarray, np.ndarray]]:
         """Infinite epoch-shuffled batch stream of (latents (B, h, w, c),
         contexts (B, 77, hidden)), fp32; the remainder batch of an epoch is
-        dropped."""
+        dropped. Each batch is drawn inside a `riffusion.data.batch` span
+        (tracing.py)."""
         if batch_size > len(self):
             raise ValueError(f"batch_size {batch_size} exceeds dataset size {len(self)}")
         rng = np.random.default_rng(seed)
@@ -233,11 +235,13 @@ class LatentDataset:
         while True:
             order = rng.permutation(len(self))
             for lo in range(0, len(self) - batch_size + 1, batch_size):
-                idx = order[lo : lo + batch_size]
-                mean = self.mean[idx]
-                if sample_posterior:
-                    std = np.exp(0.5 * self.logvar[idx])
-                    z = mean + std * rng.standard_normal(mean.shape).astype(np.float32)
-                else:
-                    z = mean
-                yield z * scale, self.contexts[self.ctx[idx]]
+                with tracing.span("riffusion.data.batch"):
+                    idx = order[lo : lo + batch_size]
+                    mean = self.mean[idx]
+                    if sample_posterior:
+                        std = np.exp(0.5 * self.logvar[idx])
+                        z = mean + std * rng.standard_normal(mean.shape).astype(np.float32)
+                    else:
+                        z = mean
+                    batch = z * scale, self.contexts[self.ctx[idx]]
+                yield batch

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from riffusion_tpu_torch import tracing
 from riffusion_tpu_torch.models.unet import UNet2DCondition
 from riffusion_tpu_torch.models.weights import load_bundle, save_native
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
@@ -152,10 +153,13 @@ def finetune_mesh(cfg: FinetuneConfig, device: torch.device):
 @torch.no_grad()
 def ema_update(ema: T.Dict[str, torch.Tensor], params: T.Mapping[str, torch.Tensor],
                decay: float) -> None:
-    """ema <- ema * decay + params * (1 - decay), in place."""
+    """ema <- ema * decay + params * (1 - decay), in place (the stage
+    `riffusion.train.ema`, tracing.py)."""
     names = list(ema)
-    torch._foreach_mul_([ema[n] for n in names], decay)
-    torch._foreach_add_([ema[n] for n in names], [params[n] for n in names], alpha=1.0 - decay)
+    with tracing.stage("riffusion.train.ema"):
+        torch._foreach_mul_([ema[n] for n in names], decay)
+        torch._foreach_add_([ema[n] for n in names], [params[n] for n in names],
+                            alpha=1.0 - decay)
 
 
 def run_finetune(cfg: FinetuneConfig, log: T.Callable[[str], None] = print) -> dict:

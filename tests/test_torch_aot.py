@@ -31,7 +31,7 @@ from torch.overrides import TorchFunctionMode
 from torch_port_util import jax_twin, torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu import aot as jax_aot
 from riffusion_tpu import riffusion_pipeline as jax_pipeline
-from riffusion_tpu_torch import aot
+from riffusion_tpu_torch import aot, tracing
 from riffusion_tpu_torch import riffusion_pipeline as pipeline
 from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
@@ -467,15 +467,19 @@ def test_counts_per_replay_equal_an_eager_call():
         assert attention.COUNTS.snapshot() == eager
 
 
-def test_stage_report():
+def test_stage_report(monkeypatch):
     program = aot.GraphProgram(_program, "k", graphs=StandInGraphs())
     first = program.stage_report(*_inputs(0))
     assert first["source"] == "captured" and first["key"] == "k"
     assert first["warmup_s"] > 0 and first["capture_s"] > 0 and first["nodes"] is None
-    program(*_inputs(1))
+    monkeypatch.setenv("RIFFUSION_TPU_TRACE", "1")
+    tracing.reset()
+    program(*_inputs(1))  # the replay's host time: its riffusion.launch span
+    (launch,) = tracing.export()["spans"]
+    tracing.reset()
+    assert launch["name"] == "riffusion.launch" and launch["dur_ns"] > 0
     second = program.stage_report(*_inputs(0))
     assert (second["source"], second["warmup_s"], second["capture_s"]) == ("replayed", 0.0, 0.0)
-    assert second["replay_s"] > 0
 
 
 def test_a_failed_capture_raises_with_the_key_and_the_operation():

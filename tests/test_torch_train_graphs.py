@@ -430,7 +430,7 @@ def _mesh_rank(rank: int, world: int) -> tuple:
     loss = trainer.step(latents, context, generator=_generator(0))
     ema = _ema(trainer)
     fn = functools.partial(ema_update, ema, dict(trainer.master.named_parameters()), 0.9)
-    return (float(loss), trainer.program("ema_update", fn) is fn,
+    return (float(loss), not isinstance(trainer.program("ema_update", fn), aot.GraphProgram),
             len(trainer.graph_store.programs))
 
 
