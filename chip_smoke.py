@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. card: the card's name and power limit, and its maximum SM clock (the
    clock of the exp2 bound; nvidia-smi); no CUDA device fails.
 2. build: nvcc builds csrc/attention.cu (K1), csrc/row_attention.cu (K2),
-   csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward) from this
-   checkout, all at once; prints each build's seconds and each instance's
+   csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward) and
+   csrc/group_norm.cu (the NHWC GroupNorm) from this checkout, all at once; prints each build's seconds and each instance's
    ptxas registers and spills, and fails if a bf16 instance spills.
 3. kernel: each forward kernel against its plain PyTorch version on the
    card, held to ops.attention.TOLERANCE: max abs error (bf16 2e-2, fp32
@@ -34,6 +34,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    is the largest of its FLOPs over 989 TFLOP/s, its bytes over 3.35 TB/s
    and its exp2 calls (one per logit) over 132 SMs x 16 per clock at the
    maximum SM clock; the SM clock just after each timing is printed.
+group-norm: the NHWC GroupNorm kernel (csrc/group_norm.cu through
+   ops/group_norm.py) against its plain version (F.group_norm on x in
+   fp32, the cast back, F.silu), held to ops.group_norm.TOLERANCE (max abs
+   error over the largest output: bf16 2^-6, fp32 1e-5; error RMS over
+   output RMS: bf16 1e-3, fp32 1e-6), at each of the SD v1 UNet's 14
+   GroupNorm shapes at batch 2 and 32, bf16 and fp32, with and without
+   SiLU, and a ragged (3, 640, 30x50) input, on inputs whose groups differ
+   in mean and scale and whose rows drift (ops.group_norm.check_inputs).
+   Times (CUDA events around 20 replays of a graph of 20 calls, the
+   median per call) the kernel with SiLU, its plain
+   version and torch's F.group_norm + F.silu on the NCHW copy (the library
+   yardstick, never called by the port) at the single path's largest and
+   smallest site, beside the bound: 4 bytes an element (bf16 read once,
+   written once) over 3.35 TB/s.
 4. kernel-grad: K1's backward kernels (dK/dV, dQ) through `attention`'s
    autograd against the plain backward (ops.attention.
    attention_backward_reference), each of dQ, dK and dV held to
@@ -451,8 +465,28 @@ MUTANTS = (
     ("the forward's LSE of a thread's two rows swapped", "attention_fwd.cuh",
      "lse[row + 8 * r] = fmaf(row_max[r], p.scale, logf(row_sum[r]));",
      "lse[row + 8 * r] = fmaf(row_max[1 - r], p.scale, logf(row_sum[1 - r]));", BACKWARD),
+    # the NHWC GroupNorm: each channel normalised with the next group's
+    # statistics (the groups of the checks' inputs differ in mean and scale)
+    ("a group normalised with its neighbour's statistics", "group_norm.cu",
+     "    const int grp = c / g.cpg;\n", "    const int grp = (c / g.cpg + 1) % g.groups;\n",
+     ("group_norm",)),
 )
 FORWARD_CASES = {"attention": K1_CASES, "row_attention": K2_CASES}
+
+# The NHWC GroupNorm's cases: each GroupNorm site of the SD v1 UNet at a
+# 64x64 latent as (channels, H, W), at the single clip's batch 2 and the
+# batched path's 32 (whose 4096-row sites end in a ragged chunk), and an
+# input whose every chunk is ragged; the single path's largest and smallest
+# site are timed.
+GN_SITES = (
+    (320, 64, 64), (640, 64, 64), (960, 64, 64),
+    (320, 32, 32), (640, 32, 32), (960, 32, 32), (1280, 32, 32), (1920, 32, 32),
+    (640, 16, 16), (1280, 16, 16), (1920, 16, 16), (2560, 16, 16),
+    (1280, 8, 8), (2560, 8, 8),
+)
+GN_CASES = tuple((b, c, h, w) for b in (2, 32) for c, h, w in GN_SITES) + ((3, 640, 30, 50),)
+GN_TIMED = ((2, 960, 64, 64), (2, 1280, 8, 8))
+UNET_GROUP_NORMS = 61  # GroupNorm sites of one SD v1 UNet evaluation
 
 
 def log(msg: str) -> None:
@@ -512,6 +546,27 @@ def _time_ms(torch, fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+GRAPH_TIMED_CALLS = 20
+
+
+def _graph_time_ms(torch, fn, reps: int = 20) -> float:
+    """Median device ms of one fn() over `reps` replays of a CUDA graph of
+    GRAPH_TIMED_CALLS calls: the time the card takes with no gap for the
+    host's launches (which _time_ms counts, and which a short kernel's
+    own time can fall under)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_TIMED_CALLS):
+            fn()
+    return _time_ms(torch, graph.replay, reps) / GRAPH_TIMED_CALLS
 
 
 def _check_cases(torch, attn, fn, cases, gen) -> dict:
@@ -590,6 +645,59 @@ def phase_kernel(torch, attn, clock_hz: float) -> dict:
             f"{_sm_clock_note()}")
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
+    result["times"] = times
+    return result
+
+
+def _check_group_norm(torch, gn, cases, dtypes=("bf16", "fp32")) -> dict:
+    """The NHWC GroupNorm kernel against its plain version on each case,
+    in each dtype, with and without SiLU; returns the worst (max abs, rel
+    RMS) over the bf16 cases at batch 2 (the single path's)."""
+    worst = [0.0, 0.0]
+    for i, (b, c, h, w) in enumerate(cases):
+        for dtype_name in dtypes:
+            dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+            x, weight, bias = gn.check_inputs(b, c, h, w, dtype, "cuda", seed=i)
+            for silu in (True, False):
+                out = gn.group_norm(x, weight, bias, 32, 1e-5, silu=silu)
+                torch.cuda.synchronize()
+                ref = gn.group_norm_reference(x, weight, bias, 32, 1e-5, silu=silu)
+                err, rel_rms, ok = gn.compare_to_plain(out, ref)
+                log(f"[group-norm] ({b}, {c}, {h}x{w}) {dtype_name}{' silu' if silu else ''}: "
+                    f"max_abs_err/max {err:.3e}, rel_rms_err {rel_rms:.3e} "
+                    f"(tol {gn.TOLERANCE[dtype]}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"group_norm disagrees with its plain version: "
+                                         f"({b}, {c}, {h}x{w}) {dtype_name} silu={silu}")
+                if dtype_name == "bf16" and b == 2:
+                    worst = [max(worst[0], err), max(worst[1], rel_rms)]
+            del x, out, ref
+    return {"max_abs_err": worst[0], "rel_rms_err": worst[1]}
+
+
+def phase_group_norm(torch) -> dict:
+    import torch.nn.functional as F
+
+    from riffusion_tpu_torch.ops import group_norm as gn
+
+    result = {"group_norm": _check_group_norm(torch, gn, GN_CASES)}
+    times = {}
+    for b, c, h, w in GN_TIMED:
+        x, weight, bias = gn.check_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=0)
+        nchw = x.contiguous()
+        fns = {"group_norm": lambda: gn.group_norm(x, weight, bias, 32, 1e-5, silu=True),
+               "plain": lambda: gn.group_norm_reference(x, weight, bias, 32, 1e-5, silu=True),
+               "library": lambda: F.silu(F.group_norm(nchw, 32, weight, bias, 1e-5))}
+        for name, fn in fns.items():
+            times[(name, b, c, h, w)] = _graph_time_ms(torch, fn)
+        nbytes = 4 * x.numel()
+        bound = times[("bound", b, c, h, w)] = (nbytes / PEAK_BYTES * 1e3, "bytes", "bytes")
+        log(f"[group-norm] time ({b}, {c}, {h}x{w}, bf16, silu; graph of {GRAPH_TIMED_CALLS} "
+            f"calls): kernel {times[('group_norm', b, c, h, w)]:.4f} ms ("
+            f"{nbytes / times[('group_norm', b, c, h, w)] / 1e6:.0f} GB/s at 4 B an element), "
+            f"plain {times[('plain', b, c, h, w)]:.4f} ms, library F.group_norm + F.silu on NCHW "
+            f"{times[('library', b, c, h, w)]:.4f} ms; bound {bound[0]:.4f} ms; "
+            f"{_sm_clock_note()}")
     result["times"] = times
     return result
 
@@ -759,6 +867,15 @@ def phase_mutants(torch, attn) -> None:
             attn.KERNELS.update({n: (src / path.name, entry) for n, (path, entry) in original.items()})
             attn._built.clear()
             attn.build_kernels()
+            if "group_norm" in kernels:
+                from riffusion_tpu_torch.ops import group_norm as gn
+
+                try:
+                    _check_group_norm(torch, gn, [c for c in GN_CASES if c[0] == 2], ("bf16",))
+                    passed.append(f"{what} (group_norm)")
+                    log(f"[mutants] {what}: group_norm PASSED the check")
+                except AssertionError as e:
+                    log(f"[mutants] {what}: group_norm rejected ({e})")
             for name in (n for n in kernels if n in FORWARD_CASES):
                 cases = [c for c in FORWARD_CASES[name] if c[6] == "bf16"]
                 try:
@@ -1778,7 +1895,7 @@ def phase_graphs(torch, attn, pipe) -> dict:
          lambda o: [(pipe.img2img_magic_mix("jazzy saxophone", seed, seed=42 + o,
                                             num_inference_steps=50, scheduler="pndm"), None)]),
     )
-    counts = {"attention": 0, "row_attention": 0}
+    counts = {"attention": 0, "row_attention": 0, "group_norm": 0}
     results, eager_peaks = {}, {}
 
     def call(what: str, expect: tuple, fn, offset: int, eager: bool) -> tuple:
@@ -1791,8 +1908,14 @@ def phase_graphs(torch, attn, pipe) -> dict:
         if got != expect + (0,):
             raise AssertionError(f"[graphs] {what} ({'eager' if eager else 'graph'}): (K1, K2, "
                                  f"plain) {got}, expected {expect + (0,)}")
+        # every UNet evaluation runs its 61 GroupNorm sites on the NHWC kernel
+        evaluations = expect[0] // (5 if expect[1] else 10)
+        if attn.COUNTS.group_norm_launches != UNET_GROUP_NORMS * evaluations:
+            raise AssertionError(f"[graphs] {what}: {attn.COUNTS.group_norm_launches} NHWC "
+                                 f"GroupNorm calls, expected {UNET_GROUP_NORMS * evaluations}")
         counts["attention"] += got[0]
         counts["row_attention"] += got[1]
+        counts["group_norm"] += attn.COUNTS.group_norm_launches
         for image, segment in out:
             _check_clip(what, image, segment)
         return out, wall
@@ -3020,6 +3143,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
     from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 
     kernel = phase("kernel", phase_kernel, torch, attn, clock_hz)
+    gnorm = phase("group-norm", phase_group_norm, torch)
     grad = phase("kernel-grad", phase_kernel_grad, torch, attn, clock_hz)
     phase("dsp", phase_dsp, torch)
     phase("tiny", phase_tiny, torch, attn)
@@ -3065,7 +3189,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
         shutil.rmtree(data_dir, ignore_errors=True)
     parallel = phase("parallel", phase_parallel, torch, attn)
 
-    times, grad_times = kernel["times"], grad["times"]
+    times, grad_times, gn_times = kernel["times"], grad["times"], gnorm["times"]
     b, s, _, d = BATCH_SHAPE
     tb, ts, th, td = TRAIN_SHAPES[0]
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -3096,8 +3220,15 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          train["launches"][name] + parallel_train["counts"][name])
         for name, line, fn in (("attention_dkv", 941, "_flash_attention_bwd_dkv"),
                                ("attention_dq", 1287, "_flash_attention_bwd_dq"))
+    ] + [
+        # the path's largest site; launches: the graphs phase's six calls
+        ("group_norm", "group_norm.cu",
+         "no TPU kernel: riffusion_tpu/models/layers.py GroupNorm (plain jnp, fused by XLA)",
+         gn_times[("group_norm",) + GN_TIMED[0]], gn_times[("plain",) + GN_TIMED[0]],
+         gn_times[("bound",) + GN_TIMED[0]], gn_times[("library",) + GN_TIMED[0]],
+         graphs["counts"]["group_norm"]),
     ]
-    errors = {**kernel, **grad}  # K1's worst over its forward cases and its LSE cases
+    errors = {**kernel, **grad, **gnorm}  # K1's worst over its forward cases and its LSE cases
     errors["attention"] = {k: max(kernel["attention"][k], grad["attention"][k])
                            for k in ("max_abs_err", "rel_rms_err")}
     log(smi)

@@ -4,9 +4,12 @@ transformer blocks, up/downsampling, timestep embeddings), as nn.Modules.
 
 The counterpart of riffusion_tpu/models/layers.py. Module and parameter
 names follow the JAX package (`to_q`, `norm1`, `time_emb_proj`, ...) so
-models/weights.py can carry a JAX parameter tree across by name. Inside,
-tensors are NCHW. A module computes in the dtype of its parameters (bf16 for
-the UNet on the card); GroupNorm, LayerNorm statistics, the softmax and the
+models/weights.py can carry a JAX parameter tree across by name. The
+spatial modules take 4-D (B, C, H, W) tensors in the layout of their
+convolutions' weights: NCHW, or channels_last (NHWC storage) for the
+serving UNet (models/unet.py), whose tensors stay channels_last from block
+to block. A module computes in the dtype of its parameters (bf16 for the
+UNet on the card); GroupNorm, LayerNorm statistics, the softmax and the
 timestep embedding run in `precise(dtype)` (fp32, or fp64 for fp64
 modules), as in the JAX package.
 """
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from riffusion_tpu_torch.ops import attention as attention_ops
+from riffusion_tpu_torch.ops import group_norm as group_norm_ops
 
 
 def precise(dtype: torch.dtype) -> torch.dtype:
@@ -48,14 +52,39 @@ def timestep_embedding(
     return emb
 
 
-class GroupNorm(nn.GroupNorm):
-    """GroupNorm computed in precise(dtype), returned in the input's dtype."""
+def takes_nhwc_group_norm(x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """Whether a GroupNorm of `x` goes to ops.group_norm: x is a 4-D
+    channels_last tensor that is not also NCHW-contiguous, and autograd
+    records nothing (grad off, or neither x nor `params` requires it)."""
+    return (x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)
+            and not x.is_contiguous()
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or any(p.requires_grad for p in params))))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm computed in precise(dtype), returned in the input's dtype;
+    with `silu`, SiLU of that in the input's dtype.
+
+    The input picks the implementation, not a setting: a channels_last
+    activation that autograd does not record (the serving UNet's, under
+    inference_mode) goes to ops.group_norm.group_norm, the NHWC kernel with
+    SiLU fused on the card and its plain version on the CPU; everything
+    else (the fp32 NCHW VAE, the trainer under autograd) runs F.group_norm
+    as it always has, and on the card counts in
+    ops.attention.COUNTS.group_norm_library_calls."""
+
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        if takes_nhwc_group_norm(x, self.weight, self.bias):
+            return group_norm_ops.group_norm(x, self.weight, self.bias, self.num_groups,
+                                             self.eps, silu=silu)
+        if x.device.type == "cuda":
+            attention_ops.COUNTS.group_norm_library_calls += 1
         p = precise(x.dtype)
-        return F.group_norm(
+        y = F.group_norm(
             x.to(p), self.num_groups, self.weight.to(p), self.bias.to(p), self.eps
         ).to(x.dtype)
+        return F.silu(y) if silu else y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -105,10 +134,10 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: T.Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.conv1.weight.dtype
-        h = self.conv1(F.silu(self.norm1(x)).to(dtype))
+        h = self.conv1(self.norm1(x, silu=True).to(dtype))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb).to(dtype))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)).to(dtype))
+        h = self.conv2(self.norm2(h, silu=True).to(dtype))
         residual = self.conv_shortcut(x) if hasattr(self, "conv_shortcut") else x
         return (residual + h).to(dtype)
 
@@ -210,6 +239,7 @@ class Transformer2D(nn.Module):
         b, c, h, w = x.shape
         dtype = self.proj_in.weight.dtype
         y = self.proj_in(self.norm(x).to(dtype))
+        # a view of a channels_last y; a copy of an NCHW one
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
         for i in range(self.depth):
             y = getattr(self, f"blocks_{i}")(y, context)

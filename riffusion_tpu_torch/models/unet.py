@@ -3,9 +3,16 @@ UNet2DCondition — the Stable Diffusion v1 denoiser, as an nn.Module.
 
 The counterpart of riffusion_tpu/models/unet.py, with the same block and
 parameter names (`down_blocks_0.attentions_0.blocks_0.attn1.to_q`, ...) and
-the same config dataclass. Inside it is NCHW; `forward` takes and returns
-NCHW latents. conv_out and the timestep embedding run in fp32 whatever the
-compute dtype, as in the JAX package.
+the same config dataclass. `forward` takes NCHW latents and returns
+NCHW-contiguous ones, the JAX package's layout at the port's public
+functions. Inside, its tensors take the layout of its weights: the serving
+pipeline puts the UNet in channels_last (NHWC storage, what cuDNN's bf16
+convolutions read on the card), so the latents are converted once on the
+way in and every activation stays NHWC through the skips'
+concatenations, the resizes, the residual adds and the transformers'
+token views, with GroupNorm on ops/group_norm.py's NHWC kernel; the
+trainer's NCHW copy runs as it always has. conv_out and the timestep
+embedding run in fp32 whatever the compute dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -137,7 +144,7 @@ class MidBlock(nn.Module):
 class UNet2DCondition(nn.Module):
     """forward(latents (B, C, H, W), timesteps (B,) or scalar,
     encoder_hidden_states (B, seq, cross_dim)) -> noise prediction (B, C, H, W)
-    in precise(dtype)."""
+    in precise(dtype), NCHW-contiguous whatever the layout of the weights."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -191,7 +198,9 @@ class UNet2DCondition(nn.Module):
             downscale_freq_shift=cfg.freq_shift, dtype=precise(dtype),
         )
         temb = self.time_embedding(t_emb)
-        x = self.conv_in(sample.to(dtype))
+        nhwc = self.conv_in.weight.is_contiguous(memory_format=torch.channels_last)
+        x = self.conv_in(sample.to(dtype, memory_format=torch.channels_last if nhwc
+                                   else torch.preserve_format))
 
         n = len(cfg.block_out_channels)
         skips: T.List[torch.Tensor] = [x]
@@ -208,6 +217,10 @@ class UNet2DCondition(nn.Module):
             upsample_to = tuple(skips[-1].shape[2:4]) if skips else None
             x = getattr(self, f"up_blocks_{i}")(x, list(block_skips), temb, context, upsample_to)
 
-        x = F.silu(self.conv_norm_out(x)).to(dtype)
-        p = precise(dtype)
-        return F.conv2d(x.to(p), self.conv_out.weight.to(p), self.conv_out.bias.to(p), padding=1)
+        x = self.conv_norm_out(x, silu=True).to(dtype)
+        # in NCHW, where cuDNN's fp32 convolution is native: the casts to
+        # fp32 make the NCHW copies, and no layout transpose runs
+        p, nchw = precise(dtype), torch.contiguous_format
+        out = F.conv2d(x.to(p, memory_format=nchw), self.conv_out.weight.to(p, memory_format=nchw),
+                       self.conv_out.bias.to(p), padding=1)
+        return out.contiguous()

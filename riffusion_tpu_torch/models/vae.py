@@ -42,6 +42,18 @@ class VAEConfig:
         return cls(block_out_channels=(32, 32, 32, 32), layers_per_block=1)
 
 
+def _card_layout(x: torch.Tensor) -> torch.Tensor:
+    """The VAE's input as its first convolution takes it. The pipeline hands
+    over pixels and latents permuted from NHWC, with channels_last strides.
+    On the card they are made NCHW-contiguous, so that every activation
+    stays NCHW, where cuDNN's fp32 convolutions are native, and GroupNorm
+    stays torch's (models/layers.py sends channels_last input to the NHWC
+    kernel). The CPU keeps the layout it is given, as it always has: its
+    convolutions and GroupNorm take either, and the JAX-parity tests hold
+    its rounding."""
+    return x.contiguous() if x.device.type == "cuda" else x
+
+
 def _precise_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A conv the JAX package runs in precise(dtype) (conv_out, quant convs)."""
     p = precise(conv.weight.dtype)
@@ -166,7 +178,7 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(cfg)
 
     def encode_moments(self, x: torch.Tensor) -> T.Tuple[torch.Tensor, torch.Tensor]:
-        mean, logvar = self.encoder(x).chunk(2, dim=1)
+        mean, logvar = self.encoder(_card_layout(x)).chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
     @staticmethod
@@ -175,4 +187,4 @@ class AutoencoderKL(nn.Module):
         return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(z)
+        return self.decoder(_card_layout(z))

@@ -47,7 +47,14 @@ nothing. A wrapper called while a CUDA graph is captured records its launch
 into the graph and counts it there; the graph's program (aot.py) takes
 those counts back and adds them again on each replay, the graph's launches.
 Both forward kernels launch on the current stream, so a capture records
-them like any torch operation.
+them like any torch operation. The same `COUNTS` holds the NHWC GroupNorm's
+(ops/group_norm.py): `group_norm_launches`, its wrapper's calls on the card,
+`group_norm_plain_calls`, its calls that took the plain version, and
+`group_norm_library_calls`, the GroupNorm calls on CUDA tensors that ran
+torch's F.group_norm instead (models/layers.py GroupNorm).
+
+`KERNELS` also lists csrc/group_norm.cu, so that it builds in the same
+round as the forward attention kernels (`FORWARD_KERNELS`).
 
 The kernels are built with nvcc at first use (route (b): shared libraries
 with a plain C entry point each, loaded with ctypes) into csrc/build/, keyed
@@ -86,8 +93,9 @@ KERNELS = {
     "row_attention": (_CSRC / "row_attention.cu", "riff_row_attention_forward"),
     "attention_dkv": (_CSRC / "attention_dkv.cu", "riff_attention_bwd_dkv"),
     "attention_dq": (_CSRC / "attention_dq.cu", "riff_attention_bwd_dq"),
+    "group_norm": (_CSRC / "group_norm.cu", "riff_group_norm"),  # ops/group_norm.py
 }
-FORWARD_KERNELS = ("attention", "row_attention")  # what inference launches
+FORWARD_KERNELS = ("attention", "row_attention", "group_norm")  # what inference launches
 # C entry point -> its argument types (pointers, element strides, ints,
 # scale, dtype, device, stream)
 _ARGTYPES = {
@@ -96,6 +104,10 @@ _ARGTYPES = {
     "riff_attention_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 10
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+# riff_group_norm: x, gamma, beta, y, partials; batch, hw, channels,
+# groups, rows, chunk, chunks; eps; silu, dtype, param dtype, device; stream
+_ARGTYPES["riff_group_norm"] = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES["riff_row_attention_forward"] = _ARGTYPES["riff_attention_forward"]
 _ARGTYPES["riff_attention_bwd_dq"] = _ARGTYPES["riff_attention_bwd_dkv"]
 
@@ -144,6 +156,9 @@ class Counts:
     bwd_dkv_launches: int = 0
     bwd_dq_launches: int = 0
     plain_calls: int = 0
+    group_norm_launches: int = 0  # ops/group_norm.py
+    group_norm_plain_calls: int = 0
+    group_norm_library_calls: int = 0  # models/layers.py GroupNorm
 
     def reset(self) -> None:
         for field in dataclasses.fields(self):
@@ -259,14 +274,17 @@ def ptxas_instances(compiler_log: str) -> T.List[T.Tuple[str, str, str]]:
     """(instance, registers, spills) of each kernel instance in an nvcc
     `-Xptxas -v` log: the instance as `name<args>` read from the mangled
     name (`_ZN4riff25attention_fwd_bf16_kernelILi48ELi40ELi2ELb0EEEv...` ->
-    `attention_fwd_bf16_kernel<48, 40, 2, 0>`), ptxas's "Used ... registers"
+    `attention_fwd_bf16_kernel<48, 40, 2, 0>`; a bfloat16 or float type
+    argument as `bf16` or `float`), ptxas's "Used ... registers"
     line and its spill line."""
     found, instance, spills = [], "?", ""
     for line in compiler_log.splitlines():
-        entry = re.search(r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E)+)E", line)
+        entry = re.search(
+            r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E|13__nv_bfloat16|f)+)E", line)
         if entry:  # the name after the mangling's last length prefix, and its arguments
             name = re.split(r"\d+(?=[a-z])", entry.group(1))[-1]
-            args = re.findall(r"L[ib](\d+)E", entry.group(2))
+            args = [value or ("bf16" if bf16 else "float") for value, bf16 in
+                    re.findall(r"L[ib](\d+)E|13__nv_(bfloat16)|f", entry.group(2))]
             instance = f"{name}<{', '.join(args)}>"
         elif "spill" in line:
             spills = line.strip()

@@ -102,9 +102,9 @@ class HaloConv2d(nn.Conv2d):
 class SeqGroupNorm(GroupNorm):
     seq: SeqState
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         if not self.seq.split:
-            return super().forward(x)
+            return super().forward(x, silu)
         p = precise(x.dtype)
         b, c = x.shape[:2]
         xg = x.to(p).reshape(b, self.num_groups, -1)
@@ -114,7 +114,8 @@ class SeqGroupNorm(GroupNorm):
         var = sums[1] / count - mean.square()
         y = ((xg - mean[..., None]) * torch.rsqrt(var + self.eps)[..., None]).reshape(x.shape)
         shape = (1, c) + (1,) * (x.dim() - 2)
-        return (y * self.weight.to(p).view(shape) + self.bias.to(p).view(shape)).to(x.dtype)
+        y = (y * self.weight.to(p).view(shape) + self.bias.to(p).view(shape)).to(x.dtype)
+        return F.silu(y) if silu else y
 
 
 class ParallelAttention(Attention):

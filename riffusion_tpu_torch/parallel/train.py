@@ -285,10 +285,11 @@ class DiffusionTrainer:
 
     def init_from(self, unet: UNet2DCondition) -> None:
         """Adopt a UNet's weights as masters (fp32; fp64 at an fp64 compute
-        dtype) on this trainer's device (a copy: `unet` is left as it is),
-        cut for this rank where there is a mesh, with fresh optimizer
-        state."""
-        master = copy.deepcopy(unet).to(self.device, precise(self.dtype)).train()
+        dtype; NCHW, also from a serving pipeline's channels_last UNet) on
+        this trainer's device (a copy: `unet` is left as it is), cut for
+        this rank where there is a mesh, with fresh optimizer state."""
+        master = copy.deepcopy(unet).to(self.device, precise(self.dtype),
+                                        memory_format=torch.contiguous_format).train()
         if self._axis("model") is not None:
             from riffusion_tpu_torch.parallel.tp_serving import tensor_parallel_unet
 

@@ -281,7 +281,8 @@ class RiffusionPipeline:
         if self.device.type == "cuda":
             torch_util.configure_numerics()
         self.noise_config = noise_config
-        self.unet = bundle.unet.to(self.device).eval()
+        # NHWC inside (models/unet.py), on every device, before any capture
+        self.unet = bundle.unet.to(self.device, memory_format=torch.channels_last).eval()
         self.vae = bundle.vae.to(self.device, torch.float32).eval()
         self.text_encoder = bundle.text_encoder.to(self.device).eval()
         self.tokenizer = bundle.tokenizer
@@ -321,7 +322,8 @@ class RiffusionPipeline:
         the JAX package's parameters in its order. `use_traced_unet`,
         `channels_last`, `local_files_only` and `cache_dir` are accepted for
         the reference's callers and dropped, as the JAX package drops them
-        (nothing is traced or downloaded). dtype=None is bfloat16 on CUDA;
+        (nothing is traced or downloaded; the serving UNet is always NHWC
+        inside, whatever `channels_last` says). dtype=None is bfloat16 on CUDA;
         the CPU always runs float32. `scheduler` replaces the bundle's
         default sampler (checked here)."""
         del use_traced_unet, channels_last, local_files_only, cache_dir

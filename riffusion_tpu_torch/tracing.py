@@ -25,8 +25,9 @@ go through.
   a program is freed is neither read nor counted; an eager run records no
   events (its ranges serve the profiler).
 - `export()` gives the rings, the aggregates and the counters ("dropped"
-  spans and replays, "stage_read", "stage_unread"); it is the only
-  exporter.
+  spans and replays, "stage_read", "stage_unread", and the process's
+  `KERNEL_COUNTERS` as ops.attention.COUNTS holds them, replays included);
+  it is the only exporter.
 
 With the switch off nothing is recorded and no graph changes: a stage is
 the `record_function` range alone.
@@ -47,8 +48,15 @@ import typing as T
 
 from torch.profiler import record_function
 
+from riffusion_tpu_torch.ops import attention
+
 #: Records a ring holds; the oldest are dropped (and counted) beyond it.
 CAPACITY = 100_000
+
+#: The ops.attention.COUNTS fields `export()` adds to its counters: the NHWC
+#: GroupNorm kernel's calls (ops/group_norm.py), and the GroupNorm calls on
+#: the card that ran torch's F.group_norm instead (models/layers.py).
+KERNEL_COUNTERS = ("group_norm_launches", "group_norm_library_calls")
 
 
 def enabled() -> bool:
@@ -181,7 +189,8 @@ class Tracer:
                 "replays": [r._asdict() for r in self.replays],
                 "totals": {n: {"count": c, "s": s} for n, (c, s) in self.totals.items()},
                 "stages": {n: {"count": c, "s": s} for n, (c, s) in self.stage_totals.items()},
-                "counters": dict(self.counters),
+                "counters": dict(self.counters, **{
+                    name: getattr(attention.COUNTS, name) for name in KERNEL_COUNTERS}),
             }
 
     def reset(self) -> None:

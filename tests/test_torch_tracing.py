@@ -248,7 +248,8 @@ def test_a_capture_records_two_events_a_stage_only_with_the_switch(monkeypatch, 
     assert torch.equal(out, torch.full((3,), 2.0))
     result = tracing.export()
     assert result["counters"] == {"dropped": 0, "replays_dropped": 0, "stage_read": 2,
-                                  "stage_unread": 0}
+                                  "stage_unread": 0, "group_norm_launches": 0,
+                                  "group_norm_library_calls": 0}
     assert [r["stages"] for r in result["replays"]] == [{"riffusion.one": 1.5,
                                                          "riffusion.two": 2.5}] * 2
     assert result["stages"]["riffusion.one"] == {"count": 2, "s": 0.003}
