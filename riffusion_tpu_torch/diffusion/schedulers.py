@@ -57,6 +57,10 @@ class NoiseConfig:
     beta_schedule: str = "scaled_linear"
     steps_offset: int = 1
     set_alpha_to_one: bool = False  # DDIM/PNDM final-alpha convention
+    #: The sigma samplers' grid: "linspace" (t evenly over [0, T - 1]) or
+    #: diffusers' "leading" (every T // steps-th timestep plus steps_offset,
+    #: Stable Diffusion XL's). DDIM and PNDM are "leading" by construction.
+    timestep_spacing: str = "linspace"
 
     @functools.cached_property
     def alphas_cumprod(self) -> np.ndarray:
@@ -113,7 +117,13 @@ def _interp_sigmas(noise: NoiseConfig, num_steps: int) -> T.Tuple[np.ndarray, np
     (timesteps as floats, descending; sigmas, descending, with a final 0)."""
     acp = noise.alphas_cumprod
     sigmas_full = ((1 - acp) / acp) ** 0.5
-    t = np.linspace(0, noise.num_train_timesteps - 1, num_steps, dtype=np.float64)[::-1]
+    if noise.timestep_spacing == "leading":
+        ratio = noise.num_train_timesteps // num_steps
+        t = (np.arange(num_steps, dtype=np.float64) * ratio + noise.steps_offset)[::-1]
+    elif noise.timestep_spacing == "linspace":
+        t = np.linspace(0, noise.num_train_timesteps - 1, num_steps, dtype=np.float64)[::-1]
+    else:
+        raise ValueError(f"Unknown timestep spacing {noise.timestep_spacing!r}")
     sigmas = np.interp(t, np.arange(len(sigmas_full)), sigmas_full)
     return t, np.concatenate([sigmas, [0.0]])
 

@@ -154,7 +154,8 @@ class Attention(nn.Module):
     keys, the head_dim-160 sites). Both kernel wrappers take their plain
     version for CPU tensors. The gate reads the batch through
     ops.attention.routed_batch, so a share of a sharded batch routes at the
-    whole batch's size.
+    whole batch's size. A self-attention site on the card sent to the plain
+    composition counts in ops.attention.COUNTS.plain_self_sites.
     """
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int, out_dim: int,
@@ -172,11 +173,11 @@ class Attention(nn.Module):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         scale = 1.0 / math.sqrt(self.head_dim)
-        op = _ATTENTION_OPS[
-            attention_ops.route(attention_ops.routed_batch(q.shape[0]), q.shape[1],
-                                self.head_dim, context is None)
-        ]
-        out = op(q, k, v, num_heads=self.num_heads, scale=scale)
+        route = attention_ops.route(attention_ops.routed_batch(q.shape[0]), q.shape[1],
+                                    self.head_dim, context is None)
+        if route == "plain" and context is None and q.device.type == "cuda":
+            attention_ops.COUNTS.plain_self_sites += 1
+        out = _ATTENTION_OPS[route](q, k, v, num_heads=self.num_heads, scale=scale)
         return self.to_out(out)
 
 
@@ -221,30 +222,45 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
+def _projection(channels: int, linear: bool) -> nn.Module:
+    """A transformer's proj_in or proj_out: a Linear on the tokens, or a 1x1
+    convolution."""
+    return nn.Linear(channels, channels) if linear else nn.Conv2d(channels, channels, 1)
+
+
 class Transformer2D(nn.Module):
     """Spatial transformer: GN (eps 1e-6) -> 1x1 conv in -> transformer
-    block(s) on flattened tokens -> 1x1 conv out, residual."""
+    block(s) on flattened tokens -> 1x1 conv out, residual. With `linear`
+    (SDXL's use_linear_projection) the projections are Linear layers on the
+    tokens: GN -> tokens -> Linear -> blocks -> Linear -> back."""
 
     def __init__(self, channels: int, num_heads: int, context_dim: int, depth: int = 1,
-                 groups: int = 32):
+                 groups: int = 32, linear: bool = False):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.linear = linear
+        self.proj_in = _projection(channels, linear)
         self.depth = depth
         for i in range(depth):
             self.add_module(f"blocks_{i}", BasicTransformerBlock(channels, num_heads, context_dim))
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = _projection(channels, linear)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         dtype = self.proj_in.weight.dtype
-        y = self.proj_in(self.norm(x).to(dtype))
-        # a view of a channels_last y; a copy of an NCHW one
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        y = self.norm(x).to(dtype)
+        # the token view: a view of a channels_last y; a copy of an NCHW one
+        if self.linear:
+            y = self.proj_in(y.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            y = self.proj_in(y).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for i in range(self.depth):
             y = getattr(self, f"blocks_{i}")(y, context)
-        y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return (self.proj_out(y) + x).to(dtype)
+        if self.linear:
+            y = self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        else:
+            y = self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2))
+        return (y + x).to(dtype)
 
 
 class Downsample2D(nn.Module):

@@ -3,16 +3,23 @@ UNet2DCondition — the Stable Diffusion v1 denoiser, as an nn.Module.
 
 The counterpart of riffusion_tpu/models/unet.py, with the same block and
 parameter names (`down_blocks_0.attentions_0.blocks_0.attn1.to_q`, ...) and
-the same config dataclass. `forward` takes NCHW latents and returns
-NCHW-contiguous ones, the JAX package's layout at the port's public
-functions. Inside, its tensors take the layout of its weights: the serving
-pipeline puts the UNet in channels_last (NHWC storage, what cuDNN's bf16
-convolutions read on the card), so the latents are converted once on the
-way in and every activation stays NHWC through the skips'
-concatenations, the resizes, the residual adds and the transformers'
-token views, with GroupNorm on ops/group_norm.py's NHWC kernel; the
-trainer's NCHW copy runs as it always has. conv_out and the timestep
-embedding run in fp32 whatever the compute dtype, as in the JAX package.
+the same config dataclass. `UNetXLConfig` widens it to Stable Diffusion XL
+base 1.0's UNet, which the JAX package does not have: a head count and a
+transformer depth a level (the mid block takes the last level's), linear
+projections into and out of each transformer's tokens, and the "text_time"
+added embedding (the pooled text embedding and six micro-conditioning ids
+through a second MLP, added to the time embedding).
+
+`forward` takes NCHW latents and returns NCHW-contiguous ones, the JAX
+package's layout at the port's public functions. Inside, its tensors take
+the layout of its weights: the serving pipeline puts the UNet in
+channels_last (NHWC storage, what cuDNN's bf16 convolutions read on the
+card), so the latents are converted once on the way in and every activation
+stays NHWC through the skips' concatenations, the resizes, the residual
+adds and the transformers' token views, with GroupNorm on
+ops/group_norm.py's NHWC kernel; the trainer's NCHW copy runs as it always
+has. conv_out and the timestep embedding run in fp32 whatever the compute
+dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,10 +67,67 @@ class UNetConfig:
             attention_head_dim=2,
         )
 
+    def heads(self, level: int) -> int:
+        """The head count of a level's transformers (the mid block: the last
+        level's)."""
+        heads = self.attention_head_dim
+        return heads[level] if isinstance(heads, tuple) else heads
+
+    def depth(self, level: int) -> int:
+        """The transformer blocks in each of a level's transformers."""
+        return 1
+
+    @property
+    def linear_projection(self) -> bool:
+        return False
+
+    @property
+    def text_time(self) -> bool:
+        """Whether the model adds SDXL's text_time embedding."""
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetXLConfig(UNetConfig):
+    """Stable Diffusion XL base 1.0's UNet (unet/config.json) by default:
+    `attention_head_dim` and `transformer_layers_per_block` hold one value a
+    level, the transformers project with linear layers, and with
+    `addition_embed_type` "text_time" the model takes the pooled text
+    embedding and the time ids: each id as `addition_time_embed_dim`
+    sinusoids, after the pooled vector, through a
+    `projection_class_embeddings_input_dim` -> temb MLP."""
+
+    block_out_channels: T.Tuple[int, ...] = (320, 640, 1280)
+    cross_attention_dim: int = 2048
+    attention_head_dim: T.Tuple[int, ...] = (5, 10, 20)
+    cross_attn_blocks: T.Tuple[bool, ...] = (False, True, True)
+    transformer_layers_per_block: T.Tuple[int, ...] = (1, 2, 10)
+    use_linear_projection: bool = True
+    addition_embed_type: T.Optional[str] = "text_time"
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
+
+    def depth(self, level: int) -> int:
+        return self.transformer_layers_per_block[level]
+
+    @property
+    def linear_projection(self) -> bool:
+        return self.use_linear_projection
+
+    @property
+    def text_time(self) -> bool:
+        return self.addition_embed_type == "text_time"
+
+
+def _transformer(cfg: UNetConfig, channels: int, level: int) -> Transformer2D:
+    return Transformer2D(channels, cfg.heads(level), cfg.cross_attention_dim,
+                         depth=cfg.depth(level), groups=cfg.norm_num_groups,
+                         linear=cfg.linear_projection)
+
 
 class CrossAttnDownBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_channels: int, out_channels: int, temb_dim: int,
-                 add_downsample: bool, has_attn: bool):
+                 add_downsample: bool, has_attn: bool, level: int = 0):
         super().__init__()
         self.n = cfg.layers_per_block
         self.has_attn = has_attn
@@ -74,10 +138,7 @@ class CrossAttnDownBlock(nn.Module):
                 cfg.norm_num_groups,
             ))
             if has_attn:
-                self.add_module(f"attentions_{i}", Transformer2D(
-                    out_channels, cfg.attention_head_dim, cfg.cross_attention_dim,
-                    groups=cfg.norm_num_groups,
-                ))
+                self.add_module(f"attentions_{i}", _transformer(cfg, out_channels, level))
         if add_downsample:
             self.downsamplers_0 = Downsample2D(out_channels, out_channels)
 
@@ -96,7 +157,8 @@ class CrossAttnDownBlock(nn.Module):
 
 class CrossAttnUpBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_channels: int, skip_channels: T.List[int],
-                 out_channels: int, temb_dim: int, add_upsample: bool, has_attn: bool):
+                 out_channels: int, temb_dim: int, add_upsample: bool, has_attn: bool,
+                 level: int = 0):
         super().__init__()
         self.n = cfg.layers_per_block + 1
         self.has_attn = has_attn
@@ -108,10 +170,7 @@ class CrossAttnUpBlock(nn.Module):
             ))
             ch = out_channels
             if has_attn:
-                self.add_module(f"attentions_{i}", Transformer2D(
-                    out_channels, cfg.attention_head_dim, cfg.cross_attention_dim,
-                    groups=cfg.norm_num_groups,
-                ))
+                self.add_module(f"attentions_{i}", _transformer(cfg, out_channels, level))
         if add_upsample:
             self.upsamplers_0 = Upsample2D(out_channels, out_channels)
 
@@ -130,9 +189,7 @@ class MidBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, channels: int, temb_dim: int):
         super().__init__()
         self.resnets_0 = ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups)
-        self.attentions_0 = Transformer2D(
-            channels, cfg.attention_head_dim, cfg.cross_attention_dim, groups=cfg.norm_num_groups
-        )
+        self.attentions_0 = _transformer(cfg, channels, len(cfg.block_out_channels) - 1)
         self.resnets_1 = ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups)
 
     def forward(self, x, temb, context):
@@ -144,7 +201,10 @@ class MidBlock(nn.Module):
 class UNet2DCondition(nn.Module):
     """forward(latents (B, C, H, W), timesteps (B,) or scalar,
     encoder_hidden_states (B, seq, cross_dim)) -> noise prediction (B, C, H, W)
-    in precise(dtype), NCHW-contiguous whatever the layout of the weights."""
+    in precise(dtype), NCHW-contiguous whatever the layout of the weights.
+    A text_time model (SDXL) also takes `text_embeds` (B, pooled dim), the
+    pooled text embedding, and `time_ids` (B, 6): the original height and
+    width, the crop's top and left, the target height and width."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -152,6 +212,9 @@ class UNet2DCondition(nn.Module):
         ch = cfg.block_out_channels
         temb_dim = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+        if cfg.text_time:
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
+                                                   temb_dim)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
 
         n = len(ch)
@@ -160,7 +223,7 @@ class UNet2DCondition(nn.Module):
         for b in range(n):
             self.add_module(f"down_blocks_{b}", CrossAttnDownBlock(
                 cfg, prev, ch[b], temb_dim, add_downsample=(b != n - 1),
-                has_attn=cfg.cross_attn_blocks[b],
+                has_attn=cfg.cross_attn_blocks[b], level=b,
             ))
             skip_channels += [ch[b]] * cfg.layers_per_block + ([ch[b]] if b != n - 1 else [])
             prev = ch[b]
@@ -173,7 +236,7 @@ class UNet2DCondition(nn.Module):
             block_skips, skip_channels = skip_channels[-take:], skip_channels[:-take]
             self.add_module(f"up_blocks_{i}", CrossAttnUpBlock(
                 cfg, prev, list(reversed(block_skips)), ch[b], temb_dim,
-                add_upsample=(b != 0), has_attn=cfg.cross_attn_blocks[b],
+                add_upsample=(b != 0), has_attn=cfg.cross_attn_blocks[b], level=b,
             ))
             prev = ch[b]
 
@@ -185,7 +248,8 @@ class UNet2DCondition(nn.Module):
         return self.conv_in.weight.dtype
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor, text_embeds: T.Optional[torch.Tensor] = None,
+                time_ids: T.Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         dtype = self.dtype
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -198,6 +262,16 @@ class UNet2DCondition(nn.Module):
             downscale_freq_shift=cfg.freq_shift, dtype=precise(dtype),
         )
         temb = self.time_embedding(t_emb)
+        if cfg.text_time:
+            if text_embeds is None or time_ids is None:
+                raise ValueError("this UNet takes the added conditions text_embeds and time_ids "
+                                 "(SDXL's text_time embedding)")
+            ids = timestep_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift,
+                dtype=precise(dtype),
+            ).reshape(time_ids.shape[0], -1)
+            temb = temb + self.add_embedding(torch.cat([text_embeds.to(ids.dtype), ids], dim=-1))
         nhwc = self.conv_in.weight.is_contiguous(memory_format=torch.channels_last)
         x = self.conv_in(sample.to(dtype, memory_format=torch.channels_last if nhwc
                                    else torch.preserve_format))

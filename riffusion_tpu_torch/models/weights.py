@@ -21,10 +21,15 @@ The counterpart of riffusion_tpu/models/weights.py. `load_bundle` resolves:
 - A local diffusers-layout checkpoint (riffusion-model-v1's layout): unet/,
   vae/ and text_encoder/ each with a config.json and a safetensors or
   torch .bin weight file, the sampler named by scheduler/scheduler_config.json,
-  and a CLIP BPE vocabulary under tokenizer/. Its keys are renamed to the
-  JAX package's flax paths (the renames are copies of the JAX package's,
-  the old VAE attention names `query`/`key`/`value`/`proj_attn` among them)
-  and go through `state_dict_from_jax` like the JAX trees.
+  and a CLIP BPE vocabulary under tokenizer/. Stable Diffusion XL's layout
+  adds text_encoder_2/ (its second tower, `ModelBundle.text_encoder_2`, fed
+  by the same tokenizer), and its UNet and towers take the wider configs
+  (models/unet.py UNetXLConfig, models/clip.py CLIPTextProjectionConfig),
+  and the scheduler config's timestep_spacing sets the bundle's noise
+  schedule. Its keys are renamed to the JAX package's flax paths (the
+  renames are copies of the JAX package's, the old VAE attention names
+  `query`/`key`/`value`/`proj_attn` among them) and go through
+  `state_dict_from_jax` like the JAX trees.
 
 Every loaded state dict must match its module key for key and shape (a
 missing, extra or misshapen key raises, naming it); the UNet and CLIP are
@@ -49,10 +54,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from riffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+from riffusion_tpu_torch.diffusion.schedulers import NoiseConfig
+from riffusion_tpu_torch.models.clip import (
+    CLIPTextConfig,
+    CLIPTextModel,
+    CLIPTextProjectionConfig,
+)
 from riffusion_tpu_torch.models.formats import read_flax_msgpack, read_safetensors
 from riffusion_tpu_torch.models.tokenizer import CLIPTokenizer, HashTokenizer
-from riffusion_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+from riffusion_tpu_torch.models.unet import UNet2DCondition, UNetConfig, UNetXLConfig
 from riffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
 
@@ -71,6 +81,12 @@ class ModelBundle:
     #: package's forms. It keys the text-embedding disk cache
     #: (embed_cache.py); "" disables that cache for a bundle built directly.
     checkpoint_id: str = ""
+    #: SDXL's second text tower (OpenCLIP ViT-bigG/14's), None for SD v1.
+    text_encoder_2: T.Optional[CLIPTextModel] = None
+    #: The noise schedule the checkpoint's scheduler config names, where it
+    #: departs from the default (SDXL's "leading" sigma spacing); None keeps
+    #: the pipeline's default.
+    noise_config: T.Optional[NoiseConfig] = None
 
     @property
     def vae_config(self) -> VAEConfig:
@@ -344,6 +360,8 @@ def _rename_vae_key(key: str) -> T.Optional[str]:
 
 
 def _rename_clip_key(key: str) -> T.Optional[str]:
+    if key == "text_projection.weight":  # CLIPTextModelWithProjection's
+        return "text_projection/weight"
     if not key.startswith("text_model."):
         return None
     k = key[len("text_model."):]
@@ -404,11 +422,15 @@ def _load_torch_weights(folder: Path, kind: str) -> T.Dict[str, torch.Tensor]:
 
 
 def _unet_config_from_json(cfg: dict) -> UNetConfig:
+    """UNetConfig for SD v1's geometry; a UNetXLConfig where the config has a
+    head count or a transformer depth a level, linear projections or an
+    added embedding (SDXL)."""
     down_types = cfg.get("down_block_types", ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"])
-    return UNetConfig(
+    channels = tuple(cfg.get("block_out_channels", (320, 640, 1280, 1280)))
+    fields = dict(
         in_channels=cfg.get("in_channels", 4),
         out_channels=cfg.get("out_channels", 4),
-        block_out_channels=tuple(cfg.get("block_out_channels", (320, 640, 1280, 1280))),
+        block_out_channels=channels,
         layers_per_block=cfg.get("layers_per_block", 2),
         cross_attention_dim=cfg.get("cross_attention_dim", 768),
         attention_head_dim=cfg.get("attention_head_dim", 8),
@@ -416,6 +438,25 @@ def _unet_config_from_json(cfg: dict) -> UNetConfig:
         norm_num_groups=cfg.get("norm_num_groups", 32),
         freq_shift=cfg.get("freq_shift", 0),
         flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+    )
+    depth = cfg.get("transformer_layers_per_block", 1)
+    added = cfg.get("addition_embed_type")
+    if not (isinstance(fields["attention_head_dim"], list) or isinstance(depth, list)
+            or depth != 1 or cfg.get("use_linear_projection") or added is not None):
+        return UNetConfig(**fields)
+    if added not in (None, "text_time"):
+        raise ValueError(f"unet: addition_embed_type {added!r} is not supported (text_time is)")
+
+    def per_level(value) -> T.Tuple[int, ...]:
+        return tuple(value) if isinstance(value, list) else (value,) * len(channels)
+
+    fields["attention_head_dim"] = per_level(fields["attention_head_dim"])
+    return UNetXLConfig(
+        **fields, transformer_layers_per_block=per_level(depth),
+        use_linear_projection=bool(cfg.get("use_linear_projection", False)),
+        addition_embed_type=added,
+        addition_time_embed_dim=cfg.get("addition_time_embed_dim", 256),
+        projection_class_embeddings_input_dim=cfg.get("projection_class_embeddings_input_dim", 0),
     )
 
 
@@ -432,7 +473,10 @@ def _vae_config_from_json(cfg: dict) -> VAEConfig:
 
 
 def _clip_config_from_json(cfg: dict) -> CLIPTextConfig:
-    return CLIPTextConfig(
+    """CLIPTextConfig for SD v1's tower (quick-gelu, no projection), else a
+    CLIPTextProjectionConfig: another activation, or a
+    CLIPTextModelWithProjection's projection_dim."""
+    fields = dict(
         vocab_size=cfg.get("vocab_size", 49408),
         hidden_size=cfg.get("hidden_size", 768),
         num_layers=cfg.get("num_hidden_layers", 12),
@@ -440,6 +484,12 @@ def _clip_config_from_json(cfg: dict) -> CLIPTextConfig:
         max_positions=cfg.get("max_position_embeddings", 77),
         intermediate_size=cfg.get("intermediate_size", 3072),
     )
+    act = cfg.get("hidden_act", "quick_gelu")
+    projected = "CLIPTextModelWithProjection" in cfg.get("architectures", ())
+    if act == "quick_gelu" and not projected:
+        return CLIPTextConfig(**fields)
+    return CLIPTextProjectionConfig(**fields, hidden_act=act,
+                                    projection_dim=cfg.get("projection_dim") if projected else None)
 
 
 #: diffusers scheduler classes -> the port's sampler names; any other class
@@ -467,11 +517,32 @@ def diffusers_scheduler_name(root: T.Union[str, Path]) -> str:
     return SCHEDULER_CLASSES.get(_read_json(path).get("_class_name", "PNDMScheduler"), "pndm")
 
 
+def diffusers_noise_config(root: T.Union[str, Path]) -> T.Optional[NoiseConfig]:
+    """The noise schedule of scheduler/scheduler_config.json where it names a
+    timestep spacing (the sigma samplers' grid), else None."""
+    path = Path(root) / "scheduler" / "scheduler_config.json"
+    spacing = _read_json(path).get("timestep_spacing") if path.exists() else None
+    return None if spacing is None else NoiseConfig(timestep_spacing=spacing)
+
+
+def text_encoder_module(cfg: CLIPTextConfig, state: T.Mapping[str, torch.Tensor],
+                        device: torch.device, what: str) -> CLIPTextModel:
+    """A text tower of `cfg` on `device` holding `state` (the port's keys),
+    checked, then loaded strictly."""
+    with torch.device("meta"):
+        module = CLIPTextModel(cfg)
+    module = module.to_empty(device=device).to(next(iter(state.values())).dtype)
+    _check_state_dict(module, state, what)
+    module.load_state_dict(state, strict=True)
+    return module
+
+
 def load_diffusers_checkpoint(
     root: T.Union[str, Path], device: T.Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> ModelBundle:
-    """Load a local diffusers-layout checkpoint directory onto `device`."""
+    """Load a local diffusers-layout checkpoint directory onto `device` (with
+    SDXL's text_encoder_2/ where the directory has one)."""
     root = Path(root)
     cfgs = (_unet_config_from_json(_read_json(root / "unet" / "config.json")),
             _vae_config_from_json(_read_json(root / "vae" / "config.json")),
@@ -480,8 +551,16 @@ def load_diffusers_checkpoint(
         convert_diffusers_state_dict(_load_torch_weights(root / folder, kind), kind)
         for folder, kind in (("unet", "unet"), ("vae", "vae"), ("text_encoder", "clip"))
     ]
-    return _assemble(root, cfgs, [c[0] for c in converted], diffusers_scheduler_name(root),
-                     torch.device(device), dtype, sources=[c[1] for c in converted])
+    bundle = _assemble(root, cfgs, [c[0] for c in converted], diffusers_scheduler_name(root),
+                       torch.device(device), dtype, sources=[c[1] for c in converted])
+    bundle.noise_config = diffusers_noise_config(root)
+    second = root / "text_encoder_2"
+    if second.is_dir():
+        state, _ = convert_diffusers_state_dict(_load_torch_weights(second, "clip"), "clip")
+        bundle.text_encoder_2 = text_encoder_module(
+            _clip_config_from_json(_read_json(second / "config.json")), state,
+            torch.device(device), f"{root}: text_encoder_2").to(dtype).eval()
+    return bundle
 
 
 def load_bundle(

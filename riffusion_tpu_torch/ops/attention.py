@@ -159,6 +159,7 @@ class Counts:
     group_norm_launches: int = 0  # ops/group_norm.py
     group_norm_plain_calls: int = 0
     group_norm_library_calls: int = 0  # models/layers.py GroupNorm
+    plain_self_sites: int = 0  # models/layers.py Attention: card self-attention routed "plain"
 
     def reset(self) -> None:
         for field in dataclasses.fields(self):

@@ -348,6 +348,7 @@ class DiffusionTrainer:
         for x in tensors:
             for group in groups:
                 dist.all_reduce(x, group=group)
+                tracing.count("allreduce_calls")
 
     def _host_inputs(
         self, latents: T.Any, context: T.Any, t: T.Optional[T.Any], noise: T.Optional[T.Any],

@@ -45,6 +45,16 @@ batch, request i draws what it would draw alone.
 The UNet and CLIP run in bfloat16 on CUDA and float32 on the CPU; the VAE
 and the DSP always run in float32 (TF32 off, torch_util.configure_numerics).
 
+Stable Diffusion XL (a bundle with `text_encoder_2`) runs the same riffuse
+programs with its own conditioning: the context is both towers'
+penultimate hidden states side by side (768 + 1280 wide), the pooled
+vector is the second tower's projected end-of-text state, both walk in
+alpha together, an empty negative prompt is zeros (SDXL's
+force_zeros_for_empty_prompt), and the time ids are the seed image's size
+as original and target with no crop. The UNet takes the pooled vectors and
+the time ids beside the context (`_denoise`'s `added`). txt2img, MagicMix
+and the tensor-parallel paths take SD v1 bundles only.
+
 Text embeddings are cached twice: per pipeline (an lru cache per kind) and
 across processes on disk (embed_cache.py, keyed on the bundle's
 checkpoint_id), so a restarted server reads its boot prompts off disk.
@@ -52,7 +62,8 @@ checkpoint_id), so a restarted server reads its boot prompts off disk.
 
 Spans (tracing.py, each a `torch.profiler.record_function` range).
 `riffuse_audio` and `riffuse_audio_batch` run inside `riffusion.call`, with
-children `riffusion.prepare` (the host part, `riffusion.text` inside it),
+children `riffusion.prepare` (the host part, `riffusion.text` inside it,
+and SDXL's second tower in `riffusion.text.encoder_2` inside that),
 `riffusion.launch` (the device program queued: a graph's replay, or the
 eager program), `riffusion.readback` (the wait for the results' copies) and
 `riffusion.finish` (PIL images, AudioSegments, the filters; with
@@ -197,6 +208,35 @@ def _encode_ids(text_encoder: torch.nn.Module, device: torch.device,
     return text_encoder(torch.as_tensor(ids, dtype=torch.long, device=device))
 
 
+class _TwoTowers:
+    """SDXL's text conditioning from its two towers, for ids of one 77-token
+    chunk: `context(ids)` is both towers' penultimate hidden states side by
+    side (1, 77, hidden + hidden_2), `pooled(ids)` the second tower's pooled
+    output (1, projection). Both come from one run of each tower, kept for
+    the last 256 chunks, so the pooled vector of a prompt whose context was
+    just encoded costs nothing."""
+
+    def __init__(self, first: torch.nn.Module, second: torch.nn.Module, device: torch.device,
+                 eos_token_id: int):
+        self.first, self.second, self.device, self.eos = first, second, device, eos_token_id
+        self._run = functools.lru_cache(maxsize=256)(self._encode)
+
+    @torch.inference_mode()
+    def _encode(self, ids: T.Tuple[int, ...]) -> T.Tuple[torch.Tensor, torch.Tensor]:
+        tokens = torch.tensor([ids], dtype=torch.long, device=self.device)
+        context, _ = self.first.penultimate_and_pooled(tokens, self.eos)
+        with tracing.span("riffusion.text.encoder_2"):
+            tracing.count("text_encoder_2_calls")
+            context_2, pooled = self.second.penultimate_and_pooled(tokens, self.eos)
+        return torch.cat([context, context_2.to(context.dtype)], dim=-1), pooled
+
+    def context(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.cat([self._run(tuple(int(i) for i in row))[0] for row in np.asarray(ids)])
+
+    def pooled(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.cat([self._run(tuple(int(i) for i in row))[1] for row in np.asarray(ids)])
+
+
 class _DiskCachedEmbeddings:
     """Routes an embedding through the cross-process disk cache
     (embed_cache.py): a fresh process reads its boot prompts off disk
@@ -230,23 +270,30 @@ class _DiskCachedEmbeddings:
         return emb
 
 
+def _plain_ids(tokenizer, text: str) -> np.ndarray:
+    """(1, 77) ids of `text`, padded and truncated to the tokenizer's length."""
+    return np.asarray(
+        tokenizer(
+            text,
+            padding="max_length",
+            max_length=tokenizer.model_max_length,
+            truncation=True,
+        )["input_ids"],
+        dtype=np.int64,
+    )
+
+
 def _embed_plain(tokenizer, encode: T.Callable, disk: _DiskCachedEmbeddings,
                  text: str) -> torch.Tensor:
     """Plain CLIP embedding of `text`, (1, 77, hidden)."""
+    return disk("plain", text, lambda: encode(_plain_ids(tokenizer, text)))
 
-    def compute() -> torch.Tensor:
-        ids = np.asarray(
-            tokenizer(
-                text,
-                padding="max_length",
-                max_length=tokenizer.model_max_length,
-                truncation=True,
-            )["input_ids"],
-            dtype=np.int64,
-        )
-        return encode(ids)
 
-    return disk("plain", text, compute)
+def _embed_pooled(tokenizer, towers: _TwoTowers, disk: _DiskCachedEmbeddings,
+                  text: str) -> torch.Tensor:
+    """SDXL's pooled text embedding of `text`, (1, projection), from its
+    plain ids (a weighted prompt's first chunk is those ids)."""
+    return disk("pooled", text, lambda: towers.pooled(_plain_ids(tokenizer, text)))
 
 
 #: The 77-token chunks a weighted prompt may span.
@@ -274,13 +321,13 @@ class RiffusionPipeline:
         self,
         bundle: ModelBundle,
         device: str = "cuda",
-        noise_config: sched.NoiseConfig = sched.NoiseConfig(),
+        noise_config: T.Optional[sched.NoiseConfig] = None,
     ):
         self.bundle = bundle
         self.device = torch_util.check_device(device)
         if self.device.type == "cuda":
             torch_util.configure_numerics()
-        self.noise_config = noise_config
+        self.noise_config = noise_config or bundle.noise_config or sched.NoiseConfig()
         # NHWC inside (models/unet.py), on every device, before any capture
         self.unet = bundle.unet.to(self.device, memory_format=torch.channels_last).eval()
         self.vae = bundle.vae.to(self.device, torch.float32).eval()
@@ -292,6 +339,16 @@ class RiffusionPipeline:
         self._encode_77 = functools.partial(_encode_ids, self.text_encoder, self.device)
         self._embed_disk_cached = _DiskCachedEmbeddings(
             bundle.checkpoint_id, bundle.dtype, self.device)
+        # SDXL: both towers make the context; embed_pooled, the pooled vector
+        self.text_encoder_2 = None
+        self.embed_pooled = None
+        if bundle.text_encoder_2 is not None:
+            self.text_encoder_2 = bundle.text_encoder_2.to(self.device).eval()
+            towers = _TwoTowers(self.text_encoder, self.text_encoder_2, self.device,
+                                self.tokenizer.eos_token_id)
+            self._encode_77 = towers.context
+            self.embed_pooled = functools.lru_cache(maxsize=256)(functools.partial(
+                _embed_pooled, self.tokenizer, towers, self._embed_disk_cached))
         self.embed_text = functools.lru_cache(maxsize=256)(functools.partial(
             _embed_plain, self.tokenizer, self._encode_77, self._embed_disk_cached))
         self.embed_text_weighted = functools.lru_cache(maxsize=256)(functools.partial(
@@ -383,8 +440,21 @@ class RiffusionPipeline:
             embed_end = self._pad_seq(embed_end, seq)
         text_embedding = embed_start + alpha * (embed_end - embed_start)
         negative = start.negative_prompt if alpha < 0.5 else end.negative_prompt
+        if self.text_encoder_2 is not None and not negative:  # force_zeros_for_empty_prompt
+            return torch.zeros_like(text_embedding), text_embedding
         uncond = self._uncond_embedding(negative, text_embedding.shape[1])
         return uncond.to(text_embedding.dtype), text_embedding
+
+    def _pooled_pair(self, inputs: InferenceInput) -> T.Tuple[torch.Tensor, torch.Tensor]:
+        """SDXL's pooled text embeddings, as `_embedding_pair` pairs the
+        contexts: (the negative prompt's, zeros for an empty one; the
+        alpha-interpolation of the start and end prompts'), each
+        (1, projection)."""
+        alpha = float(inputs.alpha)
+        start, end = self.embed_pooled(inputs.start.prompt), self.embed_pooled(inputs.end.prompt)
+        cond = start + alpha * (end - start)
+        negative = inputs.start.negative_prompt if alpha < 0.5 else inputs.end.negative_prompt
+        return (self.embed_pooled(negative) if negative else torch.zeros_like(cond)), cond
 
     def _embedding_length(self, inputs: InferenceInput, use_reweighting: bool) -> int:
         """The token length of _embedding_pair(inputs)'s embeddings, from the
@@ -422,6 +492,7 @@ class RiffusionPipeline:
         ancestral: T.Optional[torch.Tensor],
         blend: T.Optional[T.Callable[[int, torch.Tensor], torch.Tensor]] = None,
         unet: T.Optional[torch.nn.Module] = None,
+        added: T.Tuple[torch.Tensor, ...] = (),
     ) -> torch.Tensor:
         """The classifier-free-guidance denoise loop over N latents: one UNet
         call at batch 2N ([unconditionals..., conditionals...]) per plan
@@ -429,7 +500,8 @@ class RiffusionPipeline:
         ancestral sampler's per-step noise, (S, N, C, h, w); `blend(i,
         latents)` edits the latents before step i (MagicMix); `unet`
         replaces the pipeline's (a tensor-parallel copy,
-        parallel/tp_serving.py)."""
+        parallel/tp_serving.py); `added` holds SDXL's added conditions for
+        the 2N rows, (pooled text embeddings, time ids)."""
         unet = self.unet if unet is None else unet
         n = latents.shape[0]
         state = sched.init_state(plan, latents.shape, latents.dtype, self.device,
@@ -439,7 +511,7 @@ class RiffusionPipeline:
                 latents = blend(i, latents)
             lat_in = sched.scale_model_input(plan, torch.cat([latents, latents], dim=0), i)
             t = torch.full((2 * n,), int(plan.timesteps[i]), dtype=torch.int64, device=self.device)
-            eps = unet(lat_in, t, text_emb)
+            eps = unet(lat_in, t, text_emb, *added)
             eps_u, eps_t = eps.chunk(2, dim=0)
             eps = eps_u + guidance * (eps_t - eps_u)
             latents, state = sched.step(plan, state, i, eps.to(latents.dtype), latents)
@@ -543,6 +615,8 @@ class RiffusionPipeline:
             seq = max(self._embedding_length(inp, use_reweighting) for inp in inputs_list)
             inputs_list = inputs_list[rows]
             pairs = [self._embedding_pair(inp, use_reweighting) for inp in inputs_list]
+            pooled = ([self._pooled_pair(inp) for inp in inputs_list]
+                      if self.text_encoder_2 is not None else None)
         per_item_image = len(init_images) > 1
         if per_item_image:
             init_images = init_images[rows]
@@ -575,6 +649,12 @@ class RiffusionPipeline:
             mask_np = preprocess_mask(mask_image, scale_factor=8, size=(width // 8, height // 8))
             mask = torch.from_numpy(mask_np).to(dev).permute(0, 3, 1, 2)
 
+        text_embeds = time_ids = None
+        if pooled is not None:  # SDXL: original and target size the image's, no crop
+            text_embeds = torch.cat([u for u, _ in pooled] + [c for _, c in pooled])
+            time_ids = torch.tensor([[height, width, 0, 0, height, width]] * (2 * n),
+                                    dtype=torch.float32, device=dev)
+
         shape = self._latent_shape(height, width)
         vae_eps, noise_a, noise_b = (torch.cat([nz(draw, shape, dev) for nz in noises])
                                      for draw in ("vae_eps", "noise_a", "noise_b"))
@@ -596,7 +676,8 @@ class RiffusionPipeline:
         program = functools.partial(RiffusionPipeline._riffuse_device, weakref.proxy(self),
                                     plan, noise_timestep, fused_params, routed, unet)
         return _Program(key, program, (text_emb, image, mask, guidance, weights, vae_eps,
-                                       noise_a, noise_b, ancestral, gl_real, gl_imag))
+                                       noise_a, noise_b, ancestral, gl_real, gl_imag,
+                                       text_embeds, time_ids))
 
     def _riffuse_device(
         self, plan: sched.SchedulerPlan, noise_timestep: int,
@@ -605,13 +686,15 @@ class RiffusionPipeline:
         mask: T.Optional[torch.Tensor], guidance: torch.Tensor, weights: torch.Tensor,
         vae_eps: torch.Tensor, noise_a: torch.Tensor, noise_b: torch.Tensor,
         ancestral: T.Optional[torch.Tensor], gl_real: T.Optional[torch.Tensor],
-        gl_imag: T.Optional[torch.Tensor],
+        gl_imag: T.Optional[torch.Tensor], text_embeds: T.Optional[torch.Tensor] = None,
+        time_ids: T.Optional[torch.Tensor] = None,
     ) -> T.Tuple[torch.Tensor, T.Optional[torch.Tensor]]:
         """The device program of N riffuse requests, a pure function of its
         tensors: VAE encode, the seed noises' slerp, noising, the denoise
         loop, the VAE decode and the audio tail. Its Python arguments (the
         plan, the noising timestep, the spectrogram parameters, the routed
-        batch, a replacement UNet) come from the call's key."""
+        batch, a replacement UNet) come from the call's key. SDXL's added
+        conditions (`text_embeds`, `time_ids`) are None for SD v1."""
         scale = self.bundle.vae_config.scaling_factor
         with tracing.stage("riffusion.vae_encode"):
             mean, logvar = self.vae.encode_moments(image)
@@ -629,7 +712,7 @@ class RiffusionPipeline:
         with tracing.stage("riffusion.denoise"), attention_ops.route_batch(routed_batch):
             latents = self._denoise(
                 plan, latents, text_emb, guidance, mask, init_latents, seed_noise, ancestral,
-                unet=unet,
+                unet=unet, added=() if text_embeds is None else (text_embeds, time_ids),
             )
         return self._decode_and_audio(latents, fused_params, gl_real, gl_imag)
 

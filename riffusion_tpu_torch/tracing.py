@@ -25,8 +25,9 @@ go through.
   a program is freed is neither read nor counted; an eager run records no
   events (its ranges serve the profiler).
 - `export()` gives the rings, the aggregates and the counters ("dropped"
-  spans and replays, "stage_read", "stage_unread", and the process's
-  `KERNEL_COUNTERS` as ops.attention.COUNTS holds them, replays included);
+  spans and replays, "stage_read", "stage_unread", `EVENT_COUNTERS`, and
+  the process's `KERNEL_COUNTERS` as ops.attention.COUNTS holds them,
+  replays included);
   it is the only exporter.
 
 With the switch off nothing is recorded and no graph changes: a stage is
@@ -54,9 +55,16 @@ from riffusion_tpu_torch.ops import attention
 CAPACITY = 100_000
 
 #: The ops.attention.COUNTS fields `export()` adds to its counters: the NHWC
-#: GroupNorm kernel's calls (ops/group_norm.py), and the GroupNorm calls on
-#: the card that ran torch's F.group_norm instead (models/layers.py).
-KERNEL_COUNTERS = ("group_norm_launches", "group_norm_library_calls")
+#: GroupNorm kernel's calls (ops/group_norm.py), the GroupNorm calls on the
+#: card that ran torch's F.group_norm instead (models/layers.py), K1's
+#: launches, and the self-attention sites routed to the plain composition.
+KERNEL_COUNTERS = ("group_norm_launches", "group_norm_library_calls", "launches",
+                   "plain_self_sites")
+
+#: Host events `count()` adds up: SDXL's second text tower's runs
+#: (riffusion_pipeline.py) and the sharded trainer's all-reduce calls
+#: (parallel/train.py).
+EVENT_COUNTERS = ("text_encoder_2_calls", "allreduce_calls")
 
 
 def enabled() -> bool:
@@ -97,7 +105,7 @@ class Tracer:
         self.totals: T.Dict[str, T.List[float]] = {}  # name: [count, seconds]
         self.stage_totals: T.Dict[str, T.List[float]] = {}  # name: [count, device seconds]
         self.counters = dict.fromkeys(("dropped", "replays_dropped", "stage_read",
-                                       "stage_unread"), 0)
+                                       "stage_unread") + EVENT_COUNTERS, 0)
 
     def _stack(self) -> T.List[T.Tuple[str, int]]:
         stack = getattr(self._local, "stack", None)
@@ -135,6 +143,12 @@ class Tracer:
                 total = self.totals.setdefault(name, [0, 0.0])
                 total[0] += 1
                 total[1] += record.dur_ns / 1e9
+
+    def count(self, name: str) -> None:
+        """Count one of EVENT_COUNTERS' events, where the switch is on."""
+        if enabled():
+            with self._lock:
+                self.counters[name] += 1
 
     def stage(self, name: str) -> T.ContextManager:
         if not enabled():
@@ -234,5 +248,6 @@ class StageTimes:
 TRACER = Tracer()
 span = TRACER.span
 stage = TRACER.stage
+count = TRACER.count
 export = TRACER.export
 reset = TRACER.reset

@@ -25,6 +25,7 @@ from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu_torch import aot, tracing
 from riffusion_tpu_torch import server as server_mod
 from riffusion_tpu_torch.models.weights import random_bundle
+from riffusion_tpu_torch.ops import attention
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 from riffusion_tpu_torch.training.finetune import ema_update
@@ -228,6 +229,7 @@ def test_a_capture_records_two_events_a_stage_only_with_the_switch(monkeypatch, 
     else:
         monkeypatch.setenv("RIFFUSION_TPU_TRACE", switch)
     tracing.reset()
+    attention.COUNTS.reset()
     graphs = StandInGraphs()
     program = aot.GraphProgram(_staged, "staged", graphs=graphs)
     args = (torch.ones(3), torch.zeros(3))
@@ -248,8 +250,10 @@ def test_a_capture_records_two_events_a_stage_only_with_the_switch(monkeypatch, 
     assert torch.equal(out, torch.full((3,), 2.0))
     result = tracing.export()
     assert result["counters"] == {"dropped": 0, "replays_dropped": 0, "stage_read": 2,
-                                  "stage_unread": 0, "group_norm_launches": 0,
-                                  "group_norm_library_calls": 0}
+                                  "stage_unread": 0, "text_encoder_2_calls": 0,
+                                  "allreduce_calls": 0, "group_norm_launches": 0,
+                                  "group_norm_library_calls": 0, "launches": 0,
+                                  "plain_self_sites": 0}
     assert [r["stages"] for r in result["replays"]] == [{"riffusion.one": 1.5,
                                                          "riffusion.two": 2.5}] * 2
     assert result["stages"]["riffusion.one"] == {"count": 2, "s": 0.003}
