@@ -11,9 +11,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. card: the card's name and power limit, and its maximum SM clock (the
    clock of the exp2 bound; nvidia-smi); no CUDA device fails.
 2. build: nvcc builds csrc/attention.cu (K1), csrc/row_attention.cu (K2),
-   csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward) and
-   csrc/group_norm.cu (the NHWC GroupNorm) from this checkout, all at once; prints each build's seconds and each instance's
-   ptxas registers and spills, and fails if a bf16 instance spills.
+   csrc/attention_dkv.cu and csrc/attention_dq.cu (K1's backward),
+   csrc/group_norm.cu (the NHWC GroupNorm) and csrc/adamw.cu (the trainer's
+   one-pass AdamW) from this checkout, all at once; prints each build's
+   seconds and each instance's ptxas registers and spills, and fails if a
+   bf16 instance spills.
 3. kernel: each forward kernel against its plain PyTorch version on the
    card, held to ops.attention.TOLERANCE: max abs error (bf16 2e-2, fp32
    with TF32 off 1e-4) and error RMS over output RMS (bf16 6e-3, fp32
@@ -48,6 +50,19 @@ group-norm: the NHWC GroupNorm kernel (csrc/group_norm.cu through
    yardstick, never called by the port) at the single path's largest and
    smallest site, beside the bound: 4 bytes an element (bf16 read once,
    written once) over 3.35 TB/s.
+adamw: the one-pass AdamW (csrc/adamw.cu through ops/adamw.py) at SD v1's
+   UNet leaves (random:full's 686, 859.5 M parameters, each gradient in its
+   working-copy dtype: bf16, fp32 for the norms and conv_out): ADAMW_STEPS
+   steps against its plain version (ops.adamw.adamw_reference) on the card
+   from the same masters, gradients and step counts, leaf i's count
+   starting at i % 4, held to ADAMW_BOUND (the masters' movement and each
+   moment, relative L2), with ADAMW_LAUNCHES_PER_STEP launches a step.
+   Times one step (CUDA events around 10 replays of a graph of
+   ADAMW_TIMED_CALLS steps) of the kernel, its plain version and the
+   library's AdamW(fused=True, capturable=True) after the trainer's old
+   hand-off (each bf16 gradient cast to a fresh fp32 one: the library
+   yardstick, never called by the port), beside the bound: 26 bytes a
+   parameter with a bf16 gradient, 28 with an fp32 one, over 3.35 TB/s.
 4. kernel-grad: K1's backward kernels (dK/dV, dQ) through `attention`'s
    autograd against the plain backward (ops.attention.
    attention_backward_reference), each of dQ, dK and dV held to
@@ -147,7 +162,9 @@ checkpoint: a diffusers-layout directory (under .chipwork/, deleted at the
    graphs captured with RIFFUSION_TPU_TRACE=1, whose replays' stage times
    must read positive (the launch spans and stage times are printed).
    Every step of every run takes exactly 10 K1 forwards, 10 dK/dV and 10
-   dQ launches and no plain call, with a finite loss. The eager runs'
+   dQ launches, no plain call and ADAMW_LAUNCHES_PER_STEP AdamW launches,
+   with a finite loss (the replayed run's AdamW launches go to the
+   kernels line). The eager runs'
    distance is printed (each step's loss, the masters after the 4 steps);
    each replayed run must be bit-equal to them where they are bit-equal to
    each other, else within twice their distance, and always within
@@ -238,8 +255,9 @@ parallel-train: the sharded fine-tuning step (parallel/train.py
 
 `--mutants` instead builds each planted fault of MUTANTS into a copy of
 the kernel sources and shows that the checks of every kernel it touches
-reject it (tests/test_torch_kernel_sources.py holds each fault's text to
-its source on the CPU).
+(the adamw phase's check for the AdamW kernel's) reject it
+(tests/test_torch_kernel_sources.py holds each fault's text to its source
+on the CPU).
 
 Each phase's seconds are printed ("[time]"). The pipelines' text-embedding
 disk cache lives under .chipwork/ and is deleted at the end. The last two
@@ -403,7 +421,8 @@ K1_GRAD_CASES = (
 # Each named kernel must reject the fault by its own checks: a forward
 # kernel's bf16 cases (K1 and K2 share attention_fwd.cuh's body), or a
 # backward kernel's bf16 gradient cases (attention_bwd.cuh, fed by K1's
-# log-sum-exp). hopper.cuh's tile copies serve every bf16 kernel.
+# log-sum-exp), the GroupNorm's bf16 cases at batch 2, or the adamw phase's
+# check. hopper.cuh's tile copies serve every bf16 kernel.
 BACKWARD = ("attention_dkv", "attention_dq")
 FORWARD = ("attention", "row_attention")
 MUTANTS = (
@@ -470,6 +489,14 @@ MUTANTS = (
     ("a group normalised with its neighbour's statistics", "group_norm.cu",
      "    const int grp = c / g.cpg;\n", "    const int grp = (c / g.cpg + 1) % g.groups;\n",
      ("group_norm",)),
+    # the one-pass AdamW: the leaf search one short, so that the first chunk
+    # of each leaf after a launch's first goes to the leaf before, whose
+    # count there is negative (the chunk is left out); and every leaf's bias
+    # corrections from the step count of its launch's first leaf
+    ("a leaf's first chunk given to the leaf before it", "adamw.cu",
+     "if (b.chunk_end[mid] > c) {", "if (b.chunk_end[mid] >= c) {", ("adamw",)),
+    ("each leaf's step count read from its launch's first leaf", "adamw.cu",
+     "const float s = *b.step[i] + 1.0f;", "const float s = *b.step[0] + 1.0f;", ("adamw",)),
 )
 FORWARD_CASES = {"attention": K1_CASES, "row_attention": K2_CASES}
 
@@ -487,6 +514,21 @@ GN_SITES = (
 GN_CASES = tuple((b, c, h, w) for b in (2, 32) for c, h, w in GN_SITES) + ((3, 640, 30, 50),)
 GN_TIMED = ((2, 960, 64, 64), (2, 1280, 8, 8))
 UNET_GROUP_NORMS = 61  # GroupNorm sites of one SD v1 UNet evaluation
+
+# The one-pass AdamW (adamw phase): ADAMW_STEPS steps over SD v1's UNet
+# leaves (random:full: 686 leaves, 859.5 M parameters, each gradient in the
+# dtype of parallel/train.py compute_copy's working copy), the kernel
+# against its plain version (ops.adamw.adamw_reference) on the card from the
+# same masters, gradients and step counts (leaf i's count starts at i % 4,
+# so the leaves of a launch differ): the relative L2 of the difference of
+# the masters' movement and of each moment. Both round the same fp32
+# operations, so they differ by an ulp here and there, about 1e-7 of the
+# movement; one chunk of 4,096 elements left out reads about 2e-3, a wrong
+# leaf or step count far more.
+ADAMW_STEPS = 3
+ADAMW_BOUND = {"movement_rel_l2": 1e-5, "moment_rel_l2": 1e-6}
+ADAMW_LAUNCHES_PER_STEP = 20  # ops.adamw.launches at 686 leaves: 10 updates, 10 counts
+ADAMW_TIMED_CALLS = 2  # steps in the graph each timing replays
 
 
 def log(msg: str) -> None:
@@ -551,11 +593,11 @@ def _time_ms(torch, fn, reps: int = 20) -> float:
 GRAPH_TIMED_CALLS = 20
 
 
-def _graph_time_ms(torch, fn, reps: int = 20) -> float:
+def _graph_time_ms(torch, fn, reps: int = 20, calls: int = GRAPH_TIMED_CALLS) -> float:
     """Median device ms of one fn() over `reps` replays of a CUDA graph of
-    GRAPH_TIMED_CALLS calls: the time the card takes with no gap for the
-    host's launches (which _time_ms counts, and which a short kernel's
-    own time can fall under)."""
+    `calls` calls: the time the card takes with no gap for the host's
+    launches (which _time_ms counts, and which a short kernel's own time
+    can fall under)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -564,9 +606,9 @@ def _graph_time_ms(torch, fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_TIMED_CALLS):
+        for _ in range(calls):
             fn()
-    return _time_ms(torch, graph.replay, reps) / GRAPH_TIMED_CALLS
+    return _time_ms(torch, graph.replay, reps) / calls
 
 
 def _check_cases(torch, attn, fn, cases, gen) -> dict:
@@ -698,6 +740,131 @@ def phase_group_norm(torch) -> dict:
             f"plain {times[('plain', b, c, h, w)]:.4f} ms, library F.group_norm + F.silu on NCHW "
             f"{times[('library', b, c, h, w)]:.4f} ms; bound {bound[0]:.4f} ms; "
             f"{_sm_clock_note()}")
+    result["times"] = times
+    return result
+
+
+def _adamw_leaves(torch) -> tuple:
+    """random:full's UNet parameters on the card (fp32, the masters) and the
+    dtype of each one's gradient in the trainer's working copy."""
+    from riffusion_tpu_torch.models.weights import random_bundle
+    from riffusion_tpu_torch.parallel.train import compute_copy
+
+    unet = random_bundle("full", seed=0, device="cuda").unet
+    dtypes = [w.dtype for w in compute_copy(unet, torch.bfloat16).parameters()]
+    masters = [p.detach() for p in unet.parameters()]
+    del unet
+    torch.cuda.empty_cache()
+    return masters, dtypes
+
+
+def _adamw_grads(torch, masters, dtypes, step: int) -> list:
+    """Step `step`'s gradients, in their working dtypes, a leaf's scale
+    between 1e-4 and 1."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+    return [(torch.randn(m.shape, generator=gen, device="cuda") * 10.0 ** (i % 5 - 4)).to(dtype)
+            for i, (m, dtype) in enumerate(zip(masters, dtypes))]
+
+
+def _check_adamw(torch, adamw, masters, dtypes) -> dict:
+    """ADAMW_STEPS steps of the kernel (adamw.adamw_ on the card) and of its
+    plain version from the same state (ADAMW_BOUND); returns the largest
+    absolute difference of a master and the relative L2 of the movement's
+    difference (as max_abs_err and rel_rms_err), and of each moment's."""
+    from riffusion_tpu_torch.ops import attention as attn
+
+    hyper = dict(lr=torch.tensor(1e-3, device="cuda"), beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=1e-2)
+    runs = {}
+    with torch.no_grad():
+        for name, fn in (("kernel", adamw.adamw_), ("plain", adamw.adamw_reference)):
+            params = [m.clone() for m in masters]
+            state = [[torch.zeros_like(m) for m in masters] for _ in range(2)]
+            steps = [torch.full((), float(i % 4), device="cuda") for i in range(len(masters))]
+            attn.COUNTS.reset()
+            for step in range(ADAMW_STEPS):
+                fn(params, _adamw_grads(torch, masters, dtypes, step), *state, steps, **hyper)
+            torch.cuda.synchronize()
+            if [float(s) for s in steps] != [i % 4 + ADAMW_STEPS for i in range(len(masters))]:
+                raise AssertionError(f"adamw {name}: the step counts did not advance by "
+                                     f"{ADAMW_STEPS}")
+            runs[name] = (params, *state, attn.COUNTS.adamw_launches)
+        (p, m, v, launched), (pp, mp, vp, _) = runs["kernel"], runs["plain"]
+
+        def rel(ours, theirs, base) -> float:
+            num = sum(float(torch.sum(torch.square((a - b).double())))
+                      for a, b in zip(ours, theirs))
+            den = sum(float(torch.sum(torch.square((b - c).double())))
+                      for b, c in zip(theirs, base))
+            return (num / den) ** 0.5
+
+        zeros = [torch.zeros((), device="cuda")] * len(masters)
+        result = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(p, pp)),
+                  "rel_rms_err": rel(p, pp, masters), "exp_avg": rel(m, mp, zeros),
+                  "exp_avg_sq": rel(v, vp, zeros)}
+    expected = adamw.launches([x.numel() for x in masters])
+    log(f"[adamw] {len(masters)} leaves, {sum(x.numel() for x in masters)} parameters "
+        f"({sum(x.numel() for x, d in zip(masters, dtypes) if d == torch.bfloat16)} with a bf16 "
+        f"gradient), {ADAMW_STEPS} steps, kernel against plain: masters max abs "
+        f"{result['max_abs_err']:.3e}, movement rel L2 {result['rel_rms_err']:.3e}, exp_avg rel "
+        f"L2 {result['exp_avg']:.3e}, exp_avg_sq rel L2 {result['exp_avg_sq']:.3e} (bound "
+        f"{ADAMW_BOUND}); launches {launched} ({ADAMW_STEPS} x {expected})")
+    if not (result["rel_rms_err"] <= ADAMW_BOUND["movement_rel_l2"]
+            and result["exp_avg"] <= ADAMW_BOUND["moment_rel_l2"]
+            and result["exp_avg_sq"] <= ADAMW_BOUND["moment_rel_l2"]):
+        raise AssertionError("the one-pass AdamW disagrees with its plain version")
+    if launched != ADAMW_STEPS * expected:
+        raise AssertionError(f"adamw launched {launched} times, not {ADAMW_STEPS} x {expected}")
+    return result
+
+
+def phase_adamw(torch) -> dict:
+    """The one-pass AdamW (csrc/adamw.cu through ops/adamw.py) at the UNet's
+    leaves against its plain version; then one step of the kernel, of the
+    plain version and of the library's fused AdamW after the trainer's old
+    hand-off (a cast of each bf16 gradient to fp32), each timed in graphs."""
+    from riffusion_tpu_torch.ops import adamw
+
+    masters, dtypes = _adamw_leaves(torch)
+    if adamw.launches([m.numel() for m in masters]) != ADAMW_LAUNCHES_PER_STEP:
+        raise AssertionError(f"the UNet's {len(masters)} leaves take "
+                             f"{adamw.launches([m.numel() for m in masters])} launches a step")
+    result = {"adamw": _check_adamw(torch, adamw, masters, dtypes)}
+
+    hyper = dict(lr=torch.tensor(1e-5, device="cuda"), betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=1e-2)
+    grads = _adamw_grads(torch, masters, dtypes, 0)
+    params = [torch.nn.Parameter(m.clone()) for m in masters]
+    del masters
+    times = {}
+    with torch.no_grad():
+        for name in ("adamw", "plain"):
+            state = [[torch.zeros_like(p) for p in params] for _ in range(2)]
+            steps = [torch.zeros((), device="cuda") for _ in params]
+            fn = adamw.adamw_ if name == "adamw" else adamw.adamw_reference
+            kw = dict(lr=hyper["lr"], beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-2)
+            times[name] = _graph_time_ms(torch, lambda: fn(params, grads, *state, steps, **kw),
+                                         reps=10, calls=ADAMW_TIMED_CALLS)
+            del state
+        opt = torch.optim.AdamW(params, fused=True, capturable=True, **hyper)
+
+        def library() -> None:
+            for p, g in zip(params, grads):
+                p.grad = g.to(torch.float32)
+            opt.step()
+
+        times["library"] = _graph_time_ms(torch, library, reps=10, calls=ADAMW_TIMED_CALLS)
+    n_bf16 = sum(g.numel() for g in grads if g.dtype == torch.bfloat16)
+    nbytes = 26 * n_bf16 + 28 * (sum(g.numel() for g in grads) - n_bf16)
+    times["bound"] = (nbytes / PEAK_BYTES * 1e3, "bytes", "bytes")
+    log(f"[adamw] time (one step over the UNet's leaves; graphs of {ADAMW_TIMED_CALLS} steps): "
+        f"kernel {times['adamw']:.3f} ms ({nbytes / times['adamw'] / 1e6:.0f} GB/s at 26 B a "
+        f"bf16-gradient parameter, 28 an fp32 one), plain {times['plain']:.3f} ms, library "
+        f"AdamW(fused=True, capturable=True) after the casts {times['library']:.3f} ms; bound "
+        f"{times['bound'][0]:.3f} ms; {_sm_clock_note()}")
+    del opt, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
     result["times"] = times
     return result
 
@@ -849,11 +1016,13 @@ def phase_kernel_grad(torch, attn, clock_hz: float) -> dict:
 def phase_mutants(torch, attn) -> None:
     """Build each MUTANTS copy of the kernel sources (in csrc/build/, which
     git ignores) and show that every kernel its fault touches rejects it:
-    a forward kernel's bf16 cases, or the bf16 gradient cases of the
-    backward kernels it names. The real sources are loaded again at the end."""
+    a forward kernel's bf16 cases, the bf16 gradient cases of the
+    backward kernels it names, the GroupNorm's bf16 cases or the AdamW
+    check at the UNet's leaves. The real sources are loaded again at the
+    end."""
     original = dict(attn.KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    passed = []
+    passed, leaves = [], []
     try:
         for i, (what, file, old, new, kernels) in enumerate(MUTANTS):
             src = attn.BUILD_DIR / "mutants" / str(i)
@@ -876,6 +1045,16 @@ def phase_mutants(torch, attn) -> None:
                     log(f"[mutants] {what}: group_norm PASSED the check")
                 except AssertionError as e:
                     log(f"[mutants] {what}: group_norm rejected ({e})")
+            if "adamw" in kernels:
+                from riffusion_tpu_torch.ops import adamw
+
+                leaves = leaves or _adamw_leaves(torch)
+                try:
+                    _check_adamw(torch, adamw, *leaves)
+                    passed.append(f"{what} (adamw)")
+                    log(f"[mutants] {what}: adamw PASSED the check")
+                except AssertionError as e:
+                    log(f"[mutants] {what}: adamw rejected ({e})")
             for name in (n for n in kernels if n in FORWARD_CASES):
                 cases = [c for c in FORWARD_CASES[name] if c[6] == "bf16"]
                 try:
@@ -1527,7 +1706,8 @@ def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str
     """run_finetune(checkpoint=DIR, steps=4, batch_size=4) into `out`, in
     `mode` ("eager": RIFFUSION_TPU_NO_AOT=1; "graph": the trainer's graphs;
     "traced": its graphs captured with RIFFUSION_TPU_TRACE=1): its stats,
-    each step's (K1, dK/dV, dQ, plain) launches, the seconds of steps 2-4,
+    each step's (K1, dK/dV, dQ, plain, AdamW) launches (COUNTS reset just
+    before the run), the seconds of steps 2-4,
     each step's loss (loss_log.json), the masters after the steps (the
     final checkpoint's params, on the CPU) and, in "traced" mode,
     tracing.export()."""
@@ -1540,7 +1720,7 @@ def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str
         torch.cuda.synchronize()
         marks.append((time.perf_counter(), (
             attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
-            attn.COUNTS.plain_calls), msg))
+            attn.COUNTS.plain_calls, attn.COUNTS.adamw_launches), msg))
         log(f"[train] {mode}: {msg}")
 
     tracing.reset()
@@ -1556,7 +1736,7 @@ def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str
     tracing.reset()
     step_marks = [m for m in marks if m[2].startswith("step ")]
     per_step = [tuple(b - a for a, b in zip(prev[1], cur[1]))
-                for prev, cur in zip([(0, (0, 0, 0, 0), "")] + step_marks, step_marks)]
+                for prev, cur in zip([(0, (0,) * 5, "")] + step_marks, step_marks)]
     state = torch.load(stats["checkpoint"]["path"], map_location="cpu", weights_only=True,
                        mmap=True)
     params = {k: v.clone() for k, v in state["params"].items()}
@@ -1647,11 +1827,11 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
                 f"{[f'{x:.6f}' for x in run['losses']]}; peak device memory since the first run "
                 f"{peaks[name][0]:.2f} GiB allocated, {peaks[name][1]:.2f} GiB reserved; "
                 f"checkpoint {ckpt['bytes'] / 1e9:.3f} GB in {ckpt['seconds']:.2f} s; "
-                f"(K1, dK/dV, dQ, plain) launches per step {run['per_step']}")
-            if run["per_step"] != [(LAUNCHES_PER_STEP,) * 3 + (0,)] * 4:
+                f"(K1, dK/dV, dQ, plain, AdamW) launches per step {run['per_step']}")
+            if run["per_step"] != [(LAUNCHES_PER_STEP,) * 3 + (0, ADAMW_LAUNCHES_PER_STEP)] * 4:
                 raise AssertionError(f"the training steps' launches {run['per_step']} are not "
-                                     f"{LAUNCHES_PER_STEP} K1, dK/dV and dQ each and no plain "
-                                     "call")
+                                     f"{LAUNCHES_PER_STEP} K1, dK/dV and dQ each, no plain "
+                                     f"call and {ADAMW_LAUNCHES_PER_STEP} AdamW launches")
             if not all(np.isfinite(run["losses"])):
                 raise AssertionError("non-finite training loss")
         graph = runs["graph"]
@@ -1698,7 +1878,8 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
                                      "runs")
         launches = {"attention": sum(c[0] for c in graph["per_step"]),
                     "attention_dkv": sum(c[1] for c in graph["per_step"]),
-                    "attention_dq": sum(c[2] for c in graph["per_step"])}
+                    "attention_dq": sum(c[2] for c in graph["per_step"]),
+                    "adamw": sum(c[4] for c in graph["per_step"])}
         del runs, start
 
         grads = _full_width_gradients(torch, attn, layers, dataset)
@@ -3144,6 +3325,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
 
     kernel = phase("kernel", phase_kernel, torch, attn, clock_hz)
     gnorm = phase("group-norm", phase_group_norm, torch)
+    adam = phase("adamw", phase_adamw, torch)
     grad = phase("kernel-grad", phase_kernel_grad, torch, attn, clock_hz)
     phase("dsp", phase_dsp, torch)
     phase("tiny", phase_tiny, torch, attn)
@@ -3227,8 +3409,14 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          gn_times[("group_norm",) + GN_TIMED[0]], gn_times[("plain",) + GN_TIMED[0]],
          gn_times[("bound",) + GN_TIMED[0]], gn_times[("library",) + GN_TIMED[0]],
          graphs["counts"]["group_norm"]),
+        # one step over the UNet's leaves; launches: the train phase's graph run
+        ("adamw", "adamw.cu",
+         "no TPU kernel: riffusion_tpu/parallel/train.py:84 optax.adamw (fused by XLA into the "
+         "jitted step)", adam["times"]["adamw"], adam["times"]["plain"], adam["times"]["bound"],
+         adam["times"]["library"], train["launches"]["adamw"]),
     ]
-    errors = {**kernel, **grad, **gnorm}  # K1's worst over its forward cases and its LSE cases
+    errors = {**kernel, **grad, **gnorm, **adam}
+    # K1's worst over its forward cases and its LSE cases
     errors["attention"] = {k: max(kernel["attention"][k], grad["attention"][k])
                            for k in ("max_abs_err", "rel_rms_err")}
     log(smi)

@@ -51,10 +51,13 @@ them like any torch operation. The same `COUNTS` holds the NHWC GroupNorm's
 (ops/group_norm.py): `group_norm_launches`, its wrapper's calls on the card,
 `group_norm_plain_calls`, its calls that took the plain version, and
 `group_norm_library_calls`, the GroupNorm calls on CUDA tensors that ran
-torch's F.group_norm instead (models/layers.py GroupNorm).
+torch's F.group_norm instead (models/layers.py GroupNorm); and the
+trainer's one-pass AdamW's (ops/adamw.py): `adamw_launches`.
 
 `KERNELS` also lists csrc/group_norm.cu, so that it builds in the same
-round as the forward attention kernels (`FORWARD_KERNELS`).
+round as the forward attention kernels (`FORWARD_KERNELS`), and
+csrc/adamw.cu, which builds with the backward kernels in the trainer's
+round (`TRAIN_KERNELS`), so that serving neither builds nor loads it.
 
 The kernels are built with nvcc at first use (route (b): shared libraries
 with a plain C entry point each, loaded with ctypes) into csrc/build/, keyed
@@ -94,8 +97,10 @@ KERNELS = {
     "attention_dkv": (_CSRC / "attention_dkv.cu", "riff_attention_bwd_dkv"),
     "attention_dq": (_CSRC / "attention_dq.cu", "riff_attention_bwd_dq"),
     "group_norm": (_CSRC / "group_norm.cu", "riff_group_norm"),  # ops/group_norm.py
+    "adamw": (_CSRC / "adamw.cu", "riff_adamw"),  # ops/adamw.py
 }
 FORWARD_KERNELS = ("attention", "row_attention", "group_norm")  # what inference launches
+TRAIN_KERNELS = ("attention", "attention_dkv", "attention_dq", "adamw")  # what a trainer launches
 # C entry point -> its argument types (pointers, element strides, ints,
 # scale, dtype, device, stream)
 _ARGTYPES = {
@@ -108,6 +113,13 @@ _ARGTYPES = {
 # groups, rows, chunk, chunks; eps; silu, dtype, param dtype, device; stream
 _ARGTYPES["riff_group_norm"] = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] \
     + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# riff_adamw: params, exp_avgs, exp_avg_sqs, grads, steps (pointer arrays);
+# numels, grad_bf16 (arrays), leaves; lr; beta1, beta2, eps, weight decay;
+# blocks, device; stream
+_ARGTYPES["riff_adamw"] = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                                   ctypes.c_void_p] + [ctypes.c_double] * 2 \
+    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _ARGTYPES["riff_row_attention_forward"] = _ARGTYPES["riff_attention_forward"]
 _ARGTYPES["riff_attention_bwd_dq"] = _ARGTYPES["riff_attention_bwd_dkv"]
 
@@ -160,6 +172,7 @@ class Counts:
     group_norm_plain_calls: int = 0
     group_norm_library_calls: int = 0  # models/layers.py GroupNorm
     plain_self_sites: int = 0  # models/layers.py Attention: card self-attention routed "plain"
+    adamw_launches: int = 0  # ops/adamw.py
 
     def reset(self) -> None:
         for field in dataclasses.fields(self):

@@ -18,13 +18,19 @@ a working copy of the UNet whose Linear and Conv2d layers are bf16 and
 whose norms and conv_out stay fp32: what flax's cast at each Dense/Conv
 call gives the JAX trainer (its GroupNorm/LayerNorm scales and conv_out
 compute in fp32). Each step copies the masters into the working copy, runs
-forward and backward there, and hands its gradients to the masters in fp32,
-so a bf16 layer's gradient is the bf16 gradient widened, as the transpose of
-flax's cast gives it. At SD v1 width (859.5M parameters) the copy costs
-1.7 GB of bf16 weights and, during the backward, 1.7 GB of bf16 gradients,
-beside 3.4 GB of fp32 masters, 3.4 GB of fp32 gradients and 6.9 GB of Adam
-moments. At fp32 compute the masters are the working module; at fp64 (the
-wiring tests) the masters are fp64 and the working module.
+forward and backward there, and updates the masters from its gradients
+widened to fp32, so a bf16 layer's gradient is the bf16 gradient widened,
+as the transpose of flax's cast gives it. On one card the optimizer
+(ops.adamw.OnePassAdamW) reads the working copy's gradients itself and
+widens them in registers, so no fp32 gradient is materialised; on the CPU
+and over a mesh (which all-reduces fp32 gradients) the step hands them to
+the masters' `.grad` in fp32 first (the `riffusion.train.grads` stage), as
+the public `loss_and_grads` always does. At SD v1 width (859.5M parameters)
+the copy costs 1.7 GB of bf16 weights and, during the backward, 1.7 GB of
+bf16 gradients, beside 3.4 GB of fp32 masters and 6.9 GB of Adam moments,
+and where the hand-off runs 3.4 GB of fp32 gradients. At fp32 compute the
+masters are the working module; at fp64 (the wiring tests) the masters are
+fp64 and the working module.
 
 Checkpoints are one torch.save file per step (`state_{step}/state.pt`,
 written to a temporary name and renamed): the masters, the optimizer state,
@@ -62,8 +68,9 @@ A step is split as the serving programs are (riffusion_pipeline.py, aot.py):
   function of those tensors that updates the trainer's state in place, as
   JAX's step donates its params and optimizer state: the masters copied
   into the working copy, add_noise, the forward and the fp32 MSE, the
-  backward, the gradients handed to the masters, AdamW; it returns the loss
-  as a 0-d device tensor and reads nothing back to the host.
+  backward, the gradients handed to the masters (not on one card), AdamW;
+  it returns the loss as a 0-d device tensor and reads nothing back to the
+  host.
 On the card, without a mesh and with the store on (aot.captures), the
 device program runs through the trainer's own GraphStore (`graph_store`,
 made at init_from, with its own pool) under the key "train_step": the
@@ -73,10 +80,14 @@ replays. `program(key, fn)` gives other programs over the trainer's state
 the same treatment (training/finetune.py's "ema_update"). On the CPU,
 under RIFFUSION_TPU_NO_AOT=1 and over a mesh (any), the same programs run
 eagerly. A capture that fails raises aot.CaptureError; nothing falls back.
-On one card the optimizer is AdamW(capturable=True), its step counts on
-the device and its lr the program's tensor, eager or replayed alike; on the
-CPU (capturable is CUDA-only) and over a mesh, which never captures, it
-keeps a Python float lr and its step counts on the host.
+On one card the optimizer is ops.adamw.OnePassAdamW(capturable=True), a
+torch AdamW whose step is one hand-written pass over the parameters (the
+gradient's widening and the update), its step counts on the device and its
+lr the program's tensor, eager or replayed alike; on the CPU (capturable is
+CUDA-only) and over a mesh, which never captures, it is torch's AdamW with
+a Python float lr and its step counts on the host. The kernels a trainer
+launches on the card (ops.attention.TRAIN_KERNELS) are built in one round
+at init_from.
 
 A graph replays addresses, so `restore_checkpoint`, whose optimizer load
 replaces the moments and step counts with new tensors, drops the trainer's
@@ -87,8 +98,8 @@ runs inside `riffusion.train.step` (a new id per step), with children
 `riffusion.train.upload` (the host part: its copies to the device wait for
 the card's earlier work) and `riffusion.launch` (the device program
 queued). The device program's stages are `riffusion.train.copy`,
-`.forward`, `.backward`, `.grads`, `.allreduce` over a mesh and
-`.optimizer`: a profiler attributes an eager step's device time to them
+`.forward`, `.backward`, `.grads` (not on one card), `.allreduce` over a
+mesh and `.optimizer`: a profiler attributes an eager step's device time to them
 (`python -m riffusion_tpu_torch.profile_train`), and a graph captured with
 RIFFUSION_TPU_TRACE=1 times each of them on the card at every replay
 (aot.py). With the switch off and no profiler running a span costs a few
@@ -116,6 +127,7 @@ from riffusion_tpu_torch import aot, tracing
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.models.layers import precise
 from riffusion_tpu_torch.models.unet import UNet2DCondition
+from riffusion_tpu_torch.ops import adamw as adamw_ops
 from riffusion_tpu_torch.ops import attention as attention_ops
 from riffusion_tpu_torch.util import torch_util
 
@@ -301,17 +313,22 @@ class DiffusionTrainer:
         self.master = master
         self.unet = (self.master if self.dtype == precise(self.dtype)
                      else compute_copy(self.master, self.dtype))
-        self.optimizer = torch.optim.AdamW(
-            self.master.parameters(), lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=self.weight_decay, capturable=self._capturable,
-        )
+        hyper = dict(lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
+                     weight_decay=self.weight_decay, capturable=self._capturable)
+        self.optimizer = (
+            adamw_ops.OnePassAdamW(self.master.parameters(), working=self.unet.parameters(),
+                                   **hyper)
+            if self._capturable else torch.optim.AdamW(self.master.parameters(), **hyper))
         self.graph_store = aot.GraphStore()
         self.step_count = 0
+        if self.device.type == "cuda":
+            attention_ops.build_kernels(attention_ops.TRAIN_KERNELS)
 
     @property
     def _capturable(self) -> bool:
-        """Whether the optimizer runs in a graph: on one card (a mesh stays
-        eager, on the optimizer it had before graphs)."""
+        """Whether the optimizer runs in a graph, and is the one pass that
+        reads the working copy's gradients: on one card (a mesh stays eager,
+        on the optimizer it had before graphs)."""
         return self.device.type == "cuda" and self.mesh is None
 
     def program(self, key: str, fn: T.Callable) -> T.Callable:
@@ -376,9 +393,12 @@ class DiffusionTrainer:
         return latents, context, on_device(t, torch.int64), on_device(noise, p)
 
     def _loss_and_grads(self, latents: torch.Tensor, context: torch.Tensor, t: torch.Tensor,
-                        noise: torch.Tensor) -> torch.Tensor:
-        """The loss and the masters' gradients from the host part's tensors
-        (the device part of `loss_and_grads`)."""
+                        noise: torch.Tensor, hand_off: T.Optional[bool] = None) -> torch.Tensor:
+        """The loss and the gradients from the host part's tensors (the device
+        part of `loss_and_grads`): in the masters' `.grad` where `hand_off`,
+        else left in the working copy for the optimizer to read. By default
+        the hand-off runs where the optimizer is torch's AdamW, which reads
+        `.grad`: everywhere but on one card."""
         p = precise(self.dtype)
         b = latents.shape[0]
         count = latents.numel()
@@ -399,11 +419,10 @@ class DiffusionTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         with tracing.stage("riffusion.train.backward"):
             loss.backward()
-        if self.unet is not self.master:
-            with tracing.stage("riffusion.train.grads"):
-                for work, master in zip(self.unet.parameters(), self.master.parameters()):
-                    master.grad = work.grad.to(p)
-                    work.grad = None
+        if hand_off is None:
+            hand_off = not self._capturable
+        if hand_off:
+            self._hand_off_grads()
         loss = loss.detach()
         if self.mesh is not None:
             with tracing.stage("riffusion.train.allreduce"):
@@ -411,6 +430,18 @@ class DiffusionTrainer:
                 self._sum_over_shares([m.grad for m in self.master.parameters()] + [loss])
                 loss = loss[0]
         return loss
+
+    def _hand_off_grads(self) -> None:
+        """The working copy's gradients handed to the masters' `.grad` in the
+        masters' dtype (a bf16 layer's widened); nothing where the masters
+        are the working module."""
+        if self.unet is self.master:
+            return
+        p = precise(self.dtype)
+        with tracing.stage("riffusion.train.grads"):
+            for work, master in zip(self.unet.parameters(), self.master.parameters()):
+                master.grad = work.grad.to(p)
+                work.grad = None
 
     def loss_and_grads(
         self,
@@ -428,18 +459,24 @@ class DiffusionTrainer:
         (B, H, W, C) are drawn from `generator` when not given. Over a mesh
         every argument is the global batch's and the loss is the global
         mean, on every rank. Always eager (no graph)."""
-        return self._loss_and_grads(*self._host_inputs(latents, context, t, noise, generator))
+        return self._loss_and_grads(*self._host_inputs(latents, context, t, noise, generator),
+                                    hand_off=True)
 
     def _train_step(self, latents: torch.Tensor, context: torch.Tensor, t: torch.Tensor,
                     noise: torch.Tensor, lr: torch.Tensor) -> torch.Tensor:
         """The step's device program: the loss and gradients, then AdamW at
         `lr` (a 0-d tensor: the capturable optimizer reads it on the card,
-        the others take its value from the host); returns the loss."""
+        the others take its value from the host); returns the loss. On one
+        card the optimizer reads the working copy's gradients, which go once
+        it has."""
         loss = self._loss_and_grads(latents, context, t, noise)
         for group in self.optimizer.param_groups:
             group["lr"] = lr if self._capturable else float(lr)
         with tracing.stage("riffusion.train.optimizer"):
             self.optimizer.step()
+        if self._capturable and self.unet is not self.master:
+            for work in self.unet.parameters():
+                work.grad = None
         return loss
 
     def step(

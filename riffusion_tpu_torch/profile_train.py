@@ -74,7 +74,8 @@ STAGES = ("riffusion.train.copy", "riffusion.train.forward", "riffusion.train.ba
 
 #: The profiler gives a kernel to the innermost annotation open at its
 #: launch, so AdamW's kernels lie in the device range of its own annotation
-#: (Optimizer.step#AdamW.step), which stands for riffusion.train.optimizer.
+#: (Optimizer.step#OnePassAdamW.step on one card, Optimizer.step#AdamW.step
+#: over a mesh), which stands for riffusion.train.optimizer.
 OPTIMIZER_ANNOTATION = "Optimizer.step#"
 
 #: The part of the kernels that start in no stage's range.

@@ -148,7 +148,7 @@ def test_kernel_source_is_shipped():
     for name, (source, entry) in attn_mod.KERNELS.items():
         assert source.is_file()
         assert entry in source.read_text()
-        if name == "group_norm":  # ops/group_norm.py's kernel stands alone
+        if name in ("group_norm", "adamw"):  # ops/group_norm.py's, ops/adamw.py's stand alone
             continue
         # the forward body (attention_fwd.cuh: K1 and K2) or the backward's;
         # both include attention_common.cuh and hopper.cuh

@@ -66,8 +66,10 @@ def test_profiler_kernel_key_is_a_kernel_in_the_sources(script, key):
 def test_global_kernels_are_found():
     """The pattern above finds every kernel the sources define: one bf16
     forward body (K1's and K2's), two backward bodies, their fp32 check
-    instances, and the NHWC GroupNorm's two launches."""
+    instances, the NHWC GroupNorm's two launches, and the one-pass AdamW's
+    update and step counts."""
     assert _global_kernels() == {
         "attention_fwd_bf16_kernel", "attention_f32_kernel", "attention_dkv_bf16_kernel",
         "attention_dq_bf16_kernel", "attention_dkv_f32_kernel", "attention_dq_f32_kernel",
-        "group_norm_stats_kernel", "group_norm_apply_kernel"}
+        "group_norm_stats_kernel", "group_norm_apply_kernel", "adamw_kernel",
+        "adamw_count_kernel"}

@@ -243,7 +243,9 @@ def test_an_eager_steps_parts_keep_the_backward(card, monkeypatch):
     parts = profile_train.kernel_ms_by_part(annotations, kernels)
     assert set(parts) <= set(profile_train.STAGES) | {profile_train.BACKWARD}, parts
     for part in (profile_train.BACKWARD, "riffusion.train.copy", "riffusion.train.forward",
-                 "riffusion.train.grads", "riffusion.train.optimizer", "riffusion.train.ema"):
+                 "riffusion.train.optimizer", "riffusion.train.ema"):
         assert parts.get(part, 0.0) > 0, (part, parts)
+    # on one card the optimizer reads the working copy's gradients: no hand-off
+    assert "riffusion.train.grads" not in parts, parts
     assert sum(parts.values()) == pytest.approx(
         sum(k.time_range.elapsed_us() for k in kernels) / 1e3)
