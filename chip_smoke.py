@@ -287,6 +287,9 @@ import urllib.request
 import wave
 from pathlib import Path
 
+from riffusion_tpu_torch.ops import kernels as ops_kernels
+from riffusion_tpu_torch.ops.kernels import COUNTS
+
 REPO = Path(__file__).resolve().parent
 SLICE_SHAPES = ((2, 4096, 8, 40), (2, 1024, 8, 80))  # (batch, seq, heads, head_dim)
 BATCH_SHAPE = (32, 4096, 8, 40)  # K2's site at serving batch 16
@@ -560,14 +563,14 @@ def phase_card(torch) -> tuple:
     return smi, clock_hz
 
 
-def phase_build(attn) -> None:
+def phase_build() -> None:
     start = time.perf_counter()
-    built = attn.build_kernels(rebuild=True)
+    built = ops_kernels.build_kernels(rebuild=True)
     log(f"[build] {len(built)} sources in {time.perf_counter() - start:.1f} s (one nvcc each, "
         "in parallel)")
     for name, kernel in built.items():
         log(f"[build] nvcc built {kernel.path.name} in {kernel.build_seconds:.1f} s")
-        for instance, registers, spills in attn.ptxas_instances(kernel.compiler_log):
+        for instance, registers, spills in ops_kernels.ptxas_instances(kernel.compiler_log):
             log(f"[build]   {instance}: {registers}; {spills}")
             # the paths run the bf16 instances; the fp32 check instances keep
             # a row of q and of the output in registers and spill at d = 128
@@ -771,8 +774,6 @@ def _check_adamw(torch, adamw, masters, dtypes) -> dict:
     plain version from the same state (ADAMW_BOUND); returns the largest
     absolute difference of a master and the relative L2 of the movement's
     difference (as max_abs_err and rel_rms_err), and of each moment's."""
-    from riffusion_tpu_torch.ops import attention as attn
-
     hyper = dict(lr=torch.tensor(1e-3, device="cuda"), beta1=0.9, beta2=0.999, eps=1e-8,
                  weight_decay=1e-2)
     runs = {}
@@ -781,14 +782,14 @@ def _check_adamw(torch, adamw, masters, dtypes) -> dict:
             params = [m.clone() for m in masters]
             state = [[torch.zeros_like(m) for m in masters] for _ in range(2)]
             steps = [torch.full((), float(i % 4), device="cuda") for i in range(len(masters))]
-            attn.COUNTS.reset()
+            COUNTS.reset()
             for step in range(ADAMW_STEPS):
                 fn(params, _adamw_grads(torch, masters, dtypes, step), *state, steps, **hyper)
             torch.cuda.synchronize()
             if [float(s) for s in steps] != [i % 4 + ADAMW_STEPS for i in range(len(masters))]:
                 raise AssertionError(f"adamw {name}: the step counts did not advance by "
                                      f"{ADAMW_STEPS}")
-            runs[name] = (params, *state, attn.COUNTS.adamw_launches)
+            runs[name] = (params, *state, COUNTS.adamw_launches)
         (p, m, v, launched), (pp, mp, vp, _) = runs["kernel"], runs["plain"]
 
         def rel(ours, theirs, base) -> float:
@@ -898,12 +899,12 @@ def _check_grad_cases(torch, attn, cases, gen) -> dict:
         dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
         q, k, v, dout = _grad_case(torch, dev, gen, b, s_q, s_kv, h, d, dtype, mult)
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        attn.COUNTS.reset()
+        COUNTS.reset()
         out = attn.attention(*leaves, num_heads=h, scale=d**-0.5)
         out.backward(dout)
         torch.cuda.synchronize()
-        counts = (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches,
-                  attn.COUNTS.bwd_dq_launches, attn.COUNTS.plain_calls)
+        counts = (COUNTS.launches, COUNTS.bwd_dkv_launches,
+                  COUNTS.bwd_dq_launches, COUNTS.plain_calls)
         if counts != (1, 1, 1, 0):
             raise AssertionError(f"{name}: (K1, dK/dV, dQ, plain) launches {counts}")
         refs = attn.attention_backward_reference(q, k, v, out.detach(), dout, num_heads=h,
@@ -998,9 +999,9 @@ def phase_kernel_grad(torch, attn, clock_hz: float) -> dict:
     b, s, h, d = 9, 2048, 8, 40
     q, k, v, dout = _grad_case(torch, dev, gen, b, s, s, h, d, torch.bfloat16, 1.0)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    attn.COUNTS.reset()
+    COUNTS.reset()
     attn.row_attention(*leaves, num_heads=h, scale=d**-0.5).backward(dout)
-    rows = (attn.COUNTS.row_launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.plain_calls)
+    rows = (COUNTS.row_launches, COUNTS.bwd_dkv_launches, COUNTS.plain_calls)
     plain = [x.clone().requires_grad_() for x in (q, k, v)]
     attn.attention_reference(*plain, num_heads=h, scale=d**-0.5).backward(dout)
     checks = attn.compare_grads_to_plain([x.grad for x in leaves], [x.grad for x in plain])
@@ -1020,62 +1021,55 @@ def phase_mutants(torch, attn) -> None:
     backward kernels it names, the GroupNorm's bf16 cases or the AdamW
     check at the UNet's leaves. The real sources are loaded again at the
     end."""
-    original = dict(attn.KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     passed, leaves = [], []
-    try:
-        for i, (what, file, old, new, kernels) in enumerate(MUTANTS):
-            src = attn.BUILD_DIR / "mutants" / str(i)
-            shutil.rmtree(src, ignore_errors=True)
-            shutil.copytree(attn._CSRC, src, ignore=shutil.ignore_patterns("build"))
-            header = src / file
-            text = header.read_text()
-            if text.count(old) != 1:
-                raise AssertionError(f"mutant {what!r}: its text is not in {file} once")
-            header.write_text(text.replace(old, new))
-            attn.KERNELS.update({n: (src / path.name, entry) for n, (path, entry) in original.items()})
-            attn._built.clear()
-            attn.build_kernels()
-            if "group_norm" in kernels:
-                from riffusion_tpu_torch.ops import group_norm as gn
+    for i, (what, file, old, new, kernels) in enumerate(MUTANTS):
+        src = ops_kernels.BUILD_DIR / "mutants" / str(i)
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(ops_kernels.CSRC, src, ignore=shutil.ignore_patterns("build"))
+        header = src / file
+        text = header.read_text()
+        if text.count(old) != 1:
+            raise AssertionError(f"mutant {what!r}: its text is not in {file} once")
+        header.write_text(text.replace(old, new))
+        ops_kernels.build_kernels(csrc=src)
+        if "group_norm" in kernels:
+            from riffusion_tpu_torch.ops import group_norm as gn
 
-                try:
-                    _check_group_norm(torch, gn, [c for c in GN_CASES if c[0] == 2], ("bf16",))
-                    passed.append(f"{what} (group_norm)")
-                    log(f"[mutants] {what}: group_norm PASSED the check")
-                except AssertionError as e:
-                    log(f"[mutants] {what}: group_norm rejected ({e})")
-            if "adamw" in kernels:
-                from riffusion_tpu_torch.ops import adamw
+            try:
+                _check_group_norm(torch, gn, [c for c in GN_CASES if c[0] == 2], ("bf16",))
+                passed.append(f"{what} (group_norm)")
+                log(f"[mutants] {what}: group_norm PASSED the check")
+            except AssertionError as e:
+                log(f"[mutants] {what}: group_norm rejected ({e})")
+        if "adamw" in kernels:
+            from riffusion_tpu_torch.ops import adamw
 
-                leaves = leaves or _adamw_leaves(torch)
-                try:
-                    _check_adamw(torch, adamw, *leaves)
-                    passed.append(f"{what} (adamw)")
-                    log(f"[mutants] {what}: adamw PASSED the check")
-                except AssertionError as e:
-                    log(f"[mutants] {what}: adamw rejected ({e})")
-            for name in (n for n in kernels if n in FORWARD_CASES):
-                cases = [c for c in FORWARD_CASES[name] if c[6] == "bf16"]
-                try:
-                    _check_cases(torch, attn, getattr(attn, name), cases, gen)
+            leaves = leaves or _adamw_leaves(torch)
+            try:
+                _check_adamw(torch, adamw, *leaves)
+                passed.append(f"{what} (adamw)")
+                log(f"[mutants] {what}: adamw PASSED the check")
+            except AssertionError as e:
+                log(f"[mutants] {what}: adamw rejected ({e})")
+        for name in (n for n in kernels if n in FORWARD_CASES):
+            cases = [c for c in FORWARD_CASES[name] if c[6] == "bf16"]
+            try:
+                _check_cases(torch, attn, getattr(attn, name), cases, gen)
+                passed.append(f"{what} ({name})")
+                log(f"[mutants] {what}: {name} PASSED the check")
+            except AssertionError as e:
+                log(f"[mutants] {what}: {name} rejected ({e})")
+        if set(kernels) & set(BACKWARD):
+            result = _check_grad_cases(
+                torch, attn, [c for c in K1_GRAD_CASES if c[6] == "bf16"], gen)
+            for name in (n for n in kernels if n in BACKWARD):
+                if result[name]["failed"]:
+                    log(f"[mutants] {what}: {name} rejected (cases {result[name]['failed']})")
+                else:
                     passed.append(f"{what} ({name})")
                     log(f"[mutants] {what}: {name} PASSED the check")
-                except AssertionError as e:
-                    log(f"[mutants] {what}: {name} rejected ({e})")
-            if set(kernels) & set(BACKWARD):
-                result = _check_grad_cases(
-                    torch, attn, [c for c in K1_GRAD_CASES if c[6] == "bf16"], gen)
-                for name in (n for n in kernels if n in BACKWARD):
-                    if result[name]["failed"]:
-                        log(f"[mutants] {what}: {name} rejected (cases {result[name]['failed']})")
-                    else:
-                        passed.append(f"{what} ({name})")
-                        log(f"[mutants] {what}: {name} PASSED the check")
-    finally:
-        attn.KERNELS.update(original)
-        attn._built.clear()
-    attn.build_kernels()
+    ops_kernels.build_kernels()
     if passed:
         raise AssertionError(f"the kernel checks let mutants through: {passed}")
 
@@ -1107,7 +1101,7 @@ def phase_dsp(torch) -> None:
         raise AssertionError(f"DSP reconstruction on the card is broken (tone/noise {ratio:.1f})")
 
 
-def phase_tiny(torch, attn) -> None:
+def phase_tiny(torch) -> None:
     import numpy as np
     from PIL import Image
 
@@ -1136,10 +1130,10 @@ def phase_tiny(torch, attn) -> None:
     inputs = InferenceInput(start=PromptInput(prompt="church bells", seed=1),
                             end=PromptInput(prompt="techno", seed=2), alpha=0.5,
                             num_inference_steps=10)
-    attn.COUNTS.reset()
+    COUNTS.reset()
     img_g, audio_g = gpu_pipe.riffuse_audio(inputs, image, params=params, noise=noise)
     torch.cuda.synchronize()
-    launches, rows, plain = attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls
+    launches, rows, plain = COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls
     img_c, audio_c = cpu_pipe.riffuse_audio(inputs, image, params=params, noise=noise)
     equal, max_diff = _image_agreement(img_g, img_c)
     wg, wc = audio_g.raw_data.astype(np.float64), audio_c.raw_data.astype(np.float64)
@@ -1153,10 +1147,10 @@ def phase_tiny(torch, attn) -> None:
         raise AssertionError("the card's tiny run disagrees with the CPU run")
 
     def both(what: str, fn) -> None:
-        attn.COUNTS.reset()
+        COUNTS.reset()
         img_g = fn(gpu_pipe)
         torch.cuda.synchronize()
-        counts = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+        counts = (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls)
         equal, max_diff = _image_agreement(img_g, fn(cpu_pipe))
         log(f"[tiny] {what}, cuda fp32 vs cpu fp32: pixels equal {equal:.4%}, max diff "
             f"{max_diff}; (K1, K2, plain) launches {counts}")
@@ -1290,7 +1284,7 @@ def _tiny_batch_reference(conn) -> None:
     conn.close()
 
 
-def phase_tiny_batch(torch, attn) -> tuple:
+def phase_tiny_batch(torch) -> tuple:
     """The tiny batch's card side: starts its CPU references in a worker
     process (they take most of the time, all on the host), runs the six
     calls on the card with their launch checks, and returns what
@@ -1306,10 +1300,10 @@ def phase_tiny_batch(torch, attn) -> tuple:
     log(f"[tiny batch] the CPU references started in worker process {worker.pid}")
     card = []
     for label, kind, call in _tiny_batch_calls(torch, "cuda"):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         out = call()
         torch.cuda.synchronize()
-        counts = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+        counts = (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls)
         log(f"[tiny batch] {label} on the card: (K1, K2, plain) launches {counts}")
         if counts[1] == 0 or counts[2] != 0 or (kind != "txt2img" and counts[0] == 0):
             raise AssertionError(f"the tiny batch ({kind}) on the card did not go through "
@@ -1469,7 +1463,7 @@ def _modules(pipe) -> dict:
     return {"unet": pipe.unet, "vae": pipe.vae, "clip": pipe.text_encoder}
 
 
-def phase_checkpoint(torch, attn, pipe, root: Path) -> dict:
+def phase_checkpoint(torch, pipe, root: Path) -> dict:
     """The diffusers directory written, loaded by the server's --checkpoint
     and checked against random:full (`pipe`), then served: two DDIM-50
     requests over HTTP, then pndm, lms, euler and euler_a riffuse_audio and
@@ -1521,15 +1515,15 @@ def phase_checkpoint(torch, attn, pipe, root: Path) -> dict:
     seconds = {}
     try:
         for i in range(2):
-            attn.COUNTS.reset()
+            COUNTS.reset()
             status, out, wall = _post(url + "/run_inference/", _request(i))
             log(f"[checkpoint] /run_inference/ {i} (ddim-50, strength 0.75): HTTP {status}, "
-                f"{wall:.3f} s wall, K1 launches {attn.COUNTS.launches}")
+                f"{wall:.3f} s wall, K1 launches {COUNTS.launches}")
             if status != 200:
                 raise AssertionError(f"request {i}: HTTP {status}")
             _check_response(out)
-            _expect_counts(attn, f"checkpoint request {i}", 10 * evals("ddim"), 0)
-            k1 += attn.COUNTS.launches
+            _expect_counts(f"checkpoint request {i}", 10 * evals("ddim"), 0)
+            k1 += COUNTS.launches
             seconds[f"ddim-50 HTTP {i}"] = wall
     finally:
         _stop(srv, thread)
@@ -1541,19 +1535,19 @@ def phase_checkpoint(torch, attn, pipe, root: Path) -> dict:
 
     def run(what: str, k1_expected: int, fn) -> None:
         nonlocal k1
-        attn.COUNTS.reset()
+        COUNTS.reset()
         t0 = time.perf_counter()
         image, std = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         pixels = np.asarray(image, np.float64)
         log(f"[checkpoint] {what}: {wall:.3f} s, image {image.size}, pixel std "
-            f"{pixels.std():.2f}, audio std {std}, K1 launches {attn.COUNTS.launches}")
-        _expect_counts(attn, what, k1_expected, 0)
+            f"{pixels.std():.2f}, audio std {std}, K1 launches {COUNTS.launches}")
+        _expect_counts(what, k1_expected, 0)
         if image.size != (512, 512) or not (np.isfinite(pixels).all() and pixels.std() > 0) \
                 or not (std is None or std > 100):
             raise AssertionError(f"{what}: a flat image or silent audio")
-        k1 += attn.COUNTS.launches
+        k1 += COUNTS.launches
         seconds[what] = wall
 
     def audio(name: str):
@@ -1576,7 +1570,7 @@ def _movement_agreement(torch, ours: dict, ref: dict, start: dict) -> tuple:
     return float((a - b).norm() / b.norm()), float((a - b).abs().max())
 
 
-def phase_tiny_train(torch, attn) -> None:
+def phase_tiny_train(torch) -> None:
     """Three fp32 trainer steps of the tiny UNet on the card (through the
     trainer's graphs: the first step warms up and captures, the others
     replay) and on the CPU (eagerly), with the same weights, batch, t and
@@ -1602,10 +1596,10 @@ def phase_tiny_train(torch, attn) -> None:
     for device in ("cuda", "cpu"):
         trainer = DiffusionTrainer(device=device, learning_rate=1e-3, dtype=torch.float32)
         trainer.init_from(unet)
-        attn.COUNTS.reset()
+        COUNTS.reset()
         losses = [float(trainer.step(latents, context, t=t, noise=n)) for t, n in draws]
-        counts = (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches,
-                  attn.COUNTS.bwd_dq_launches, attn.COUNTS.plain_calls)
+        counts = (COUNTS.launches, COUNTS.bwd_dkv_launches,
+                  COUNTS.bwd_dq_launches, COUNTS.plain_calls)
         runs[device] = (losses, {k: v.cpu() for k, v in trainer.master.state_dict().items()},
                         counts, [len(p) for p in trainer.graph_store.programs.values()])
     (loss_g, params_g, counts, graphs), (loss_c, params_c, _, _) = runs["cuda"], runs["cpu"]
@@ -1660,10 +1654,10 @@ def _full_width_gradients(torch, attn, layers, ds_dir: Path) -> dict:
     t = torch.randint(0, 1000, (4,), generator=gen, device=dev)
     noise = torch.randn(latents.shape, generator=gen, device=dev)
 
-    attn.COUNTS.reset()
+    COUNTS.reset()
     loss_k = float(trainer.loss_and_grads(latents, context, t=t, noise=noise))
-    counts = (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
-              attn.COUNTS.plain_calls)
+    counts = (COUNTS.launches, COUNTS.bwd_dkv_launches, COUNTS.bwd_dq_launches,
+              COUNTS.plain_calls)
     grads_k = [p.grad.clone() for p in trainer.master.parameters()]
     kernel_op = layers._ATTENTION_OPS["flash"]
     layers._ATTENTION_OPS["flash"] = attn.attention_reference
@@ -1702,7 +1696,7 @@ def _aot_switch(eager: bool):
     return _switch("RIFFUSION_TPU_NO_AOT", eager)
 
 
-def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str) -> dict:
+def _finetune(torch, checkpoint: Path, dataset: Path, out: Path, mode: str) -> dict:
     """run_finetune(checkpoint=DIR, steps=4, batch_size=4) into `out`, in
     `mode` ("eager": RIFFUSION_TPU_NO_AOT=1; "graph": the trainer's graphs;
     "traced": its graphs captured with RIFFUSION_TPU_TRACE=1): its stats,
@@ -1719,13 +1713,13 @@ def _finetune(torch, attn, checkpoint: Path, dataset: Path, out: Path, mode: str
     def on_log(msg: str) -> None:
         torch.cuda.synchronize()
         marks.append((time.perf_counter(), (
-            attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
-            attn.COUNTS.plain_calls, attn.COUNTS.adamw_launches), msg))
+            COUNTS.launches, COUNTS.bwd_dkv_launches, COUNTS.bwd_dq_launches,
+            COUNTS.plain_calls, COUNTS.adamw_launches), msg))
         log(f"[train] {mode}: {msg}")
 
     tracing.reset()
     with _aot_switch(mode == "eager"), _switch("RIFFUSION_TPU_TRACE", mode == "traced"):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         start = time.perf_counter()
         stats = run_finetune(FinetuneConfig(
             checkpoint=str(checkpoint), dataset_dir=str(dataset), output_dir=str(out), steps=4,
@@ -1810,7 +1804,7 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for name, mode in (("eager 1", "eager"), ("eager 2", "eager"), ("graph", "graph"),
                            ("traced", "traced")):
-            runs[name] = _finetune(torch, attn, checkpoint, dataset, tmp / name.replace(" ", ""),
+            runs[name] = _finetune(torch, checkpoint, dataset, tmp / name.replace(" ", ""),
                                    mode)
             peaks[name] = (torch.cuda.max_memory_allocated() / 2**30,
                            torch.cuda.max_memory_reserved() / 2**30)
@@ -1895,7 +1889,7 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
 
         start = time.perf_counter()
         tuned = RiffusionPipeline.load_checkpoint(graph["stats"]["export_dir"], device="cuda")
-        attn.COUNTS.reset()
+        COUNTS.reset()
         image, segment = tuned.riffuse_audio(
             InferenceInput(start=PromptInput(prompt="funky synth solo", seed=42),
                            end=PromptInput(prompt="jazzy saxophone", seed=123), alpha=0.5),
@@ -1908,9 +1902,9 @@ def phase_train(torch, attn, pipe, checkpoint: Path, dataset: Path) -> dict:
         log(f"[train] export reloaded and one 50-step request riffused ({sampler}) in "
             f"{time.perf_counter() - start:.2f} s: image {image.size}, pixel std "
             f"{np.asarray(image, np.float64).std():.2f}, audio {segment.duration_seconds:.2f} s "
-            f"(std {samples.std():.0f}); K1 launches {attn.COUNTS.launches} ({expected} expected)")
+            f"(std {samples.std():.0f}); K1 launches {COUNTS.launches} ({expected} expected)")
         if image.size != (512, 512) or not np.asarray(image).std() > 0 \
-                or not samples.std() > 100 or attn.COUNTS.launches != expected \
+                or not samples.std() > 100 or COUNTS.launches != expected \
                 or sampler != "ddim":
             raise AssertionError("the reloaded export did not serve a request")
         del tuned
@@ -1960,8 +1954,8 @@ def _request(i: int, steps: int = 50, denoising: float = 0.75) -> dict:
     }
 
 
-def _expect_counts(attn, what: str, launches: int, rows: int) -> None:
-    got = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+def _expect_counts(what: str, launches: int, rows: int) -> None:
+    got = (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls)
     if got != (launches, rows, 0):
         raise AssertionError(f"{what}: (K1, K2, plain) launches {got}, expected "
                              f"{(launches, rows, 0)}")
@@ -2006,7 +2000,7 @@ def _graph_agreement(ours, ref) -> tuple:
     return equal, worst
 
 
-def phase_graphs(torch, attn, pipe) -> dict:
+def phase_graphs(torch, pipe) -> dict:
     """The store's CUDA graphs (riffusion_tpu_torch/aot.py) on random:full:
     six calls each run eagerly (RIFFUSION_TPU_NO_AOT=1), then captured and
     replayed; outputs, launches, walls, capture seconds, node counts and
@@ -2081,22 +2075,22 @@ def phase_graphs(torch, attn, pipe) -> dict:
 
     def call(what: str, expect: tuple, fn, offset: int, eager: bool) -> tuple:
         with _aot_switch(eager):
-            attn.COUNTS.reset()
+            COUNTS.reset()
             t0 = time.perf_counter()
             out = fn(offset)
             wall = time.perf_counter() - t0
-        got = (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+        got = (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls)
         if got != expect + (0,):
             raise AssertionError(f"[graphs] {what} ({'eager' if eager else 'graph'}): (K1, K2, "
                                  f"plain) {got}, expected {expect + (0,)}")
         # every UNet evaluation runs its 61 GroupNorm sites on the NHWC kernel
         evaluations = expect[0] // (5 if expect[1] else 10)
-        if attn.COUNTS.group_norm_launches != UNET_GROUP_NORMS * evaluations:
-            raise AssertionError(f"[graphs] {what}: {attn.COUNTS.group_norm_launches} NHWC "
+        if COUNTS.group_norm_launches != UNET_GROUP_NORMS * evaluations:
+            raise AssertionError(f"[graphs] {what}: {COUNTS.group_norm_launches} NHWC "
                                  f"GroupNorm calls, expected {UNET_GROUP_NORMS * evaluations}")
         counts["attention"] += got[0]
         counts["row_attention"] += got[1]
-        counts["group_norm"] += attn.COUNTS.group_norm_launches
+        counts["group_norm"] += COUNTS.group_norm_launches
         for image, segment in out:
             _check_clip(what, image, segment)
         return out, wall
@@ -2157,7 +2151,7 @@ def phase_graphs(torch, attn, pipe) -> dict:
             "eager_peak_gib": eager_peaks[largest]}
 
 
-def phase_slice(torch, attn, pipe) -> dict:
+def phase_slice(torch, pipe) -> dict:
     from riffusion_tpu_torch import server as server_mod
 
     server_mod.PIPELINE = pipe
@@ -2166,24 +2160,24 @@ def phase_slice(torch, attn, pipe) -> dict:
     counts = {"attention": 0, "row_attention": 0}
     try:
         for i in range(3):
-            attn.COUNTS.reset()
+            COUNTS.reset()
             torch.cuda.reset_peak_memory_stats()
             status, out, wall = _post(url + "/run_inference/", _request(i))
             peak = torch.cuda.max_memory_allocated() / 2**30
             log(f"[slice] request {i}: HTTP {status}, {wall:.3f} s wall, peak device memory "
-                f"{peak:.2f} GiB, K1 launches {attn.COUNTS.launches}, K2 launches "
-                f"{attn.COUNTS.row_launches}, plain calls {attn.COUNTS.plain_calls}")
+                f"{peak:.2f} GiB, K1 launches {COUNTS.launches}, K2 launches "
+                f"{COUNTS.row_launches}, plain calls {COUNTS.plain_calls}")
             if status != 200:
                 raise AssertionError(f"request {i}: HTTP {status}")
             _check_response(out)
-            _expect_counts(attn, f"request {i}", LAUNCHES_PER_REQUEST, 0)
-            counts["attention"] += attn.COUNTS.launches
+            _expect_counts(f"request {i}", LAUNCHES_PER_REQUEST, 0)
+            counts["attention"] += COUNTS.launches
     finally:
         _stop(srv, thread)
     return counts
 
 
-def phase_batch(torch, attn, pipe) -> dict:
+def phase_batch(torch, pipe) -> dict:
     """The batched path behind the threading server and the DynamicBatcher."""
     from riffusion_tpu_torch import server as server_mod
     from riffusion_tpu_torch.serving import FAST_PRESET, FAST_PRESET_OFFGATE, DynamicBatcher
@@ -2207,18 +2201,18 @@ def phase_batch(torch, attn, pipe) -> dict:
     results = {}
 
     def run(what: str, k1: int, k2: int, fn):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         clips = fn()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[batch] {what}: {clips} clips in {wall:.3f} s wall ({clips / wall:.4f} clips/s), "
-            f"peak device memory {peak:.2f} GiB, K1 launches {attn.COUNTS.launches}, K2 launches "
-            f"{attn.COUNTS.row_launches}, plain calls {attn.COUNTS.plain_calls}")
-        _expect_counts(attn, what, k1, k2)
-        counts["attention"] += attn.COUNTS.launches
-        counts["row_attention"] += attn.COUNTS.row_launches
+            f"peak device memory {peak:.2f} GiB, K1 launches {COUNTS.launches}, K2 launches "
+            f"{COUNTS.row_launches}, plain calls {COUNTS.plain_calls}")
+        _expect_counts(what, k1, k2)
+        counts["attention"] += COUNTS.launches
+        counts["row_attention"] += COUNTS.row_launches
         results[what] = {"clips": clips, "seconds": wall, "peak_gib": peak}
 
     def burst() -> int:
@@ -2294,7 +2288,7 @@ def _check_clip(what: str, image, segment, size=(512, 512), seconds: float = 5.1
                                  f"{samples.std()}")
 
 
-def phase_modes(torch, attn, pipe) -> dict:
+def phase_modes(torch, pipe) -> dict:
     """The other generating modes at full width: txt2img_audio_batch of 16
     prompts (pndm-30, UNet batch 32, fused through the audio tail) and
     img2img_magic_mix on og_beat (pndm-50, kmin 0.3, kmax 0.5, UNet batch
@@ -2307,16 +2301,16 @@ def phase_modes(torch, attn, pipe) -> dict:
     seconds = {}
 
     def run(what: str, k1: int, k2: int, fn):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds[what] = time.perf_counter() - t0
-        log(f"[modes] {what}: {seconds[what]:.3f} s, K1 launches {attn.COUNTS.launches}, K2 "
-            f"launches {attn.COUNTS.row_launches}, plain calls {attn.COUNTS.plain_calls}")
-        _expect_counts(attn, what, k1, k2)
-        counts["attention"] += attn.COUNTS.launches
-        counts["row_attention"] += attn.COUNTS.row_launches
+        log(f"[modes] {what}: {seconds[what]:.3f} s, K1 launches {COUNTS.launches}, K2 "
+            f"launches {COUNTS.row_launches}, plain calls {COUNTS.plain_calls}")
+        _expect_counts(what, k1, k2)
+        counts["attention"] += COUNTS.launches
+        counts["row_attention"] += COUNTS.row_launches
         return out
 
     e_t2i = sched.make_plan("pndm", 30).num_steps
@@ -2342,7 +2336,7 @@ def phase_modes(torch, attn, pipe) -> dict:
     return {"counts": counts, "seconds": seconds}
 
 
-def phase_cli(torch, attn, checkpoint: Path) -> dict:
+def phase_cli(torch, checkpoint: Path) -> dict:
     """The command line on the checkpoint directory, in this process, with
     the embedding disk cache in a directory of its own: text-to-audio, then
     stream --fast (16 clips in batches of 8), then warmstart_report on two
@@ -2367,7 +2361,7 @@ def phase_cli(torch, attn, checkpoint: Path) -> dict:
     seconds = {}
 
     def run(what: str, k1: int, k2: int, argv) -> str:
-        attn.COUNTS.reset()
+        COUNTS.reset()
         printed = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
@@ -2375,11 +2369,11 @@ def phase_cli(torch, attn, checkpoint: Path) -> dict:
         torch.cuda.synchronize()
         seconds[what] = time.perf_counter() - t0
         log(f"[cli] {what}: {seconds[what]:.3f} s with the load, K1 launches "
-            f"{attn.COUNTS.launches}, K2 launches {attn.COUNTS.row_launches}, plain calls "
-            f"{attn.COUNTS.plain_calls}; it printed: {printed.getvalue().strip()!r}")
-        _expect_counts(attn, what, k1, k2)
-        counts["attention"] += attn.COUNTS.launches
-        counts["row_attention"] += attn.COUNTS.row_launches
+            f"{COUNTS.launches}, K2 launches {COUNTS.row_launches}, plain calls "
+            f"{COUNTS.plain_calls}; it printed: {printed.getvalue().strip()!r}")
+        _expect_counts(what, k1, k2)
+        counts["attention"] += COUNTS.launches
+        counts["row_attention"] += COUNTS.row_launches
         return printed.getvalue()
 
     try:
@@ -2417,16 +2411,16 @@ def phase_cli(torch, attn, checkpoint: Path) -> dict:
             torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
             evals = warm._plan(warm.bundle.scheduler_name, 50, 0.75)[0].num_steps
-            attn.COUNTS.reset()
+            COUNTS.reset()
             report = warm.warmstart_report(inputs, seed)
             log(f"[cli] warmstart_report, load {load} of the directory ({load_s:.2f} s to "
-                f"load): {json.dumps(report)}; K1 launches {attn.COUNTS.launches}")
+                f"load): {json.dumps(report)}; K1 launches {COUNTS.launches}")
             # a fresh pipeline captures the request's graph (its warm-up runs the
             # request once) and then executes it, a replay: two requests' launches
-            _expect_counts(attn, f"warmstart_report {load}", 2 * 10 * evals, 0)
+            _expect_counts(f"warmstart_report {load}", 2 * 10 * evals, 0)
             if report["source"] != "captured" or not report["capture_s"] > 0:
                 raise AssertionError(f"warmstart_report {load} did not capture: {report}")
-            counts["attention"] += attn.COUNTS.launches
+            counts["attention"] += COUNTS.launches
             reports.append(dict(report, load_s=load_s))
             del warm
             gc.collect()
@@ -2551,7 +2545,7 @@ def _split_input(seconds: float = 30.0, rate: int = 48000, seed: int = 0):
     return np.round(x * 32767).astype(np.int16)
 
 
-def phase_frontends(torch, attn, checkpoint: Path) -> dict:
+def phase_frontends(torch, checkpoint: Path) -> dict:
     """The playground's host layer and pages on the checkpoint directory,
     loaded through streamlit/util.load_riffusion_checkpoint (UI defaults:
     50 steps, denoising 0.45, guidance 7, PNDM): the audio engine, the stem
@@ -2578,7 +2572,7 @@ def phase_frontends(torch, attn, checkpoint: Path) -> dict:
     out_dir = Path(tempfile.mkdtemp(prefix="frontends-", dir=REPO / ".chipwork"))
 
     def run(what: str, k1: int, k2: int, fn):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
@@ -2586,11 +2580,11 @@ def phase_frontends(torch, attn, checkpoint: Path) -> dict:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[frontends] {what}: {wall:.3f} s, peak device memory {peak:.2f} GiB, K1 launches "
-            f"{attn.COUNTS.launches}, K2 launches {attn.COUNTS.row_launches}, plain calls "
-            f"{attn.COUNTS.plain_calls}")
-        _expect_counts(attn, what, k1, k2)
-        counts["attention"] += attn.COUNTS.launches
-        counts["row_attention"] += attn.COUNTS.row_launches
+            f"{COUNTS.launches}, K2 launches {COUNTS.row_launches}, plain calls "
+            f"{COUNTS.plain_calls}")
+        _expect_counts(what, k1, k2)
+        counts["attention"] += COUNTS.launches
+        counts["row_attention"] += COUNTS.row_launches
         runs[what] = {"seconds": wall, "peak_gib": peak, "k1": k1, "k2": k2}
         return out
 
@@ -2768,13 +2762,13 @@ def _tiny_setup(size: int, n: int, seed: int):
     return image, params, [FixedNoise(d) for d in draws], draws
 
 
-def _counted(torch, attn, fn):
+def _counted(torch, fn):
     """(fn(), (K1, K2, plain) launches of its run): the counts are set to 0
     just before and read just after."""
-    attn.COUNTS.reset()
+    COUNTS.reset()
     out = fn()
     torch.cuda.synchronize()
-    return out, (attn.COUNTS.launches, attn.COUNTS.row_launches, attn.COUNTS.plain_calls)
+    return out, (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls)
 
 
 def _agree(what: str, ours, refs) -> list:
@@ -2786,7 +2780,7 @@ def _agree(what: str, ours, refs) -> list:
     return [(round(e, 6), m) for e, m in agreement]
 
 
-def _parallel_tiny(torch, attn, world: int) -> dict:
+def _parallel_tiny(torch, world: int) -> dict:
     """The tiny model in fp32 in this world against the single-device runs
     on the card, with the same noise: riffuse_audio_tp over every rank at a
     256 px seed, riffuse_audio_batch(mesh) of 6 requests at 512 px (UNet
@@ -2805,8 +2799,8 @@ def _parallel_tiny(torch, attn, world: int) -> dict:
     out, counts = {}, {"attention": 0, "row_attention": 0}
 
     def check(what, run, reference, images):
-        ref, ref_counts = _counted(torch, attn, reference)
-        got, got_counts = _counted(torch, attn, run)
+        ref, ref_counts = _counted(torch, reference)
+        got, got_counts = _counted(torch, run)
         if got_counts != ref_counts or got_counts[2] != 0 or got_counts[0] == 0:
             raise AssertionError(f"{what}: (K1, K2, plain) launches {got_counts}, the "
                                  f"single-device run's {ref_counts}")
@@ -2854,7 +2848,7 @@ def _rel_l2(ours, ref) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _parallel_full(torch, attn, world: int) -> dict:
+def _parallel_full(torch, world: int) -> dict:
     """random:full (bf16) in this world: one 50-step riffuse_audio_tp
     request (K1 exactly 10 per UNet evaluation, at the rank's 8 / world
     heads) and one FAST batch of 16 split over the ranks (K2 and K1 5*E
@@ -2882,10 +2876,10 @@ def _parallel_full(torch, attn, world: int) -> dict:
     request = from_dict(InferenceInput, _request(0))
 
     # the single-device output of the same request, the same draws (its seeds)
-    ref, _ = _counted(torch, attn, lambda: pipe.riffuse_audio(request, seed, params=params))
+    ref, _ = _counted(torch, lambda: pipe.riffuse_audio(request, seed, params=params))
     t0 = time.perf_counter()
     (image, segment), tp_counts = _counted(
-        torch, attn, lambda: riffuse_audio_tp(pipe, request, seed, model, params=params))
+        torch, lambda: riffuse_audio_tp(pipe, request, seed, model, params=params))
     tp_s = time.perf_counter() - t0
     if tp_counts != (LAUNCHES_PER_REQUEST, 0, 0):
         raise AssertionError(f"riffuse_audio_tp: (K1, K2, plain) launches {tp_counts}, expected "
@@ -2902,7 +2896,7 @@ def _parallel_full(torch, attn, world: int) -> dict:
     unsharded = pipe.riffuse_audio_batch(batch, seed, params=params,
                                          scheduler=FAST_PRESET["scheduler"])
     t0 = time.perf_counter()
-    results, dp_counts = _counted(torch, attn, lambda: pipe.riffuse_audio_batch(
+    results, dp_counts = _counted(torch, lambda: pipe.riffuse_audio_batch(
         batch, seed, params=params, mesh=data, scheduler=FAST_PRESET["scheduler"]))
     dp_s = time.perf_counter() - t0
     if dp_counts != (5 * e_fast, 5 * e_fast, 0):
@@ -2931,16 +2925,14 @@ def _parallel_rank(rank: int, world: int, job: str) -> dict:
     process's parent's."""
     import torch
 
-    from riffusion_tpu_torch.ops import attention as attn
-
     os.environ["RIFFUSION_TPU_NO_AOT"] = "1"
     if job == "gloo":
-        return {"tiny": _parallel_tiny(torch, attn, world),
-                "full": _parallel_full(torch, attn, world)}
-    return {"tiny": _parallel_tiny(torch, attn, world)}  # the NCCL world of one
+        return {"tiny": _parallel_tiny(torch, world),
+                "full": _parallel_full(torch, world)}
+    return {"tiny": _parallel_tiny(torch, world)}  # the NCCL world of one
 
 
-def phase_parallel(torch, attn) -> dict:
+def phase_parallel(torch) -> dict:
     """Multi-device serving in worlds of processes on the one card: two
     gloo ranks sharing cuda:0 (the tiny checks, then random:full), a world
     of one on NCCL (the tiny checks), and the CPU dryrun as a command."""
@@ -3004,9 +2996,9 @@ MESH_AXES = ("data", "model", "seq")
 NCCL_TINY_BOUND = {"grad_rel_l2": 1e-5, "loss_rel": 1e-6}
 
 
-def _step_counts(attn) -> tuple:
-    return (attn.COUNTS.launches, attn.COUNTS.bwd_dkv_launches, attn.COUNTS.bwd_dq_launches,
-            attn.COUNTS.plain_calls)
+def _step_counts() -> tuple:
+    return (COUNTS.launches, COUNTS.bwd_dkv_launches, COUNTS.bwd_dq_launches,
+            COUNTS.plain_calls)
 
 
 def _replicated_checksum(torch, trainer) -> list:
@@ -3033,7 +3025,7 @@ def _grad_rel_l2(torch, trainer, want: dict) -> float:
     return (diff / norm) ** 0.5
 
 
-def _parallel_train_meshes(torch, attn) -> dict:
+def _parallel_train_meshes(torch) -> dict:
     """random:full with fp32 masters and bf16 compute at batch 4 on 64x64x4
     latents: the unsharded step's loss and gradients, then for each mesh of
     PARALLEL_TRAIN_MESHES two steps (AdamW at lr 1e-5) from the same weights
@@ -3055,9 +3047,9 @@ def _parallel_train_meshes(torch, attn) -> dict:
                  noise=torch.randn(4, 64, 64, 4, generator=gen, device=dev))
     ref = DiffusionTrainer(device=dev, learning_rate=0.0, dtype=torch.bfloat16)
     ref.init_from(unet)
-    attn.COUNTS.reset()
+    COUNTS.reset()
     ref_loss = float(ref.loss_and_grads(**batch))
-    ref_counts = _step_counts(attn)
+    ref_counts = _step_counts()
     ref_grads = {n: p.grad for n, p in ref.master.named_parameters()}
     del ref
     torch.cuda.empty_cache()
@@ -3071,12 +3063,12 @@ def _parallel_train_meshes(torch, attn) -> dict:
         torch.cuda.reset_peak_memory_stats()
         counts, seconds = [], []
         for step in range(2):
-            attn.COUNTS.reset()
+            COUNTS.reset()
             start = time.perf_counter()
             loss = float(trainer.step(**batch))
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - start)
-            counts.append(_step_counts(attn))
+            counts.append(_step_counts())
             if step == 0:
                 rel_l2 = _grad_rel_l2(torch, trainer, shard_state(ref_grads, trainer.mesh))
                 first_loss = loss
@@ -3096,7 +3088,7 @@ def _parallel_train_meshes(torch, attn) -> dict:
     return out
 
 
-def _parallel_finetune(torch, attn, checkpoint: str, dataset: str, output: str) -> dict:
+def _parallel_finetune(torch, checkpoint: str, dataset: str, output: str) -> dict:
     """run_finetune(mesh_shape=(2, 1, 1)) of 2 steps at batch 4 from the
     checkpoint directory on this rank: each step's launches and seconds."""
     from riffusion_tpu_torch.training import FinetuneConfig, run_finetune
@@ -3105,10 +3097,10 @@ def _parallel_finetune(torch, attn, checkpoint: str, dataset: str, output: str) 
 
     def on_log(msg: str) -> None:
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), _step_counts(attn), msg))
+        marks.append((time.perf_counter(), _step_counts(), msg))
 
     torch.cuda.reset_peak_memory_stats()
-    attn.COUNTS.reset()
+    COUNTS.reset()
     start = time.perf_counter()
     stats = run_finetune(FinetuneConfig(
         checkpoint=checkpoint, dataset_dir=dataset, output_dir=output, steps=2, batch_size=4,
@@ -3122,7 +3114,7 @@ def _parallel_finetune(torch, attn, checkpoint: str, dataset: str, output: str) 
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def _parallel_train_tiny(torch, attn) -> dict:
+def _parallel_train_tiny(torch) -> dict:
     """The tiny UNet in fp32 on 32x32 latents at batch 2 (K1 and its
     backward reached): the sharded step at (1, 1, 1) against the unsharded
     step on the same batch and draws."""
@@ -3141,11 +3133,11 @@ def _parallel_train_tiny(torch, attn) -> dict:
     for mesh in (None, None, make_mesh((1, 1, 1), MESH_AXES)):
         trainer = DiffusionTrainer(device=dev, dtype=torch.float32, mesh=mesh)
         trainer.init_from(unet)
-        attn.COUNTS.reset()
+        COUNTS.reset()
         loss = float(trainer.loss_and_grads(**batch))
         torch.cuda.synchronize()
         runs.append((loss, {n: p.grad for n, p in trainer.master.named_parameters()},
-                     _step_counts(attn)))
+                     _step_counts()))
     (ref_loss, ref_grads, ref_counts), again, (loss, grads, counts) = runs
 
     def rel_l2(other: dict) -> float:
@@ -3161,15 +3153,13 @@ def _parallel_train_rank(rank: int, world: int, job: str, checkpoint: str, datas
     """One rank of the parallel-train phase's worlds (parallel.mesh.spawn_world)."""
     import torch
 
-    from riffusion_tpu_torch.ops import attention as attn
-
     if job == "nccl":
-        return {"tiny": _parallel_train_tiny(torch, attn)}
-    return {"meshes": _parallel_train_meshes(torch, attn),
-            "finetune": _parallel_finetune(torch, attn, checkpoint, dataset, output)}
+        return {"tiny": _parallel_train_tiny(torch)}
+    return {"meshes": _parallel_train_meshes(torch),
+            "finetune": _parallel_finetune(torch, checkpoint, dataset, output)}
 
 
-def phase_parallel_train(torch, attn, checkpoint: Path, dataset: Path) -> dict:
+def phase_parallel_train(torch, checkpoint: Path, dataset: Path) -> dict:
     """The sharded fine-tuning step in worlds of processes on the one card:
     two gloo ranks sharing cuda:0 (random:full at each mesh against the
     unsharded step, then run_finetune at mesh_shape (2, 1, 1) from the
@@ -3240,7 +3230,7 @@ def phase_parallel_train(torch, attn, checkpoint: Path, dataset: Path) -> dict:
         export = ranks[0]["finetune"]["export_dir"]
         start = time.perf_counter()
         tuned = RiffusionPipeline.load_checkpoint(export, device="cuda")
-        attn.COUNTS.reset()
+        COUNTS.reset()
         image, segment = tuned.riffuse_audio(
             InferenceInput(start=PromptInput(prompt="funky synth solo", seed=42),
                            end=PromptInput(prompt="jazzy saxophone", seed=123), alpha=0.5),
@@ -3250,9 +3240,9 @@ def phase_parallel_train(torch, attn, checkpoint: Path, dataset: Path) -> dict:
         expected = 10 * tuned._plan(sampler, 50, 0.75)[0].num_steps
         log(f"[parallel-train] the sharded run's export reloaded and one 50-step request "
             f"riffused ({sampler}) in {time.perf_counter() - start:.2f} s; K1 launches "
-            f"{attn.COUNTS.launches} ({expected} expected)")
+            f"{COUNTS.launches} ({expected} expected)")
         _check_clip("the sharded fine-tune's export", image, segment)
-        if attn.COUNTS.launches != expected:
+        if COUNTS.launches != expected:
             raise AssertionError("the sharded fine-tune's export did not serve through K1")
         del tuned
     finally:
@@ -3292,7 +3282,7 @@ def main(argv=None) -> int:
     from riffusion_tpu_torch.util import torch_util
 
     torch_util.configure_numerics()
-    phase_build(attn)
+    phase_build()
     if args.mutants:
         phase_mutants(torch, attn)
         log(f"[mutants] every one of {len(MUTANTS)} mutants was rejected by the checks of every "
@@ -3328,23 +3318,23 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
     adam = phase("adamw", phase_adamw, torch)
     grad = phase("kernel-grad", phase_kernel_grad, torch, attn, clock_hz)
     phase("dsp", phase_dsp, torch)
-    phase("tiny", phase_tiny, torch, attn)
-    tiny_batch = phase("tiny batch", phase_tiny_batch, torch, attn)
-    phase("tiny train", phase_tiny_train, torch, attn)
+    phase("tiny", phase_tiny, torch)
+    tiny_batch = phase("tiny batch", phase_tiny_batch, torch)
+    phase("tiny train", phase_tiny_train, torch)
 
     start = time.perf_counter()
     pipe = RiffusionPipeline.load_checkpoint("random:full", device="cuda")
     torch.cuda.synchronize()
     log(f"[slice] random:full (UNet/CLIP bf16, VAE fp32) built on the card in "
         f"{time.perf_counter() - start:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    graphs = phase("graphs", phase_graphs, torch, attn, pipe)
-    single = phase("slice", phase_slice, torch, attn, pipe)
-    batch = phase("batch", phase_batch, torch, attn, pipe)
-    modes = phase("modes", phase_modes, torch, attn, pipe)
+    graphs = phase("graphs", phase_graphs, torch, pipe)
+    single = phase("slice", phase_slice, torch, pipe)
+    batch = phase("batch", phase_batch, torch, pipe)
+    modes = phase("modes", phase_modes, torch, pipe)
     ckpt_dir = Path(tempfile.mkdtemp(prefix="checkpoint-", dir=work))
     data_dir = Path(tempfile.mkdtemp(prefix="dataset-", dir=work))
     try:
-        ckpt = phase("checkpoint", phase_checkpoint, torch, attn, pipe, ckpt_dir)
+        ckpt = phase("checkpoint", phase_checkpoint, torch, pipe, ckpt_dir)
         # random:full's weights are freed before the fine-tune (the batch
         # phase's DynamicBatcher and its threads form a cycle, hence collect)
         held = sum(t.numel() * t.element_size()
@@ -3361,22 +3351,22 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
         train = phase("train", phase_train, torch, attn, ckpt["pipe"], ckpt_dir, data_dir)
         del ckpt["pipe"]
         gc.collect()
-        cli_run = phase("cli", phase_cli, torch, attn, ckpt_dir)
-        frontends = phase("frontends", phase_frontends, torch, attn, ckpt_dir)
+        cli_run = phase("cli", phase_cli, torch, ckpt_dir)
+        frontends = phase("frontends", phase_frontends, torch, ckpt_dir)
         phase("tiny batch check", phase_tiny_batch_check, tiny_batch)
-        parallel_train = phase("parallel-train", phase_parallel_train, torch, attn, ckpt_dir,
+        parallel_train = phase("parallel-train", phase_parallel_train, torch, ckpt_dir,
                                data_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         shutil.rmtree(data_dir, ignore_errors=True)
-    parallel = phase("parallel", phase_parallel, torch, attn)
+    parallel = phase("parallel", phase_parallel, torch)
 
     times, grad_times, gn_times = kernel["times"], grad["times"], gnorm["times"]
     b, s, _, d = BATCH_SHAPE
     tb, ts, th, td = TRAIN_SHAPES[0]
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
-    entries = [  # name, source, replaces, ms, plain_ms, (bound ms, by), library_ms, launches
-        ("attention", "attention.cu",
+    entries = [  # name, replaces, ms, plain_ms, (bound ms, by), library_ms, launches
+        ("attention",
          f"{flash}:589 _flash_attention_impl (called from riffusion_tpu/models/layers.py:251)",
          times[("attention", 2, 4096, 40)], times[("plain", 2, 4096, 40)],
          times[("bound", 2, 4096, 40)], times[("library", 2, 4096, 40)],
@@ -3385,8 +3375,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          + ckpt["launches"] + train["launches"]["attention"] + cli_run["counts"]["attention"]
          + frontends["counts"]["attention"] + parallel["counts"]["attention"]
          + parallel_train["counts"]["attention"]),
-        ("row_attention", "row_attention.cu",
-         "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
+        ("row_attention", "riffusion_tpu/ops/attention.py:114 _forward (full_row_attention)",
          times[("row_attention", b, s, d)], times[("plain", b, s, d)],
          times[("bound", b, s, d)], times[("library", b, s, d)],
          graphs["counts"]["row_attention"] + single["row_attention"]
@@ -3395,7 +3384,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
          + frontends["counts"]["row_attention"] + parallel["counts"]["row_attention"]),
     ] + [
         # the plain and library times are of the whole backward (dQ, dK, dV)
-        (name, f"{name}.cu", f"{flash}:{line} {fn}", grad_times[(name, tb, ts, ts, th, td)],
+        (name, f"{flash}:{line} {fn}", grad_times[(name, tb, ts, ts, th, td)],
          grad_times[("plain backward", tb, ts, ts, th, td)],
          grad_times[("bound " + name, tb, ts, ts, th, td)],
          grad_times[("library backward", tb, ts, ts, th, td)],
@@ -3404,16 +3393,15 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
                                ("attention_dq", 1287, "_flash_attention_bwd_dq"))
     ] + [
         # the path's largest site; launches: the graphs phase's six calls
-        ("group_norm", "group_norm.cu",
+        ("group_norm",
          "no TPU kernel: riffusion_tpu/models/layers.py GroupNorm (plain jnp, fused by XLA)",
          gn_times[("group_norm",) + GN_TIMED[0]], gn_times[("plain",) + GN_TIMED[0]],
          gn_times[("bound",) + GN_TIMED[0]], gn_times[("library",) + GN_TIMED[0]],
          graphs["counts"]["group_norm"]),
         # one step over the UNet's leaves; launches: the train phase's graph run
-        ("adamw", "adamw.cu",
-         "no TPU kernel: riffusion_tpu/parallel/train.py:84 optax.adamw (fused by XLA into the "
-         "jitted step)", adam["times"]["adamw"], adam["times"]["plain"], adam["times"]["bound"],
-         adam["times"]["library"], train["launches"]["adamw"]),
+        ("adamw", "no TPU kernel: riffusion_tpu/parallel/train.py:84 optax.adamw (fused by XLA "
+         "into the jitted step)", adam["times"]["adamw"], adam["times"]["plain"],
+         adam["times"]["bound"], adam["times"]["library"], train["launches"]["adamw"]),
     ]
     errors = {**kernel, **grad, **gnorm, **adam}
     # K1's worst over its forward cases and its LSE cases
@@ -3423,7 +3411,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"riffusion_tpu_torch/csrc/{source}",
+        "source": f"riffusion_tpu_torch/csrc/{ops_kernels.KERNELS[name].source}",
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": errors[name]["max_abs_err"],
@@ -3433,7 +3421,7 @@ def _smoke(torch, attn, smi: str, clock_hz: float, work: Path) -> int:
         "bound_ms": bound[0],
         "bound_by": bound[1],
         "library_ms": library_ms,
-    } for name, source, replaces, ms, plain_ms, bound, library_ms, launches in entries]}))
+    } for name, replaces, ms, plain_ms, bound, library_ms, launches in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -11,9 +11,9 @@ compare like with like.
 
 Plain tensor code is PyTorch (cuBLAS, cuDNN, cuFFT). The JAX package's
 Pallas kernels, all of them UNet self-attention, are CUDA C++ kernels
-written for sm_90a (`ops/attention.py` over `csrc/`): the flash attention
-forward and its two backward kernels, and the full-row attention of the
-batched path.
+written for sm_90a (`ops/attention.py` over `csrc/`, built and loaded by
+`ops/kernels.py`): the flash attention forward and its two backward
+kernels, and the full-row attention of the batched path.
 
 This package never imports jax, flax or the JAX package: it keeps its own
 copies of the host modules it shares with it.

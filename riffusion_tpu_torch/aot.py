@@ -25,7 +25,7 @@ drops them (`GraphStore.clear`) when it replaces that state's tensors.
   long as the graph.
 - Every later call copies its inputs into the static buffers, replays the
   graph and returns copies of the static outputs.
-- ops.attention.COUNTS counts kernel launches in Python, which a replay
+- ops.kernels.COUNTS counts kernel launches in Python, which a replay
   does not run. The launches counted while capturing (none of which ran)
   are taken back, and added again on every replay, so every call counts
   what an eager call counts.
@@ -85,7 +85,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from riffusion_tpu_torch import tracing
-from riffusion_tpu_torch.ops import attention
+from riffusion_tpu_torch.ops import kernels
 
 Args = T.Tuple[T.Optional[torch.Tensor], ...]
 
@@ -261,7 +261,7 @@ class GraphProgram:
             self.graphs.replay(entry.graph)
             if entry.stages is not None:
                 entry.stages.replayed(start_ns)
-            attention.COUNTS.add(entry.launched)
+            kernels.COUNTS.add(entry.launched)
             return _clone(entry.outputs)
 
     def _capture(self, sig: str, args: Args) -> T.Any:
@@ -280,7 +280,7 @@ class GraphProgram:
                 failures.append(exc)
                 raise
 
-        before = attention.COUNTS.snapshot()
+        before = kernels.COUNTS.snapshot()
         timed = (tracing.TRACER.capture(self.graphs.timing_event) if tracing.enabled()
                  else contextlib.nullcontext(None))
         t0 = time.perf_counter()
@@ -288,13 +288,13 @@ class GraphProgram:
             with CAPTURE_LOCK, timed as pairs:
                 graph, static_out = self.graphs.capture(traced, static, self.pool)
         except Exception as exc:
-            attention.COUNTS.restore(before)
+            kernels.COUNTS.restore(before)
             first = failures[0] if failures else exc
             raise CaptureError(f"capturing {self.key} failed at {tracker.name}: "
                                f"{type(first).__name__}: {first}") from first
         capture_s = time.perf_counter() - t0
-        launched = attention.COUNTS.since(before)
-        attention.COUNTS.restore(before)
+        launched = kernels.COUNTS.since(before)
+        kernels.COUNTS.restore(before)
         self._captured[sig] = _Captured(
             graph=graph, inputs=static, outputs=static_out, launched=launched,
             report={"key": self.key, "warmup_s": warmup_s, "capture_s": capture_s,

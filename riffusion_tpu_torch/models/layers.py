@@ -25,6 +25,7 @@ from torch import nn
 
 from riffusion_tpu_torch.ops import attention as attention_ops
 from riffusion_tpu_torch.ops import group_norm as group_norm_ops
+from riffusion_tpu_torch.ops import kernels
 
 
 def precise(dtype: torch.dtype) -> torch.dtype:
@@ -72,14 +73,14 @@ class GroupNorm(nn.GroupNorm):
     SiLU fused on the card and its plain version on the CPU; everything
     else (the fp32 NCHW VAE, the trainer under autograd) runs F.group_norm
     as it always has, and on the card counts in
-    ops.attention.COUNTS.group_norm_library_calls."""
+    ops.kernels.COUNTS.group_norm_library_calls."""
 
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         if takes_nhwc_group_norm(x, self.weight, self.bias):
             return group_norm_ops.group_norm(x, self.weight, self.bias, self.num_groups,
                                              self.eps, silu=silu)
         if x.device.type == "cuda":
-            attention_ops.COUNTS.group_norm_library_calls += 1
+            kernels.COUNTS.group_norm_library_calls += 1
         p = precise(x.dtype)
         y = F.group_norm(
             x.to(p), self.num_groups, self.weight.to(p), self.bias.to(p), self.eps
@@ -155,7 +156,7 @@ class Attention(nn.Module):
     version for CPU tensors. The gate reads the batch through
     ops.attention.routed_batch, so a share of a sharded batch routes at the
     whole batch's size. A self-attention site on the card sent to the plain
-    composition counts in ops.attention.COUNTS.plain_self_sites.
+    composition counts in ops.kernels.COUNTS.plain_self_sites.
     """
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int, out_dim: int,
@@ -176,7 +177,7 @@ class Attention(nn.Module):
         route = attention_ops.route(attention_ops.routed_batch(q.shape[0]), q.shape[1],
                                     self.head_dim, context is None)
         if route == "plain" and context is None and q.device.type == "cuda":
-            attention_ops.COUNTS.plain_self_sites += 1
+            kernels.COUNTS.plain_self_sites += 1
         out = _ATTENTION_OPS[route](q, k, v, num_heads=self.num_heads, scale=scale)
         return self.to_out(out)
 

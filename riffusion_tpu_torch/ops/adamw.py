@@ -24,11 +24,11 @@ port's step ran torch's foreach AdamW on fp32 copies of the gradients (the
 trainer's `riffusion.train.grads` stage), a third of the step's device time
 for a few milliseconds of traffic.
 
-`COUNTS.adamw_launches` (ops.attention.COUNTS) counts the kernel's launches
+`COUNTS.adamw_launches` (ops.kernels.COUNTS) counts the kernel's launches
 (`launches`: per batch of LEAVES_PER_LAUNCH leaves, the update and the
 step counts' increment); a replayed CUDA graph counts them again (aot.py).
-The kernel is built in the trainer's round (ops.attention.TRAIN_KERNELS),
-which serving never builds or loads.
+The kernel is built with the trainer's round (ops.kernels.TRAIN_KERNELS) at
+its first use; serving never builds or loads it.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ import typing as T
 
 import torch
 
-from riffusion_tpu_torch.ops import attention as attention_ops
+from riffusion_tpu_torch.ops import kernels
 
 __all__ = ["adamw_", "adamw_reference", "launches", "OnePassAdamW", "LEAVES_PER_LAUNCH",
            "BLOCKS_PER_SM"]
@@ -123,8 +123,7 @@ def _launch(params, grads, exp_avgs, exp_avg_sqs, steps, lr: torch.Tensor, beta1
 
     device = params[0].device
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    fn = attention_ops.build_kernels(("adamw",))["adamw"].fn
-    rc = fn(
+    rc = kernels.entry("adamw")(
         pointers(params), pointers(exp_avgs), pointers(exp_avg_sqs), pointers(grads),
         pointers(steps), (ctypes.c_longlong * n)(*[p.numel() for p in params]),
         (ctypes.c_int * n)(*[int(g.dtype == torch.bfloat16) for g in grads]), n, lr.data_ptr(),
@@ -154,7 +153,7 @@ def adamw_(
     if not isinstance(lr, torch.Tensor):  # a fill on the card: no upload, so it captures
         lr = torch.full((), lr, dtype=torch.float32, device=device)
     _launch(params, grads, exp_avgs, exp_avg_sqs, steps, lr, **hyper)
-    attention_ops.COUNTS.adamw_launches += launches([p.numel() for p in params])
+    kernels.COUNTS.adamw_launches += launches([p.numel() for p in params])
 
 
 class OnePassAdamW(torch.optim.AdamW):

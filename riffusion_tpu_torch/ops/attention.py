@@ -38,90 +38,27 @@ batch at its global batch, a vmapped frame at its own. Inside
 `route_batch(n)` the UNet's sites route as if their batch were n, whatever
 share of it this process holds (parallel/, riffuse_audio_batch's mesh).
 
-`COUNTS.launches` counts K1 launches, `COUNTS.row_launches` K2 launches,
-`COUNTS.bwd_dkv_launches` / `COUNTS.bwd_dq_launches` the backward kernels'
-launches and `COUNTS.plain_calls` wrapper calls that took the plain version
-(forward or backward), so a run can show which one it went through. Calling
-`attention_reference` or `attention_backward_reference` directly counts
-nothing. A wrapper called while a CUDA graph is captured records its launch
-into the graph and counts it there; the graph's program (aot.py) takes
-those counts back and adds them again on each replay, the graph's launches.
-Both forward kernels launch on the current stream, so a capture records
-them like any torch operation. The same `COUNTS` holds the NHWC GroupNorm's
-(ops/group_norm.py): `group_norm_launches`, its wrapper's calls on the card,
-`group_norm_plain_calls`, its calls that took the plain version, and
-`group_norm_library_calls`, the GroupNorm calls on CUDA tensors that ran
-torch's F.group_norm instead (models/layers.py GroupNorm); and the
-trainer's one-pass AdamW's (ops/adamw.py): `adamw_launches`.
-
-`KERNELS` also lists csrc/group_norm.cu, so that it builds in the same
-round as the forward attention kernels (`FORWARD_KERNELS`), and
-csrc/adamw.cu, which builds with the backward kernels in the trainer's
-round (`TRAIN_KERNELS`), so that serving neither builds nor loads it.
-
-The kernels are built with nvcc at first use (route (b): shared libraries
-with a plain C entry point each, loaded with ctypes) into csrc/build/, keyed
-by a hash of the source and the headers it includes.
+ops/kernels.py builds and loads the kernels, and the wrappers count in its
+COUNTS; `attention_reference` and `attention_backward_reference` called
+directly count nothing. Both forward kernels launch on the current stream,
+so a CUDA graph's capture records them like any torch operation.
 """
 
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import dataclasses
-import hashlib
-import os
-import re
-import shutil
-import subprocess
 import threading
-import time
 import typing as T
-from pathlib import Path
 
 import torch
 
+from riffusion_tpu_torch.ops import kernels
+
 __all__ = [
     "attention", "row_attention", "attention_backward", "attention_reference",
-    "attention_backward_reference", "build_kernels", "built_on_disk", "compare_to_plain",
-    "backward_delta", "compare_grads_to_plain", "kernel_takes_head_dim", "ptxas_instances", "route",
-    "route_batch", "routed_batch", "COUNTS", "TOLERANCE", "GRAD_TOLERANCE",
+    "attention_backward_reference", "compare_to_plain", "backward_delta", "compare_grads_to_plain",
+    "kernel_takes_head_dim", "route", "route_batch", "routed_batch", "TOLERANCE", "GRAD_TOLERANCE",
 ]
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = _CSRC / "build"
-# kernel name -> (source, C entry point)
-KERNELS = {
-    "attention": (_CSRC / "attention.cu", "riff_attention_forward"),
-    "row_attention": (_CSRC / "row_attention.cu", "riff_row_attention_forward"),
-    "attention_dkv": (_CSRC / "attention_dkv.cu", "riff_attention_bwd_dkv"),
-    "attention_dq": (_CSRC / "attention_dq.cu", "riff_attention_bwd_dq"),
-    "group_norm": (_CSRC / "group_norm.cu", "riff_group_norm"),  # ops/group_norm.py
-    "adamw": (_CSRC / "adamw.cu", "riff_adamw"),  # ops/adamw.py
-}
-FORWARD_KERNELS = ("attention", "row_attention", "group_norm")  # what inference launches
-TRAIN_KERNELS = ("attention", "attention_dkv", "attention_dq", "adamw")  # what a trainer launches
-# C entry point -> its argument types (pointers, element strides, ints,
-# scale, dtype, device, stream)
-_ARGTYPES = {
-    "riff_attention_forward": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 8
-    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "riff_attention_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 10
-    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-}
-# riff_group_norm: x, gamma, beta, y, partials; batch, hw, channels,
-# groups, rows, chunk, chunks; eps; silu, dtype, param dtype, device; stream
-_ARGTYPES["riff_group_norm"] = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# riff_adamw: params, exp_avgs, exp_avg_sqs, grads, steps (pointer arrays);
-# numels, grad_bf16 (arrays), leaves; lr; beta1, beta2, eps, weight decay;
-# blocks, device; stream
-_ARGTYPES["riff_adamw"] = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong),
-                                                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                                                   ctypes.c_void_p] + [ctypes.c_double] * 2 \
-    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_ARGTYPES["riff_row_attention_forward"] = _ARGTYPES["riff_attention_forward"]
-_ARGTYPES["riff_attention_bwd_dq"] = _ARGTYPES["riff_attention_bwd_dkv"]
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -159,152 +96,6 @@ ROW_SEQ_MIN = 2048  # K2 takes self-attention with at least this many queries,
 ROW_BATCH_ABOVE = 8  # at a batch above this,
 ROW_BLOCK_Q = 512  # and a query count that is a multiple of this.
 FLASH_SEQ_MIN = 256  # K1 takes the other self-attention sites from here up.
-
-
-@dataclasses.dataclass
-class Counts:
-    launches: int = 0
-    row_launches: int = 0
-    bwd_dkv_launches: int = 0
-    bwd_dq_launches: int = 0
-    plain_calls: int = 0
-    group_norm_launches: int = 0  # ops/group_norm.py
-    group_norm_plain_calls: int = 0
-    group_norm_library_calls: int = 0  # models/layers.py GroupNorm
-    plain_self_sites: int = 0  # models/layers.py Attention: card self-attention routed "plain"
-    adamw_launches: int = 0  # ops/adamw.py
-
-    def reset(self) -> None:
-        for field in dataclasses.fields(self):
-            setattr(self, field.name, 0)
-
-    def snapshot(self) -> T.Dict[str, int]:
-        return dataclasses.asdict(self)
-
-    def since(self, before: T.Mapping[str, int]) -> T.Dict[str, int]:
-        """What was counted after `before` (a snapshot)."""
-        return {k: v - before[k] for k, v in self.snapshot().items()}
-
-    def restore(self, before: T.Mapping[str, int]) -> None:
-        for name, value in before.items():
-            setattr(self, name, value)
-
-    def add(self, counted: T.Mapping[str, int]) -> None:
-        """Count again what `since` gave (a captured graph's replay)."""
-        for name, value in counted.items():
-            setattr(self, name, getattr(self, name) + value)
-
-
-COUNTS = Counts()
-
-
-@dataclasses.dataclass(frozen=True)
-class BuiltKernel:
-    fn: T.Any  # the ctypes entry point
-    path: Path
-    build_seconds: float  # 0.0 when an earlier build of the same source was reused
-    compiler_log: str
-
-
-_build_lock = threading.Lock()
-_built: T.Dict[str, BuiltKernel] = {}
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.is_file():
-        return str(candidate)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def _digest(source: Path) -> str:
-    """Hash of a source and every header beside it (what it may include)."""
-    h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def _stem(name: str) -> Path:
-    """The build's path without its suffix, keyed by the source's digest."""
-    return BUILD_DIR / f"{name}-{_digest(KERNELS[name][0])}"
-
-
-def built_on_disk(names: T.Sequence[str]) -> bool:
-    """Whether csrc/build/ already holds a build of each named source."""
-    return all(_stem(name).with_suffix(".so").is_file() for name in names)
-
-
-def build_kernels(
-    names: T.Sequence[str] = tuple(KERNELS), rebuild: bool = False
-) -> T.Dict[str, BuiltKernel]:
-    """Compile the named sources for sm_90a (once per hash, or anew with
-    `rebuild`), one nvcc per source, all started together, and load them."""
-    with _build_lock:
-        todo = [n for n in names if rebuild or n not in _built]
-        if todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        jobs = {}
-        for name in todo:
-            source = KERNELS[name][0]
-            stem = _stem(name)
-            so_path, log_path = stem.with_suffix(".so"), stem.with_suffix(".log")
-            proc = tmp = None
-            if rebuild or not so_path.is_file():
-                tmp = stem.with_suffix(f".{os.getpid()}.tmp.so")
-                cmd = [
-                    _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(source),
-                ]
-                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True)
-            jobs[name] = (so_path, log_path, tmp, proc, time.perf_counter())
-        for name, (so_path, log_path, tmp, proc, start) in jobs.items():
-            seconds = 0.0
-            if proc is not None:
-                out, _ = proc.communicate()
-                seconds = time.perf_counter() - start
-                log_path.write_text(out)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) building {KERNELS[name][0].name}:\n{out}"
-                    )
-                os.replace(tmp, so_path)
-            entry = KERNELS[name][1]
-            fn = getattr(ctypes.CDLL(str(so_path)), entry)
-            fn.restype = ctypes.c_int
-            fn.argtypes = _ARGTYPES[entry]
-            log = log_path.read_text() if log_path.is_file() else ""
-            _built[name] = BuiltKernel(fn=fn, path=so_path, build_seconds=seconds,
-                                       compiler_log=log)
-        return {n: _built[n] for n in names}
-
-
-def ptxas_instances(compiler_log: str) -> T.List[T.Tuple[str, str, str]]:
-    """(instance, registers, spills) of each kernel instance in an nvcc
-    `-Xptxas -v` log: the instance as `name<args>` read from the mangled
-    name (`_ZN4riff25attention_fwd_bf16_kernelILi48ELi40ELi2ELb0EEEv...` ->
-    `attention_fwd_bf16_kernel<48, 40, 2, 0>`; a bfloat16 or float type
-    argument as `bf16` or `float`), ptxas's "Used ... registers"
-    line and its spill line."""
-    found, instance, spills = [], "?", ""
-    for line in compiler_log.splitlines():
-        entry = re.search(
-            r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E|13__nv_bfloat16|f)+)E", line)
-        if entry:  # the name after the mangling's last length prefix, and its arguments
-            name = re.split(r"\d+(?=[a-z])", entry.group(1))[-1]
-            args = [value or ("bf16" if bf16 else "float") for value, bf16 in
-                    re.findall(r"L[ib](\d+)E|13__nv_(bfloat16)|f", entry.group(2))]
-            instance = f"{name}<{', '.join(args)}>"
-        elif "spill" in line:
-            spills = line.strip()
-        elif "Used" in line and "registers" in line:
-            found.append((instance, line.split(":", 1)[-1].strip(), spills))
-    return found
 
 
 def attention_reference(
@@ -464,7 +255,7 @@ def _launch(
     _check_operands(name, q=q, k=k, v=v)
     b, s_q, inner = q.shape
     out = torch.empty((b, s_q, inner), dtype=q.dtype, device=q.device)
-    fn = build_kernels((name,))[name].fn
+    fn = kernels.entry(name)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -498,7 +289,7 @@ def _launch_backward(
     rows = k.shape if name == "attention_dkv" else q.shape
     outs = tuple(torch.empty(rows, dtype=q.dtype, device=q.device)
                  for _ in range(2 if name == "attention_dkv" else 1))
-    fn = build_kernels((name,))[name].fn
+    fn = kernels.entry(name)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
@@ -523,7 +314,7 @@ def attention_backward(
     tensors: `attention_backward_reference` (`lse` is not used)."""
     _validate(q, k, v, num_heads)
     if q.device.type == "cpu":
-        COUNTS.plain_calls += 1
+        kernels.COUNTS.plain_calls += 1
         return attention_backward_reference(q, k, v, out, dout, num_heads=num_heads, scale=scale)
     dout = dout.to(q.dtype)
     if dout.stride(2) != 1 or dout.stride(0) % 8 or dout.stride(1) % 8 or dout.data_ptr() % 16:
@@ -535,9 +326,9 @@ def attention_backward(
         raise ValueError("the backward kernels need the forward's (b, h, s_q) fp32 log-sum-exp")
     delta = backward_delta(out, dout, num_heads)
     dk, dv = _launch_backward("attention_dkv", q, k, v, dout, lse, delta, num_heads, scale)
-    COUNTS.bwd_dkv_launches += 1
+    kernels.COUNTS.bwd_dkv_launches += 1
     (dq,) = _launch_backward("attention_dq", q, k, v, dout, lse, delta, num_heads, scale)
-    COUNTS.bwd_dq_launches += 1
+    kernels.COUNTS.bwd_dq_launches += 1
     return dq, dk, dv
 
 
@@ -549,13 +340,13 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads, scale):
         lse = None
         if q.device.type == "cpu":
-            COUNTS.plain_calls += 1
+            kernels.COUNTS.plain_calls += 1
             out = attention_reference(q, k, v, num_heads=num_heads, scale=scale)
         else:
             b, s_q, _ = q.shape
             lse = torch.empty((b, num_heads, s_q), dtype=torch.float32, device=q.device)
             out = _launch("attention", q, k, v, num_heads, scale, lse=lse)
-            COUNTS.launches += 1
+            kernels.COUNTS.launches += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out
@@ -576,7 +367,7 @@ class _RowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, num_heads, scale):
         out = _launch("row_attention", q, k, v, num_heads, scale)
-        COUNTS.row_launches += 1
+        kernels.COUNTS.row_launches += 1
         ctx.save_for_backward(q, k, v)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out
@@ -605,10 +396,10 @@ def attention(
     if _needs_grad(q, k, v):
         return _Attention.apply(q, k, v, num_heads, scale)
     if q.device.type == "cpu":
-        COUNTS.plain_calls += 1
+        kernels.COUNTS.plain_calls += 1
         return attention_reference(q, k, v, num_heads=num_heads, scale=scale)
     out = _launch("attention", q, k, v, num_heads, scale)
-    COUNTS.launches += 1
+    kernels.COUNTS.launches += 1
     return out
 
 
@@ -622,10 +413,10 @@ def row_attention(
     plain recompute."""
     _validate(q, k, v, num_heads)
     if q.device.type == "cpu":
-        COUNTS.plain_calls += 1
+        kernels.COUNTS.plain_calls += 1
         return attention_reference(q, k, v, num_heads=num_heads, scale=scale)
     if _needs_grad(q, k, v):
         return _RowAttention.apply(q, k, v, num_heads, scale)
     out = _launch("row_attention", q, k, v, num_heads, scale)
-    COUNTS.row_launches += 1
+    kernels.COUNTS.row_launches += 1
     return out

@@ -20,12 +20,12 @@ which XLA fuses in its NHWC layout. The kernel exists because the serving
 UNet keeps NHWC on the card (models/unet.py), where torch's CUDA group_norm
 makes its input NCHW-contiguous first.
 
-`COUNTS.group_norm_launches` (ops.attention.COUNTS) counts the kernel's
+`COUNTS.group_norm_launches` (ops.kernels.COUNTS) counts the kernel's
 calls (two launches each: the statistics, then the normalisation),
 `COUNTS.group_norm_plain_calls` the wrapper's calls that ran the plain
 version. A replayed CUDA graph counts its calls again (aot.py), as it does
-the attention kernels'. The kernel is built with the attention kernels'
-forward round (ops.attention.FORWARD_KERNELS), at its first use.
+the attention kernels'. The kernel is built in the serving round
+(ops.kernels.FORWARD_KERNELS), at its first use.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import typing as T
 import torch
 import torch.nn.functional as F
 
-from riffusion_tpu_torch.ops import attention as attention_ops
+from riffusion_tpu_torch.ops import kernels
 
 __all__ = ["group_norm", "group_norm_reference", "compare_to_plain", "check_inputs", "tiling",
            "Tiling", "TOLERANCE"]
@@ -158,9 +158,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_group
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tile = tiling(b, h * w, c, x.element_size(), sms)
     partials = torch.empty((3, b, num_groups, tile.chunks), dtype=torch.float32, device=x.device)
-    # built at first use in one round with the attention kernels
-    fn = attention_ops.build_kernels(attention_ops.FORWARD_KERNELS)["group_norm"].fn
-    rc = fn(
+    rc = kernels.entry("group_norm")(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), partials.data_ptr(),
         b, h * w, c, num_groups, tile.rows, tile.chunk, tile.chunks, float(eps), int(silu),
         _KERNEL_DTYPES[x.dtype], _PARAM_DTYPES[weight.dtype], x.device.index,
@@ -180,10 +178,10 @@ def group_norm(
     tensors. Not differentiable: models/layers.py takes it only where
     autograd records nothing."""
     if x.device.type == "cpu":
-        attention_ops.COUNTS.group_norm_plain_calls += 1
+        kernels.COUNTS.group_norm_plain_calls += 1
         return group_norm_reference(x, weight, bias, num_groups, eps, silu)
     out = _launch(x, weight, bias, num_groups, eps, silu)
-    attention_ops.COUNTS.group_norm_launches += 1
+    kernels.COUNTS.group_norm_launches += 1
     return out
 
 

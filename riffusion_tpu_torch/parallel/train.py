@@ -86,7 +86,7 @@ gradient's widening and the update), its step counts on the device and its
 lr the program's tensor, eager or replayed alike; on the CPU (capturable is
 CUDA-only) and over a mesh, which never captures, it is torch's AdamW with
 a Python float lr and its step counts on the host. The kernels a trainer
-launches on the card (ops.attention.TRAIN_KERNELS) are built in one round
+launches on the card (ops.kernels.TRAIN_KERNELS) are built in one round
 at init_from.
 
 A graph replays addresses, so `restore_checkpoint`, whose optimizer load
@@ -100,7 +100,7 @@ the card's earlier work) and `riffusion.launch` (the device program
 queued). The device program's stages are `riffusion.train.copy`,
 `.forward`, `.backward`, `.grads` (not on one card), `.allreduce` over a
 mesh and `.optimizer`: a profiler attributes an eager step's device time to them
-(`python -m riffusion_tpu_torch.profile_train`), and a graph captured with
+(`python -m riffusion_tpu_torch.profile train`), and a graph captured with
 RIFFUSION_TPU_TRACE=1 times each of them on the card at every replay
 (aot.py). With the switch off and no profiler running a span costs a few
 microseconds.
@@ -129,6 +129,7 @@ from riffusion_tpu_torch.models.layers import precise
 from riffusion_tpu_torch.models.unet import UNet2DCondition
 from riffusion_tpu_torch.ops import adamw as adamw_ops
 from riffusion_tpu_torch.ops import attention as attention_ops
+from riffusion_tpu_torch.ops import kernels
 from riffusion_tpu_torch.util import torch_util
 
 Schedule = T.Callable[[int], float]
@@ -322,7 +323,7 @@ class DiffusionTrainer:
         self.graph_store = aot.GraphStore()
         self.step_count = 0
         if self.device.type == "cuda":
-            attention_ops.build_kernels(attention_ops.TRAIN_KERNELS)
+            kernels.build_kernels(kernels.TRAIN_KERNELS)
 
     @property
     def _capturable(self) -> bool:

@@ -70,7 +70,7 @@ eager program), `riffusion.readback` (the wait for the results' copies) and
 `async_dispatch` these two open when `finalize` is called). The device
 program's stages are `riffusion.vae_encode`, `.denoise`, `.vae_decode` and
 `.audio`: a profiler attributes an eager run's device time to them
-(scripts/profile_torch_request.py), and a graph captured with
+(`python -m riffusion_tpu_torch.profile request`), and a graph captured with
 RIFFUSION_TPU_TRACE=1 times each of them on the card at every replay
 (aot.py). With the switch off and no profiler running a span costs a few
 microseconds.
@@ -796,7 +796,7 @@ class RiffusionPipeline:
         Threads take turns here: a server thread's /run_inference_batch/
         and the batcher's worker never queue two programs at once, so the
         device holds one program's memory at a time, the kernel counters
-        (ops.attention.COUNTS) count one program's launches together, and
+        (ops.kernels.COUNTS) count one program's launches together, and
         the store's graphs, which share one memory pool, replay one at a
         time with their outputs copied out before the next (aot.py)."""
         with self._dispatch_lock:
@@ -1233,7 +1233,7 @@ class RiffusionPipeline:
           `embed_cache_misses`, the plan, the image and the noise draws);
         - weights_ready_s: a synchronised read of one element of the
           largest UNet and VAE tensors;
-        - kernel_build_s: what ops/attention.py's loader spent on the
+        - kernel_build_s: what ops/kernels.py's loader spent on the
           forward kernels (nvcc, or loading an earlier build), with
           kernel_source "built" or "cached" by whether csrc/build/ already
           held them ("none" on the CPU, which runs no kernel);
@@ -1246,7 +1246,7 @@ class RiffusionPipeline:
           one: the warm-up's seconds, the capture's, and 0.0 (a restart
           cannot load a graph from disk, aot.py);
         - execute_s: the request through readback (a replay on the card)."""
-        from riffusion_tpu_torch.ops import attention
+        from riffusion_tpu_torch.ops import kernels
 
         params = params or SpectrogramParams()
         report: T.Dict[str, T.Any] = {}
@@ -1269,10 +1269,10 @@ class RiffusionPipeline:
         report["weights_ready_s"] = time.perf_counter() - t0
 
         if self.device.type == "cuda":
-            names = attention.FORWARD_KERNELS
-            cached = attention.built_on_disk(names)
+            names = kernels.FORWARD_KERNELS
+            cached = kernels.built_on_disk(names)
             t0 = time.perf_counter()
-            attention.build_kernels(names)
+            kernels.build_kernels(names)
             report["kernel_build_s"] = time.perf_counter() - t0
             report["kernel_source"] = "cached" if cached else "built"
         else:

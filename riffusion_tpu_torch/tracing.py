@@ -4,8 +4,8 @@ or a benchmark to read: the one place the port's `record_function` ranges
 go through.
 
 - `span(name)` always enters `torch.profiler.record_function(name)`, so a
-  profiler (scripts/profile_torch_request.py, profile_batch.py,
-  profile_train.py) sees the same ranges whatever the switch says. With
+  profiler (`python -m riffusion_tpu_torch.profile`) sees the same ranges
+  whatever the switch says. With
   the switch on it also appends one record to a bounded ring: the name,
   the enclosing span's name, the id of the request or step (a span opened
   with `root=True`, or with no span open on its thread, takes a new id;
@@ -26,7 +26,7 @@ go through.
   events (its ranges serve the profiler).
 - `export()` gives the rings, the aggregates and the counters ("dropped"
   spans and replays, "stage_read", "stage_unread", `EVENT_COUNTERS`, and
-  the process's `KERNEL_COUNTERS` as ops.attention.COUNTS holds them,
+  the process's `KERNEL_COUNTERS` as ops.kernels.COUNTS holds them,
   replays included);
   it is the only exporter.
 
@@ -49,12 +49,12 @@ import typing as T
 
 from torch.profiler import record_function
 
-from riffusion_tpu_torch.ops import attention
+from riffusion_tpu_torch.ops import kernels
 
 #: Records a ring holds; the oldest are dropped (and counted) beyond it.
 CAPACITY = 100_000
 
-#: The ops.attention.COUNTS fields `export()` adds to its counters: the NHWC
+#: The ops.kernels.COUNTS fields `export()` adds to its counters: the NHWC
 #: GroupNorm kernel's calls (ops/group_norm.py), the GroupNorm calls on the
 #: card that ran torch's F.group_norm instead (models/layers.py), K1's
 #: launches, the self-attention sites routed to the plain composition, and
@@ -205,7 +205,7 @@ class Tracer:
                 "totals": {n: {"count": c, "s": s} for n, (c, s) in self.totals.items()},
                 "stages": {n: {"count": c, "s": s} for n, (c, s) in self.stage_totals.items()},
                 "counters": dict(self.counters, **{
-                    name: getattr(attention.COUNTS, name) for name in KERNEL_COUNTERS}),
+                    name: getattr(kernels.COUNTS, name) for name in KERNEL_COUNTERS}),
             }
 
     def reset(self) -> None:

@@ -101,7 +101,6 @@ def main() -> int:
     from riffusion_tpu_torch.ops import attention as attn
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    attn.build_kernels()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     times, tflops = {}, {}

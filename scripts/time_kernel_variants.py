@@ -12,16 +12,16 @@ and (2, 1024, 8*80) (the single-clip path), (32, 1024, 8*80) (the batched
 path's seq-1024 sites) and, writing the log-sum-exp, at (4, 4096, 8*40) and
 (4, 1024, 8*80) (fine-tuning). Each DIR is a full copy of the kernel sources
 with one change to try (make them under a directory .gitignore lists, e.g.
-.chipwork/); the kernel's C entry point must take the same arguments in
-every DIR. For each DIR the script prints every instance's ptxas registers
-and spills and the number of ptxas notes that it injected a
-warpgroup.arrive (a register of a wgmma operand written between two
-wgmma), and holds two batch rows of each shape's output (and of its
-log-sum-exp, where it writes one) to the plain version. Then it prints two
-rounds of the median of 20 calls (CUDA events, after 3 warm-up calls) for
-every DIR in turn at each shape, and the library forward (torch's
-scaled_dot_product_attention on heads-first copies) as the yardstick, with
-the card's name and power limit first.
+.chipwork/); each build is launched through the kernel's wrapper, so its C
+entry point takes the arguments ops/kernels.py gives it in every DIR. For
+each DIR the script prints every instance's ptxas registers and spills and
+the number of ptxas notes that it injected a warpgroup.arrive (a register of
+a wgmma operand written between two wgmma), and holds two batch rows of each
+shape's output (and of its log-sum-exp, where it writes one) to the plain
+version. Then it prints two rounds of the median of 20 calls (CUDA events,
+after 3 warm-up calls) for every DIR in turn at each shape, and the library
+forward (torch's scaled_dot_product_attention on heads-first copies) as the
+yardstick, with the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -65,18 +65,19 @@ def main() -> int:
         raise SystemExit("time_kernel_variants: no CUDA device")
     sys.path.insert(0, str(REPO))
     from riffusion_tpu_torch.ops import attention as attn
+    from riffusion_tpu_torch.ops import kernels
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     name = args.kernel
-    source, entry = attn.KERNELS[name]
-    fns = {}
+
+    def load(copy: str) -> kernels.BuiltKernel:
+        """The kernel built from `copy`, which its wrapper launches from now on."""
+        return kernels.build_kernels((name,), csrc=Path(copy))[name]
+
     for d in args.dirs:
-        attn.KERNELS[name] = (Path(d) / source.name, entry)
-        attn._built.pop(name, None)
-        built = attn.build_kernels((name,))[name]
-        fns[d] = built.fn
-        for instance, registers, spills in attn.ptxas_instances(built.compiler_log):
+        built = load(d)
+        for instance, registers, spills in kernels.ptxas_instances(built.compiler_log):
             print(d, instance, registers, "|", spills, flush=True)
         print(d, "ptxas notes of an injected warpgroup.arrive:",
               sum("warpgroup.arrive is injected" in line for line in built.compiler_log.splitlines()),
@@ -94,20 +95,13 @@ def main() -> int:
             "bqhd,bkhd->bhqk", q[:2].float().view(2, s, h, d), k[:2].float().view(2, s, h, d))
             * scale, dim=-1) if with_lse else None
 
-        def run(fn):
-            out = torch.empty_like(q)
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    None if lse is None else lse.data_ptr(),
-                    q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                    out.stride(0), out.stride(1), b, s, s, h, d, scale, 0, dev.index or 0,
-                    torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"launch failed with CUDA error {rc}")
-            return out
+        def run():
+            return attn._launch(name, q, k, v, h, scale, lse=lse)
 
         shape = f"({b}, {s}, {h}*{d}{', LSE' if with_lse else ''})"
         for dir_ in args.dirs:
-            out = run(fns[dir_])
+            load(dir_)
+            out = run()
             torch.cuda.synchronize()
             lse_err = "" if lse is None else \
                 f"; LSE max abs error {float((lse[:2] - ref_lse).abs().max()):.3e}"
@@ -115,8 +109,8 @@ def main() -> int:
                   attn.compare_to_plain(out[:2], ref), lse_err, flush=True)
         for round_ in range(2):
             for dir_ in args.dirs:
-                print(round_, dir_, shape, name, "ms", _median_ms(torch, lambda: run(fns[dir_])),
-                      flush=True)
+                load(dir_)
+                print(round_, dir_, shape, name, "ms", _median_ms(torch, run), flush=True)
         qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2).contiguous() for x in (q, k, v))
         print(shape, "library forward ms", _median_ms(
             torch, lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,

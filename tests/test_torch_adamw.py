@@ -36,7 +36,7 @@ from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu_torch import tracing
 from riffusion_tpu_torch.models.weights import random_bundle
 from riffusion_tpu_torch.ops import adamw
-from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS, CSRC, FORWARD_KERNELS, TRAIN_KERNELS
 from riffusion_tpu_torch.parallel import train as train_mod
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
 
@@ -176,13 +176,13 @@ def test_launches(numels, expected):
 
 
 def test_constants_match_the_kernel_source():
-    text = (attn._CSRC / "adamw.cu").read_text()
+    text = (CSRC / "adamw.cu").read_text()
 
     def constant(name: str) -> str:
         return re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
 
     assert adamw.LEAVES_PER_LAUNCH == int(constant("kMaxLeaves"))
-    assert "adamw" in attn.TRAIN_KERNELS and "adamw" not in attn.FORWARD_KERNELS
+    assert "adamw" in TRAIN_KERNELS and "adamw" not in FORWARD_KERNELS
 
 
 # --------------------------------------------------------------- the trainer
@@ -290,10 +290,10 @@ def test_loss_and_grads_still_hands_fp32_gradients_to_the_masters(monkeypatch):
 
 
 def test_tracing_export_reports_the_adamw_launches():
-    attn.COUNTS.reset()
-    attn.COUNTS.adamw_launches += 20
+    COUNTS.reset()
+    COUNTS.adamw_launches += 20
     try:
         counters = tracing.Tracer().export()["counters"]
     finally:
-        attn.COUNTS.reset()
+        COUNTS.reset()
     assert "adamw_launches" in tracing.KERNEL_COUNTERS and counters["adamw_launches"] == 20

@@ -27,7 +27,7 @@ import torch
 from riffusion_tpu_torch import tracing
 from riffusion_tpu_torch.models.weights import random_bundle
 from riffusion_tpu_torch.ops import adamw
-from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
 from riffusion_tpu_torch.util import torch_util
 
@@ -104,9 +104,9 @@ def _run(kind: str, masters, grads, card):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_against_fp64(card, case):
     masters, grads = _leaves(card, case)
-    attn.COUNTS.reset()
+    COUNTS.reset()
     ours = _run("kernel", masters, grads, card)
-    assert attn.COUNTS.adamw_launches == STEPS * adamw.launches([m.numel() for m in masters])
+    assert COUNTS.adamw_launches == STEPS * adamw.launches([m.numel() for m in masters])
     theirs = _run("torch", masters, grads, card)
     exact = _run("fp64", masters, grads, card)
     moved = float((exact["masters"] - _flat(masters)).norm())
@@ -158,9 +158,9 @@ def _steps(card, monkeypatch, eager: bool, steps: int = 3):
     counts = []
     for step in range(steps):
         gen.manual_seed(1000 + step)
-        attn.COUNTS.reset()
+        COUNTS.reset()
         trainer.step(latents, context, generator=gen)
-        counts.append(attn.COUNTS.adamw_launches)
+        counts.append(COUNTS.adamw_launches)
     torch.cuda.synchronize()
     params = list(trainer.master.parameters())
     state = [trainer.optimizer.state[p] for p in params]
@@ -192,7 +192,7 @@ def test_tracing_export_counts_the_replays(card, monkeypatch):
     _, counts, trainer = _steps(card, monkeypatch, eager=False, steps=4)
     expected = adamw.launches([p.numel() for p in trainer.master.parameters()])
     assert counts == [expected] * 4 and expected > 0
-    attn.COUNTS.reset()
+    COUNTS.reset()
     trainer.step(np.zeros((2, 32, 32, 4), np.float32), np.zeros((2, 77, 64), np.float32),
                  generator=torch.Generator(device=card).manual_seed(0))
     assert tracing.export()["counters"]["adamw_launches"] == expected

@@ -14,7 +14,7 @@ against the JAX package's, on the CPU at the tiny geometry:
   envelope, uploaded once, give the same steps as a fresh upload per call;
 - the store's bookkeeping, with a stand-in for the card's graphs (a
   "graph" that runs the program again on its static buffers): one capture
-  per signature, new inputs give the new result, ops.attention.COUNTS per
+  per signature, new inputs give the new result, ops.kernels.COUNTS per
   replay equal to an eager call's, a failed capture raising with the key
   and the operation, and the RIFFUSION_TPU_NO_AOT switch.
 
@@ -37,6 +37,7 @@ from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.models.weights import bundle_from_jax_params
 from riffusion_tpu_torch.ops import attention, codec
+from riffusion_tpu_torch.ops.kernels import COUNTS, Counts
 from riffusion_tpu_torch.ops.stft import get_stft_kernel
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 from riffusion_tpu_torch.util import torch_util
@@ -415,9 +416,9 @@ class StandInGraphs(aot.CudaGraphs):
 
     def replay(self, graph):
         fn, args, outputs = graph
-        before = attention.COUNTS.snapshot()
+        before = COUNTS.snapshot()
         fresh = fn(*args)
-        attention.COUNTS.restore(before)
+        COUNTS.restore(before)
         for static, x in zip(aot._tensors(outputs), aot._tensors(fresh)):
             static.copy_(x)
         self.replays += 1
@@ -457,14 +458,14 @@ def test_store_captures_once_per_signature_and_replays_new_inputs():
 
 def test_counts_per_replay_equal_an_eager_call():
     program = aot.GraphProgram(_program, "k", graphs=StandInGraphs())
-    attention.COUNTS.reset()
+    COUNTS.reset()
     _program(*_inputs(0))
-    eager = attention.COUNTS.snapshot()
+    eager = COUNTS.snapshot()
     assert eager["plain_calls"] == 1
     for seed in range(3):  # the capturing call, then two replays
-        attention.COUNTS.reset()
+        COUNTS.reset()
         program(*_inputs(seed))
-        assert attention.COUNTS.snapshot() == eager
+        assert COUNTS.snapshot() == eager
 
 
 def test_stage_report(monkeypatch):
@@ -488,10 +489,10 @@ def test_a_failed_capture_raises_with_the_key_and_the_operation():
         return x * scale, None
 
     program = aot.GraphProgram(synced, "riffuse-sync", graphs=StandInGraphs())
-    attention.COUNTS.reset()
+    COUNTS.reset()
     with pytest.raises(aot.CaptureError, match=r"riffuse-sync failed at .*item.*not permitted"):
         program(*_inputs(0))
-    assert attention.COUNTS.snapshot() == attention.Counts().snapshot()
+    assert COUNTS.snapshot() == Counts().snapshot()
     assert len(program) == 0
     with pytest.raises(TypeError, match="tensors or None"):
         program(1.0, None)
@@ -517,15 +518,15 @@ def test_pipeline_requests_through_the_store(pipes, monkeypatch):
     monkeypatch.setattr(aot, "captures", lambda device: aot.enabled())
     monkeypatch.setenv("RIFFUSION_TPU_NO_AOT", "1")
     reqs = [_request(i, steps=4) for i in range(3)]
-    attention.COUNTS.reset()
+    COUNTS.reset()
     eager = [tp.riffuse_audio(r, _image(), params=PARAMS, scheduler="euler") for r in reqs]
-    eager_counts = attention.COUNTS.plain_calls
+    eager_counts = COUNTS.plain_calls
     eager_batch = tp.riffuse_audio_batch(reqs[:2], _image(), params=PARAMS, scheduler="euler")
     assert (graphs.captures, graphs.replays) == (0, 0)
     monkeypatch.delenv("RIFFUSION_TPU_NO_AOT")
-    attention.COUNTS.reset()
+    COUNTS.reset()
     stored = [tp.riffuse_audio(r, _image(), params=PARAMS, scheduler="euler") for r in reqs]
-    assert attention.COUNTS.plain_calls == eager_counts
+    assert COUNTS.plain_calls == eager_counts
     assert (graphs.captures, graphs.replays) == (1, 2)
     batch = tp.riffuse_audio_batch(reqs[:2], _image(), params=PARAMS, scheduler="euler")
     assert (graphs.captures, graphs.replays) == (2, 2)

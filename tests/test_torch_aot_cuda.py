@@ -21,6 +21,7 @@ from riffusion_tpu_torch import aot
 from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.models.weights import random_bundle
 from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 from riffusion_tpu_torch.util import torch_util
@@ -59,10 +60,10 @@ def test_kernels_replay_with_new_operands(card, kernel, shape):
     with torch.inference_mode():
         eager = [program(*x) for x in operands]
         for i, x in enumerate(operands):  # capture, then two replays on new operands
-            attn.COUNTS.reset()
+            COUNTS.reset()
             out = graph(*x)
             torch.cuda.synchronize()
-            assert getattr(attn.COUNTS, counter) == 1 and attn.COUNTS.plain_calls == 0
+            assert getattr(COUNTS, counter) == 1 and COUNTS.plain_calls == 0
             assert torch.equal(out, eager[i]), i
     assert len(graph) == 1
 
@@ -85,9 +86,9 @@ def test_tiny_request_graph_against_eager(card, monkeypatch):
     params = SpectrogramParams(num_frequencies=SIZE)
 
     def run(i):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         im, seg = pipe.riffuse_audio(_request(i), image, params=params, scheduler="pndm")
-        counts = attn.COUNTS.snapshot()
+        counts = COUNTS.snapshot()
         return np.asarray(im), seg.raw_data, counts
 
     monkeypatch.setenv("RIFFUSION_TPU_NO_AOT", "1")

@@ -23,9 +23,7 @@ from riffusion_tpu.models.layers import Attention as JaxAttention
 from riffusion_tpu.ops.attention import _reference, full_row_attention
 from riffusion_tpu_torch.models.layers import Attention
 from riffusion_tpu_torch.models.weights import state_dict_from_jax
-from riffusion_tpu_torch.ops import attention as attn_mod
 from riffusion_tpu_torch.ops.attention import (
-    COUNTS,
     TOLERANCE,
     attention,
     attention_reference,
@@ -33,6 +31,7 @@ from riffusion_tpu_torch.ops.attention import (
     route,
     row_attention,
 )
+from riffusion_tpu_torch.ops.kernels import COUNTS, CSRC, KERNELS
 
 
 def _qkv(rng, b, s, h, d, scale=1.0, s_kv=None):
@@ -145,9 +144,10 @@ def test_cpu_wrapper_counts_plain_calls_only():
 
 
 def test_kernel_source_is_shipped():
-    for name, (source, entry) in attn_mod.KERNELS.items():
+    for name, kernel in KERNELS.items():
+        source = CSRC / kernel.source
         assert source.is_file()
-        assert entry in source.read_text()
+        assert kernel.entry in source.read_text()
         if name in ("group_norm", "adamw"):  # ops/group_norm.py's, ops/adamw.py's stand alone
             continue
         # the forward body (attention_fwd.cuh: K1 and K2) or the backward's;
@@ -155,10 +155,10 @@ def test_kernel_source_is_shipped():
         assert any(f'#include "{body}"' in source.read_text()
                    for body in ("attention_fwd.cuh", "attention_bwd.cuh"))
     for name in ("attention", "row_attention"):  # one bf16 forward body
-        assert '#include "attention_fwd.cuh"' in attn_mod.KERNELS[name][0].read_text()
-    assert (attn_mod._CSRC / "attention_common.cuh").is_file()
+        assert '#include "attention_fwd.cuh"' in (CSRC / KERNELS[name].source).read_text()
+    assert (CSRC / "attention_common.cuh").is_file()
     for body in ("attention_fwd.cuh", "attention_bwd.cuh"):
-        text = (attn_mod._CSRC / body).read_text()
+        text = (CSRC / body).read_text()
         assert '#include "attention_common.cuh"' in text and '#include "hopper.cuh"' in text
 
 

@@ -16,7 +16,6 @@ import torch
 from riffusion_tpu_torch.models.layers import Attention
 from riffusion_tpu_torch.ops import attention as attn
 from riffusion_tpu_torch.ops.attention import (
-    COUNTS,
     attention,
     attention_backward_reference,
     attention_reference,
@@ -24,6 +23,7 @@ from riffusion_tpu_torch.ops.attention import (
     compare_to_plain,
     row_attention,
 )
+from riffusion_tpu_torch.ops.kernels import COUNTS
 
 pytestmark = pytest.mark.cuda
 

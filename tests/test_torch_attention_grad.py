@@ -33,6 +33,7 @@ from riffusion_tpu.ops.attention import _reference, full_row_attention
 from riffusion_tpu_torch.models.layers import Attention
 from riffusion_tpu_torch.models.weights import state_dict_from_jax
 from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS
 
 
 def _inputs(b, s_q, s_kv, h, d, dtype=np.float32, seed=0, logit_mult=1.0):
@@ -70,10 +71,10 @@ def test_attention_gradient_matches_jax_vjp(shape):
     q, k, v, dout = _inputs(b, s_q, s_kv, h, d)
     out_j, grads_j = _jax_vjp(lambda q, k, v: _reference(q, k, v, h, scale), q, k, v, dout)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    before = attn.COUNTS.plain_calls
+    before = COUNTS.plain_calls
     out = attn.attention(qt, kt, vt, num_heads=h, scale=scale)
     out.backward(torch.from_numpy(dout))
-    assert attn.COUNTS.plain_calls == before + 2  # the plain forward and backward
+    assert COUNTS.plain_calls == before + 2  # the plain forward and backward
     assert _rel_rms(out.detach().numpy(), out_j) < 2e-5
     for name, g, ref in zip("qkv", (qt.grad, kt.grad, vt.grad), grads_j):
         assert g.dtype == qt.dtype
@@ -105,10 +106,10 @@ def test_attention_site_gradient_matches_jax_in_fp64(context_len):
     port.load_state_dict(state_dict_from_jax(params), strict=True)
     inputs = [torch.from_numpy(a).requires_grad_() for a in
               ([x] if ctx is None else [x, ctx])]
-    before = attn.COUNTS.plain_calls
+    before = COUNTS.plain_calls
     port(*inputs).backward(torch.from_numpy(g))
     # the kernel site's forward and backward go through the wrapper
-    assert attn.COUNTS.plain_calls == before + (2 if ctx is None else 0)
+    assert COUNTS.plain_calls == before + (2 if ctx is None else 0)
     for t, ref in zip(inputs, grads_j[1:]):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref), rtol=0, atol=1e-10)
     ref_params = state_dict_from_jax(jax.tree.map(np.asarray, grads_j[0]))
@@ -169,10 +170,10 @@ def test_no_grad_call_is_the_serving_call():
     """A call whose operands need no gradient is today's serving call: no
     autograd graph, one plain call on the CPU."""
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(1, 64, 64, 2, 16))
-    before = attn.COUNTS.plain_calls
+    before = COUNTS.plain_calls
     with torch.inference_mode():
         out = attn.attention(q, k, v, num_heads=2, scale=0.25)
-    assert out.grad_fn is None and attn.COUNTS.plain_calls == before + 1
+    assert out.grad_fn is None and COUNTS.plain_calls == before + 1
 
 
 # ------------------------------------------- the backward kernels' arithmetic

@@ -33,7 +33,7 @@ from riffusion_tpu_torch import tracing
 from riffusion_tpu_torch.models import layers
 from riffusion_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from riffusion_tpu_torch.models.weights import random_bundle
-from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS, ptxas_instances
 from riffusion_tpu_torch.ops import group_norm as gn
 
 H100_SMS = 132
@@ -62,9 +62,9 @@ def _nchw_path(x, weight, bias, groups, eps, silu):
 def test_plain_nhwc_matches_nchw_group_norm(c, h, w, dtype, silu):
     x, weight, bias = gn.check_inputs(2, c, h, w, dtype, "cpu", seed=c + h)
     assert x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
-    attn.COUNTS.reset()
+    COUNTS.reset()
     out = gn.group_norm(x, weight, bias, 32, 1e-5, silu=silu)
-    assert attn.COUNTS.group_norm_plain_calls == 1 and attn.COUNTS.group_norm_launches == 0
+    assert COUNTS.group_norm_plain_calls == 1 and COUNTS.group_norm_launches == 0
     assert out.dtype == dtype and out.is_contiguous(memory_format=torch.channels_last)
     ref = _nchw_path(x, weight, bias, 32, 1e-5, silu)
     max_abs, rel_rms, ok = gn.compare_to_plain(out, ref)
@@ -196,33 +196,33 @@ def test_dispatch_by_layout_and_autograd():
         norm.weight.uniform_(0.5, 1.5)
         norm.bias.uniform_(-0.5, 0.5)
     x, _, _ = gn.check_inputs(2, 64, 8, 8, torch.float32, "cpu", seed=1)
-    attn.COUNTS.reset()
+    COUNTS.reset()
     with torch.inference_mode():
         taken = norm(x, silu=True)
-    assert attn.COUNTS.group_norm_plain_calls == 1
+    assert COUNTS.group_norm_plain_calls == 1
     assert taken.is_contiguous(memory_format=torch.channels_last)
     # under autograd with weights that require grad: the present path
-    attn.COUNTS.reset()
+    COUNTS.reset()
     present = norm(x, silu=True)
-    assert attn.COUNTS.group_norm_plain_calls == 0 and attn.COUNTS.group_norm_launches == 0
+    assert COUNTS.group_norm_plain_calls == 0 and COUNTS.group_norm_launches == 0
     assert present.requires_grad
     *_, ok = gn.compare_to_plain(taken, present.detach())
     assert ok
     # an input that requires grad, with frozen weights: the present path
     norm.requires_grad_(False)
-    attn.COUNTS.reset()
+    COUNTS.reset()
     norm(x.clone().requires_grad_())
-    assert attn.COUNTS.group_norm_plain_calls == 0
+    assert COUNTS.group_norm_plain_calls == 0
     # grad off: the op
     with torch.no_grad():
         norm(x)
-    assert attn.COUNTS.group_norm_plain_calls == 1
+    assert COUNTS.group_norm_plain_calls == 1
     # NCHW, and a (B, C, 1, 1) tensor that is both layouts: the present path
-    attn.COUNTS.reset()
+    COUNTS.reset()
     with torch.inference_mode():
         norm(x.contiguous())
         norm(torch.randn(2, 64, 1, 1).contiguous(memory_format=torch.channels_last))
-    assert attn.COUNTS.group_norm_plain_calls == 0
+    assert COUNTS.group_norm_plain_calls == 0
 
 
 def test_takes_nhwc_group_norm():
@@ -242,11 +242,11 @@ def test_vae_never_takes_the_nhwc_op():
     and latents NCHW-contiguous first; tests/test_torch_group_norm_cuda.py
     counts the VAE's calls on torch's GroupNorm in a served request.)"""
     vae = random_bundle("tiny", seed=0, device="cpu").vae.eval()
-    attn.COUNTS.reset()
+    COUNTS.reset()
     with torch.inference_mode():
         mean, _ = vae.encode_moments(torch.rand(2, 3, 64, 64) * 2 - 1)
         vae.decode(mean)
-    assert attn.COUNTS.group_norm_plain_calls == 0
+    assert COUNTS.group_norm_plain_calls == 0
 
 
 # (8, 8) reaches a 1x1 level (8 -> 4 -> 2 -> 1); (10, 6) and (16, 16) do not
@@ -266,10 +266,10 @@ def test_channels_last_unet_matches_nchw(hw, every_site):
     sites = sum(isinstance(m, layers.GroupNorm) for m in unet.modules())
     with torch.inference_mode():
         ref = unet(x, t, ctx)
-        attn.COUNTS.reset()
+        COUNTS.reset()
         out = nhwc(x, t, ctx)
     assert out.is_contiguous() and out.shape == ref.shape
-    taken = attn.COUNTS.group_norm_plain_calls
+    taken = COUNTS.group_norm_plain_calls
     assert 0 < taken <= sites and (taken == sites) == every_site
     assert float((out - ref).abs().max() / ref.abs().max()) < 1e-5
 
@@ -304,20 +304,20 @@ def test_trainer_masters_are_nchw_and_a_step_takes_no_nhwc_op():
     assert all(p.is_contiguous() for p in trainer.master.parameters())
     assert all(p.is_contiguous() for p in trainer.unet.parameters())
     gen = torch.Generator().manual_seed(0)
-    attn.COUNTS.reset()
+    COUNTS.reset()
     trainer.step(latents=torch.randn(2, 8, 8, 4, generator=gen),
                  context=torch.randn(2, 77, 64, generator=gen))
-    assert attn.COUNTS.group_norm_plain_calls == 0 and attn.COUNTS.group_norm_launches == 0
+    assert COUNTS.group_norm_plain_calls == 0 and COUNTS.group_norm_launches == 0
 
 
 def test_tracing_export_counts_the_group_norm_paths():
-    attn.COUNTS.reset()
-    attn.COUNTS.group_norm_launches += 3
-    attn.COUNTS.group_norm_library_calls += 2
+    COUNTS.reset()
+    COUNTS.group_norm_launches += 3
+    COUNTS.group_norm_library_calls += 2
     try:
         counters = tracing.Tracer().export()["counters"]
     finally:
-        attn.COUNTS.reset()
+        COUNTS.reset()
     assert {k: counters[k] for k in tracing.KERNEL_COUNTERS} == {
         "group_norm_launches": 3, "group_norm_library_calls": 2, "launches": 0,
         "plain_self_sites": 0, "adamw_launches": 0}
@@ -331,6 +331,6 @@ def test_ptxas_instances_read_the_group_norm_kernels():
            "_PKvS5_iNS_8PartialsEPS1_NS_8GeometryEfi' for 'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
            "ptxas info    : Used 32 registers, 400 bytes cmem[0]\n")
-    found = attn.ptxas_instances(log)
+    found = ptxas_instances(log)
     assert [f[0] for f in found] == ["group_norm_stats_kernel<bf16>",
                                      "group_norm_apply_kernel<float>"]

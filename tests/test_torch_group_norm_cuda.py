@@ -26,7 +26,7 @@ import torch
 
 from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.models import layers
-from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS
 from riffusion_tpu_torch.ops import group_norm as gn
 from riffusion_tpu_torch.util import torch_util
 
@@ -56,10 +56,10 @@ def card():
 def test_kernel_against_plain(card, b, c, h, w, dtype):
     x, weight, bias = gn.check_inputs(b, c, h, w, dtype, card, seed=c + h + b)
     for silu in (True, False):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         out = gn.group_norm(x, weight, bias, 32, 1e-5, silu=silu)
         torch.cuda.synchronize()
-        assert attn.COUNTS.group_norm_launches == 1 and attn.COUNTS.group_norm_plain_calls == 0
+        assert COUNTS.group_norm_launches == 1 and COUNTS.group_norm_plain_calls == 0
         assert out.is_contiguous(memory_format=torch.channels_last) and out.dtype == dtype
         ref = gn.group_norm_reference(x, weight, bias, 32, 1e-5, silu=silu)
         max_abs, rel_rms, ok = gn.compare_to_plain(out, ref)
@@ -109,9 +109,9 @@ def test_full_request_graph_counts_and_layout(card, monkeypatch):
     vae_sites = sum(isinstance(m, layers.GroupNorm) for m in pipe.vae.modules())
 
     def run():
-        attn.COUNTS.reset()
+        COUNTS.reset()
         image, segment = pipe.riffuse_audio(_request(), seed, params=params, scheduler="pndm")
-        counts = attn.COUNTS.snapshot()
+        counts = COUNTS.snapshot()
         assert counts["group_norm_launches"] == 61 * evaluations == 2318, counts
         assert counts["group_norm_library_calls"] == vae_sites, counts
         return np.asarray(image), segment.raw_data
@@ -144,9 +144,9 @@ def test_training_step_takes_no_nhwc_group_norm(card):
     trainer = DiffusionTrainer(device=card, dtype=torch.bfloat16)
     trainer.init_from(random_bundle("tiny", seed=0, device=card).unet)
     gen = torch.Generator(device=card).manual_seed(0)
-    attn.COUNTS.reset()
+    COUNTS.reset()
     for _ in range(2):
         trainer.step(latents=torch.randn(2, 32, 32, 4, generator=gen, device=card),
                      context=torch.randn(2, 77, 64, generator=gen, device=card))
     torch.cuda.synchronize()
-    assert attn.COUNTS.group_norm_launches == 0 and attn.COUNTS.group_norm_library_calls > 0
+    assert COUNTS.group_norm_launches == 0 and COUNTS.group_norm_library_calls > 0

@@ -9,8 +9,8 @@ another runs the command line and the embedding disk cache.
 A third drives the playground's modules, the audio engine, the stem
 splitter and fft_util with an import hook that records every attempt to
 import JAX or the JAX package (none may be made).
-Also a static check that no source of the port, nor chip_smoke.py or
-scripts/profile_torch_request.py, imports them, that the port calls no
+Also a static check that no source of the port, nor chip_smoke.py,
+imports them, that the port calls no
 library attention or compiler, and that no module of the port imports
 streamlit at module level (the playground imports it inside render()).
 """
@@ -210,7 +210,7 @@ def test_sources_import_no_jax_and_no_library_attention():
     banned = re.compile(r"scaled_dot_product_attention|torch\.compile")
     sources = sorted(PACKAGE.rglob("*.py"))
     assert len(sources) > 10
-    for path in sources + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_request.py"]:
+    for path in sources + [REPO / "chip_smoke.py"]:
         text = path.read_text()
         # the top-level name exactly: riffusion_tpu_torch is the port itself
         assert not _imported_top_levels(text) & BANNED_IMPORTS, path

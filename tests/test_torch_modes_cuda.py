@@ -22,7 +22,7 @@ from riffusion_tpu_torch import embed_cache
 from riffusion_tpu_torch.datatypes import InferenceInput, PromptInput
 from riffusion_tpu_torch.diffusion import schedulers as sched
 from riffusion_tpu_torch.models.weights import random_bundle
-from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS, FORWARD_KERNELS, built_on_disk
 from riffusion_tpu_torch.riffusion_pipeline import FixedNoise, RiffusionPipeline
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
 
@@ -50,10 +50,10 @@ def _agree(a_img, b_img):
 
 
 def _on_card(fn):
-    attn.COUNTS.reset()
+    COUNTS.reset()
     out = fn()
     torch.cuda.synchronize()
-    assert attn.COUNTS.launches > 0 and attn.COUNTS.plain_calls == 0, attn.COUNTS
+    assert COUNTS.launches > 0 and COUNTS.plain_calls == 0, COUNTS
     return out
 
 
@@ -117,7 +117,7 @@ def test_warmstart_report_on_the_card(pipes):
     params = SpectrogramParams(num_frequencies=SIZE)
     first = gpu.warmstart_report(inputs, image, params=params)
     assert first["kernel_source"] in ("built", "cached") and first["kernel_build_s"] >= 0
-    assert attn.built_on_disk(attn.FORWARD_KERNELS)
+    assert built_on_disk(FORWARD_KERNELS)
     second = gpu.warmstart_report(inputs, image, params=params)
     assert second["kernel_source"] == "cached"
     for report in (first, second):

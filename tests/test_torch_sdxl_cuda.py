@@ -11,7 +11,7 @@ weights:
 - one 512 x 2048 request (Euler at 4 steps and strength 0.75: 3
   evaluations) captured and then replayed: K1 takes all 70 self-attention
   sites of every evaluation and no site falls to the plain composition, as
-  ops.attention.COUNTS and tracing.export()'s counters read them.
+  ops.kernels.COUNTS and tracing.export()'s counters read them.
 Every test is marked `cuda` and skips where torch sees no card. No jax
 import, so it runs on a card machine:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_sdxl_cuda.py
@@ -37,6 +37,7 @@ from riffusion_tpu_torch.models.tokenizer import HashTokenizer
 from riffusion_tpu_torch.models.unet import UNet2DCondition, UNetXLConfig
 from riffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS
 from riffusion_tpu_torch.ops import group_norm as gn
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 from riffusion_tpu_torch.spectrogram_params import SpectrogramParams
@@ -68,10 +69,10 @@ def test_k1_at_sdxl_sites(card, s, h):
             for _ in range(2))
     v = (2 * torch.rand(2, s, h * 64, generator=gen, device=card) - 1).to(torch.bfloat16)
     assert attn.route(2, s, 64, True) == "flash"
-    attn.COUNTS.reset()
+    COUNTS.reset()
     out = attn.attention(q, k, v, num_heads=h, scale=64 ** -0.5)
     torch.cuda.synchronize()
-    assert (attn.COUNTS.launches, attn.COUNTS.plain_calls) == (1, 0)
+    assert (COUNTS.launches, COUNTS.plain_calls) == (1, 0)
     ref = attn.attention_reference(q, k, v, num_heads=h, scale=64 ** -0.5)
     max_abs, rel_rms, ok = attn.compare_to_plain(out, ref)
     assert ok, (max_abs, rel_rms)
@@ -81,10 +82,10 @@ def test_k1_at_sdxl_sites(card, s, h):
 def test_group_norm_kernel_at_sdxl_sites(card, c, h, w):
     x, weight, bias = gn.check_inputs(2, c, h, w, torch.bfloat16, card, seed=c + h)
     for silu in (True, False):
-        attn.COUNTS.reset()
+        COUNTS.reset()
         out = gn.group_norm(x, weight, bias, 32, 1e-5, silu=silu)
         torch.cuda.synchronize()
-        assert attn.COUNTS.group_norm_launches == 1 and attn.COUNTS.group_norm_plain_calls == 0
+        assert COUNTS.group_norm_launches == 1 and COUNTS.group_norm_plain_calls == 0
         ref = gn.group_norm_reference(x, weight, bias, 32, 1e-5, silu=silu)
         max_abs, rel_rms, ok = gn.compare_to_plain(out, ref)
         assert ok, (silu, max_abs, rel_rms)
@@ -123,10 +124,10 @@ def test_a_request_runs_k1_at_every_self_attention_site(card, monkeypatch):
     params = SpectrogramParams(min_frequency=0, max_frequency=10000, num_frequencies=512)
     images = []
     for _ in range(2):  # the capturing call, then a replay
-        attn.COUNTS.reset()
+        COUNTS.reset()
         before = tracing.export()["counters"]["launches"]
         image, segment = pipe.riffuse_audio(inputs, seed, params=params)
-        counts = attn.COUNTS.snapshot()
+        counts = COUNTS.snapshot()
         assert counts["launches"] == SELF_ATTENTION_SITES * evaluations, counts
         assert counts["plain_self_sites"] == 0 and counts["row_launches"] == 0, counts
         assert counts["group_norm_launches"] == norms * evaluations, counts

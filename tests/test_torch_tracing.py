@@ -20,12 +20,13 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch.autograd import DeviceType
 
 from torch_port_util import torch_one_thread  # noqa: F401  (autouse)
 from riffusion_tpu_torch import aot, tracing
 from riffusion_tpu_torch import server as server_mod
 from riffusion_tpu_torch.models.weights import random_bundle
-from riffusion_tpu_torch.ops import attention
+from riffusion_tpu_torch.ops.kernels import COUNTS
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
 from riffusion_tpu_torch.riffusion_pipeline import RiffusionPipeline
 from riffusion_tpu_torch.training.finetune import ema_update
@@ -229,7 +230,7 @@ def test_a_capture_records_two_events_a_stage_only_with_the_switch(monkeypatch, 
     else:
         monkeypatch.setenv("RIFFUSION_TPU_TRACE", switch)
     tracing.reset()
-    attention.COUNTS.reset()
+    COUNTS.reset()
     graphs = StandInGraphs()
     program = aot.GraphProgram(_staged, "staged", graphs=graphs)
     args = (torch.ones(3), torch.zeros(3))
@@ -367,21 +368,22 @@ def test_a_dataset_batch_span(traced, tmp_path):
     assert len({s["id"] for s in spans}) == 3
 
 
-def _device_event(name, start, end):
-    """A profiler's device event, as profile_train reads one."""
-    return types.SimpleNamespace(name=name, time_range=types.SimpleNamespace(
-        start=start, end=end, elapsed_us=lambda: end - start))
+def _device_event(name, start, end, device_type=DeviceType.CUDA, is_user_annotation=False):
+    """A profiler's device event, as riffusion_tpu_torch.profile reads one."""
+    return types.SimpleNamespace(
+        name=name, device_type=device_type, is_user_annotation=is_user_annotation,
+        time_range=types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start))
 
 
 def test_profile_train_parts_keep_the_backward():
-    """profile_train's parts of an eager step, on the device ranges a card
+    """The train profile's parts of an eager step, on the device ranges a card
     gives (µs): the spans around the stages (the step, its upload, the
     launches) contain every kernel, yet take none; the backward's kernels,
     launched on autograd's thread, start in no stage's range and form their
     own part; AdamW's kernels lie in its own annotation's range (the
     innermost), not in riffusion.train.optimizer's, and count as that
     stage's."""
-    from riffusion_tpu_torch import profile_train
+    from riffusion_tpu_torch import profile
 
     annotations = [_device_event(*a) for a in (
         ("riffusion.train.step", 0, 90), ("riffusion.train.upload", 0, 5),
@@ -392,11 +394,49 @@ def test_profile_train_parts_keep_the_backward():
         ("riffusion.train.ema", 96, 99))]
     kernels = [_device_event("k", *k) for k in (
         (6, 8), (12, 20), (30, 31), (32, 40), (41, 55), (61, 65), (72, 80), (96, 99))]
-    assert profile_train.kernel_ms_by_part(annotations, kernels) == {
+    assert profile.kernel_ms_by_part(annotations, kernels) == {
         "riffusion.train.copy": 2e-3, "riffusion.train.forward": 8e-3,
-        "riffusion.train.backward": 1e-3, profile_train.BACKWARD: 22e-3,
+        "riffusion.train.backward": 1e-3, profile.BACKWARD: 22e-3,
         "riffusion.train.grads": 4e-3, "riffusion.train.optimizer": 8e-3,
         "riffusion.train.ema": 3e-3}
+
+
+def test_profile_device_summary():
+    """The profiler's summary of a window, on a card's event layout (µs):
+    the busy time is the kernels' and copies' time, not the device ranges
+    of the annotations around them; the riffusion.* spans keep their host
+    and device time apart; a kernel's time goes to the table's __global__
+    name it runs, whatever the instance's template arguments; the top
+    kernels come by time."""
+    from riffusion_tpu_torch import profile
+
+    host = DeviceType.CPU
+    bf16_48 = "void riff::attention_fwd_bf16_kernel<48, 40, 2, false>(riff::Params)"
+    bf16_80 = "void riff::attention_fwd_bf16_kernel<80, 80, 2, false>(riff::Params)"
+    events = [_device_event(*e) for e in (
+        ("riffusion.denoise", 0, 900, host), ("riffusion.denoise", 10, 800),
+        ("riffusion.vae_decode", 900, 1000, host),
+        ("Optimizer.step#AdamW.step", 0, 1000, DeviceType.CUDA, True),
+        (bf16_48, 10, 110), (bf16_80, 120, 170),
+        ("void riffgn::group_norm_apply_kernel<__nv_bfloat16>(x)", 200, 220),
+        ("void riffgn::group_norm_apply_kernel<__nv_bfloat16>(x)", 230, 250),
+        ("sm90_xmma_gemm_bf16bf16_bf16f32", 300, 700),
+        ("Memcpy HtoD (Pageable -> Device)", 800, 810))]
+    out = profile.device_summary(types.SimpleNamespace(events=lambda: events), 2e-3)
+    assert out["device_busy_ms"] == pytest.approx(0.6)
+    assert out["device_idle_share"] == pytest.approx(0.7)
+    assert out["device_ops"] == 6
+    assert out["stages"] == {"riffusion.denoise": {"host_span_ms": 0.9, "device_span_ms": 0.79},
+                             "riffusion.vae_decode": {"host_span_ms": 0.1}}
+    assert list(out["kernel_ms"]) == ["attention_fwd_bf16_kernel", "group_norm_apply_kernel"]
+    assert out["kernel_ms"]["attention_fwd_bf16_kernel"]["ms"] == pytest.approx(0.15)
+    assert out["kernel_ms"]["group_norm_apply_kernel"] == {"ms": pytest.approx(0.04), "count": 2}
+    assert [(k["name"], k["count"]) for k in out["top_kernels"]] == [
+        ("sm90_xmma_gemm_bf16bf16_bf16f32", 1), (bf16_48, 1), (bf16_80, 1),
+        ("void riffgn::group_norm_apply_kernel<__nv_bfloat16>(x)", 2),
+        ("Memcpy HtoD (Pageable -> Device)", 1)]
+    idle = profile.device_summary(types.SimpleNamespace(events=lambda: events[:3]), 2e-3)
+    assert (idle["device_ops"], idle["device_idle_share"]) == (0, None)
 
 
 def test_export_is_plain_data(traced):

@@ -6,7 +6,7 @@ exactly two nodes more a stage; the stage times read after replays are
 positive and sum to no more than the replay's own elapsed time (events
 recorded around the replay, outside the graph). For a small program, the
 tiny model's request, and the tiny trainer's step and EMA update. And
-profile_train's part breakdown of an eager step keeps the backward's
+the train profile's part breakdown of an eager step keeps the backward's
 kernels apart, though the step's outer spans enclose them. Every test is
 marked `cuda` and skips where torch sees no card. No jax import,
 so it runs on a card machine:
@@ -210,14 +210,14 @@ def test_the_train_graphs_time_their_stages(card, monkeypatch):
 
 
 def test_an_eager_steps_parts_keep_the_backward(card, monkeypatch):
-    """profile_train's part breakdown of an eager step of the tiny trainer
+    """The train profile's part breakdown of an eager step of the tiny trainer
     at bf16 compute, with its EMA update, under the profiler: the backward's
     kernels, launched on autograd's thread, still form a part of their own
     beside the stages', and the spans around the stages (the step, its
     upload, the launches) take no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from riffusion_tpu_torch import profile_train
+    from riffusion_tpu_torch import profile as port_profile
 
     monkeypatch.setenv("RIFFUSION_TPU_NO_AOT", "1")
     _switch(monkeypatch, False)
@@ -239,10 +239,10 @@ def test_an_eager_steps_parts_keep_the_backward(card, monkeypatch):
     step()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
-    annotations, kernels = profile_train.device_events(prof)
-    parts = profile_train.kernel_ms_by_part(annotations, kernels)
-    assert set(parts) <= set(profile_train.STAGES) | {profile_train.BACKWARD}, parts
-    for part in (profile_train.BACKWARD, "riffusion.train.copy", "riffusion.train.forward",
+    annotations, kernels = port_profile.device_events(prof)
+    parts = port_profile.kernel_ms_by_part(annotations, kernels)
+    assert set(parts) <= set(port_profile.STAGES) | {port_profile.BACKWARD}, parts
+    for part in (port_profile.BACKWARD, "riffusion.train.copy", "riffusion.train.forward",
                  "riffusion.train.optimizer", "riffusion.train.ema"):
         assert parts.get(part, 0.0) > 0, (part, parts)
     # on one card the optimizer reads the working copy's gradients: no hand-off

@@ -48,7 +48,7 @@ from riffusion_tpu_torch import aot
 from riffusion_tpu_torch.models.layers import precise
 from riffusion_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from riffusion_tpu_torch.models.weights import random_bundle, state_dict_from_jax
-from riffusion_tpu_torch.ops import attention
+from riffusion_tpu_torch.ops.kernels import COUNTS, Counts
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
 from riffusion_tpu_torch.training.finetune import ema_update
 
@@ -235,9 +235,9 @@ class StateGraphs(aot.CudaGraphs):
         fn, args, outputs, addresses = graph
         if [t.data_ptr() for t in self.state()] != addresses:
             raise RuntimeError("a replay would read state tensors replaced since its capture")
-        before = attention.COUNTS.snapshot()
+        before = COUNTS.snapshot()
         fresh = fn(*args)
-        attention.COUNTS.restore(before)
+        COUNTS.restore(before)
         for static, x in zip(aot._tensors(outputs), aot._tensors(fresh)):
             static.copy_(x)
         self.replays += 1
@@ -271,11 +271,11 @@ def _run(trainer, steps, ema=None, decay=0.9, start=0):
                                         decay))
     losses, counts = [], []
     for step in range(start, start + steps):
-        attention.COUNTS.reset()
+        COUNTS.reset()
         losses.append(trainer.step(latents, context, generator=_generator(step)))
         if ema_step is not None:
             ema_step()
-        c = attention.COUNTS
+        c = COUNTS
         counts.append((c.plain_calls, c.launches, c.bwd_dkv_launches, c.bwd_dq_launches))
     return losses, counts
 
@@ -392,20 +392,20 @@ def test_a_host_sync_in_the_step_fails_its_capture(store_on, monkeypatch):
     assert graphs.replays == 0
 
 
-@pytest.mark.parametrize("counter", [f.name for f in dataclasses.fields(attention.Counts)])
+@pytest.mark.parametrize("counter", [f.name for f in dataclasses.fields(Counts)])
 def test_every_counter_comes_back_with_each_replay(counter):
     """A replay runs no Python: what the capture counted, the backward
     kernels' counters among them, is added again on every replay, and the
     capture's own counts are taken back."""
     def program(x):
-        setattr(attention.COUNTS, counter, getattr(attention.COUNTS, counter) + 1)
+        setattr(COUNTS, counter, getattr(COUNTS, counter) + 1)
         return x * 2.0
 
     graph = aot.GraphProgram(program, "k", graphs=StateGraphs(lambda: []))
     for _ in range(3):  # the capturing call, then two replays
-        attention.COUNTS.reset()
+        COUNTS.reset()
         assert torch.equal(graph(torch.ones(2)), torch.full((2,), 2.0))
-        assert attention.COUNTS.snapshot() == dict(attention.Counts().snapshot(), **{counter: 1})
+        assert COUNTS.snapshot() == dict(Counts().snapshot(), **{counter: 1})
     assert (graph.graphs.captures, graph.graphs.replays) == (1, 2)
 
 

@@ -28,7 +28,7 @@ import torch
 
 from riffusion_tpu_torch import aot
 from riffusion_tpu_torch.models.weights import random_bundle
-from riffusion_tpu_torch.ops import attention as attn
+from riffusion_tpu_torch.ops.kernels import COUNTS
 from riffusion_tpu_torch.parallel.train import DiffusionTrainer
 from riffusion_tpu_torch.training.finetune import ema_update
 from riffusion_tpu_torch.util import torch_util
@@ -69,11 +69,11 @@ def _steps(trainer, card, steps, start=0, ema=None):
     losses, counts = [], []
     for step in range(start, start + steps):
         gen.manual_seed(1000 + step)
-        attn.COUNTS.reset()
+        COUNTS.reset()
         losses.append(trainer.step(latents, context, generator=gen))
         if ema_step is not None:
             ema_step()
-        c = attn.COUNTS
+        c = COUNTS
         counts.append((c.launches, c.bwd_dkv_launches, c.bwd_dq_launches, c.plain_calls))
     torch.cuda.synchronize()
     return [float(x) for x in losses], counts
