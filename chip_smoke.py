@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    step's sites (tp 2: (4, 4096, 4*40), (4, 1024, 4*80); seq 2: queries
    (4, 2048 | 512, 8*d) against keys (4, 4096 | 1024, 8*d)); both at the tile edges of the bf16
    body they share (s_q 129, s_kv 191; K1 also s_q 65), one K/V tile
-   (s = 64) and d = 24. Times (CUDA events, median of 20) K1, plain and
+   (s = 64) and d = 24. K1's serving forward at d = 40, 64 and 80 runs its
+   warp-specialised body (csrc/attention_fwd_ws.cuh), which K1's cases also
+   hold at SDXL's (2, 4096, 10*64) and (2, 1024, 20*64) and at that body's
+   tile edges (s 127 and 129 about its 128-row tiles, one K/V tile, a
+   ragged last one); d = 32 cases (a path's length, large logits, tile
+   edges, one K/V tile) keep K1's cases on the shared body too. Times (CUDA events, median of 20) K1, plain and
    torch's scaled_dot_product_attention (the library yardstick, never
    called by the port) at the two single-path shapes and at K1's batched
    site (32, 1024, 8*80), and K2, plain and the library at
@@ -257,7 +262,9 @@ parallel-train: the sharded fine-tuning step (parallel/train.py
 the kernel sources and shows that the checks of every kernel it touches
 (the adamw phase's check for the AdamW kernel's) reject it
 (tests/test_torch_kernel_sources.py holds each fault's text to its source
-on the CPU).
+on the CPU). The faults of K1's warp-specialised body are checked in a
+child process (`--mutant-check I KERNEL`) with a time limit: a failed
+case, an error on the card or a hang rejects them.
 
 Each phase's seconds are printed ("[time]"). The pipelines' text-embedding
 disk cache lives under .chipwork/ and is deleted at the end. The last two
@@ -373,8 +380,9 @@ K1_CASES = (
     ("ragged d32", 1, 1000, 1000, 2, 32, "bf16", 1.0),
     ("ragged d128 s_kv 777", 1, 1000, 777, 2, 128, "bf16", 1.0),
     ("large logits d40", 1, 1024, 1024, 2, 40, "bf16", 8.0),
-    # tile edges of the bf16 body (attention_fwd.cuh, K2's too: 128 query
-    # rows a block, 64-row K/V tiles), one K/V tile, d = 24 (pads to 32)
+    # tile edges of the bf16 bodies (K1 at d = 40 runs attention_fwd_ws.cuh,
+    # K2 attention_fwd.cuh: 128 query rows a block, 128- and 64-row K/V
+    # tiles), one K/V tile, d = 24 (pads to 32, attention_fwd.cuh)
     ("tile edges d40 s_q 129 s_kv 191", 2, 129, 191, 2, 40, "bf16", 1.0),
     ("tile edges d40 s_q 65 s_kv 191", 2, 65, 191, 2, 40, "bf16", 1.0),
     ("one tile d40 s 64", 16, 64, 64, 8, 40, "bf16", 1.0),
@@ -386,6 +394,24 @@ K1_CASES = (
     ("path tp d80", 4, 1024, 1024, 4, 80, "bf16", 1.0),
     ("path seq d40", 4, 2048, 4096, 8, 40, "bf16", 1.0),
     ("path seq d80", 4, 512, 1024, 8, 80, "bf16", 1.0),
+    # SDXL's sites (d = 64, the warp-specialised body) and that body's tile
+    # edges: 128 query rows a block, 128-row K/V tiles, so s 127 and 129
+    # fall one short of and one past a tile, s_kv 128 is one K/V tile and
+    # s_kv 300 ends in a ragged tile
+    ("path sdxl seq-4096 d64", 2, 4096, 4096, 10, 64, "bf16", 1.0),
+    ("path sdxl seq-1024 d64", 2, 1024, 1024, 20, 64, "bf16", 1.0),
+    ("ws tile edges d64 s_q 127 s_kv 129", 2, 127, 129, 4, 64, "bf16", 1.0),
+    ("ws tile edges d64 s_q 129 s_kv 127", 2, 129, 127, 4, 64, "bf16", 1.0),
+    ("ws one tile d64 s_kv 128", 3, 200, 128, 2, 64, "bf16", 1.0),
+    ("ws ragged last tile d80 s_kv 300", 2, 256, 300, 2, 80, "bf16", 1.0),
+    ("ws large logits d64", 1, 1024, 1024, 2, 64, "bf16", 8.0),
+    # a width that keeps attention_fwd.cuh's body (K2's): at a path's
+    # length, large logits, its tile edges and one K/V tile (read as soon as
+    # its copies land), so that its planted faults meet K1's cases there too
+    ("fwd body d32 s 4096", 2, 4096, 4096, 8, 32, "bf16", 1.0),
+    ("fwd body large logits d32", 1, 1024, 1024, 2, 32, "bf16", 8.0),
+    ("fwd body tile edges d32 s_q 129 s_kv 191", 2, 129, 191, 2, 32, "bf16", 1.0),
+    ("fwd body one tile d32 s 64", 16, 64, 64, 8, 32, "bf16", 1.0),
 )
 K2_CASES = (
     ("path batch-16 site", 32, 4096, 4096, 8, 40, "bf16", 1.0),
@@ -500,7 +526,27 @@ MUTANTS = (
      "if (b.chunk_end[mid] > c) {", "if (b.chunk_end[mid] >= c) {", ("adamw",)),
     ("each leaf's step count read from its launch's first leaf", "adamw.cu",
      "const float s = *b.step[i] + 1.0f;", "const float s = *b.step[0] + 1.0f;", ("adamw",)),
+    # K1's warp-specialised body (serving's bf16 forward at d = 40, 64 and
+    # 80): a consumer waiting for a K/V tile's loads on the wrong phase (it
+    # reads the tile before it lands, or waits for a load that needs its own
+    # release first and hangs), V read K-major, and the pad of d = 40 (S
+    # reduces over 48 columns) taken from the next head's columns
+    ("K1 ws: a K/V tile's full barrier waited on one phase off", "attention_fwd_ws.cuh",
+     "mbar_wait(&full[it % STAGES], (it / STAGES) & 1);",
+     "mbar_wait(&full[it % STAGES], (it / STAGES + 1) & 1);", ("attention",)),
+    ("K1 ws: the transpose bit of V dropped in O += P V", "attention_fwd_ws.cuh",
+     "Wgmma<DN>::template rs<kMnMajor>(&acc[0][0], pa[kk], v_desc(s_v, kk));",
+     "Wgmma<DN>::template rs<0>(&acc[0][0], pa[kk], v_desc(s_v, kk));", ("attention",)),
+    ("K1 ws: the d-pad loaded from the next head instead of zero-filled", "attention_fwd_ws.cuh",
+     "const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)seq,",
+     "const cuuint64_t dims[4] = {(cuuint64_t)(head_dim + 15) / 16 * 16, (cuuint64_t)seq,",
+     ("attention",)),
 )
+# The mutants of these files are checked in a child process with a time
+# limit: a fault of the warp-specialised pipeline can hang its kernel or
+# fault the card, and either rejects it.
+ISOLATED_MUTANT_FILES = ("attention_fwd_ws.cuh",)
+ISOLATED_MUTANT_SECONDS = 120
 FORWARD_CASES = {"attention": K1_CASES, "row_attention": K2_CASES}
 
 # The NHWC GroupNorm's cases: each GroupNorm site of the SD v1 UNet at a
@@ -1024,7 +1070,7 @@ def phase_mutants(torch, attn) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     passed, leaves = [], []
     for i, (what, file, old, new, kernels) in enumerate(MUTANTS):
-        src = ops_kernels.BUILD_DIR / "mutants" / str(i)
+        src = _mutant_sources(i)
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(ops_kernels.CSRC, src, ignore=shutil.ignore_patterns("build"))
         header = src / file
@@ -1033,6 +1079,11 @@ def phase_mutants(torch, attn) -> None:
             raise AssertionError(f"mutant {what!r}: its text is not in {file} once")
         header.write_text(text.replace(old, new))
         ops_kernels.build_kernels(csrc=src)
+        if file in ISOLATED_MUTANT_FILES:
+            for name in kernels:
+                if _isolated_mutant_passed(i, what, name):
+                    passed.append(f"{what} ({name})")
+            continue
         if "group_norm" in kernels:
             from riffusion_tpu_torch.ops import group_norm as gn
 
@@ -1072,6 +1123,47 @@ def phase_mutants(torch, attn) -> None:
     ops_kernels.build_kernels()
     if passed:
         raise AssertionError(f"the kernel checks let mutants through: {passed}")
+
+
+def _mutant_sources(i: int) -> Path:
+    return ops_kernels.BUILD_DIR / "mutants" / str(i)
+
+
+def _isolated_mutant_passed(i: int, what: str, name: str) -> bool:
+    """Whether forward kernel `name` built from mutant i's sources passes
+    its bf16 cases in a child process (`--mutant-check I NAME`); a failed
+    check, a CUDA error or a hang past ISOLATED_MUTANT_SECONDS rejects it."""
+    cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--mutant-check", str(i), name]
+    try:
+        rc = subprocess.run(cmd, timeout=ISOLATED_MUTANT_SECONDS).returncode
+    except subprocess.TimeoutExpired:
+        log(f"[mutants] {what}: {name} rejected (no result in {ISOLATED_MUTANT_SECONDS} s: "
+            "the kernel hung)")
+        return False
+    if rc == 0:
+        log(f"[mutants] {what}: {name} PASSED the check")
+        return True
+    log(f"[mutants] {what}: {name} rejected (child exit {rc}: "
+        f"{'a case failed' if rc == MUTANT_REJECTED else 'an error'})")
+    return False
+
+
+MUTANT_REJECTED = 3  # mutant_check's exit code for a failed case
+
+
+def mutant_check(torch, attn, i: int, name: str) -> int:
+    """The child of _isolated_mutant_passed: 0 if `name`, loaded from
+    mutant i's sources (already built), passes its bf16 cases,
+    MUTANT_REJECTED if a case fails."""
+    ops_kernels.build_kernels(csrc=_mutant_sources(i))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        _check_cases(torch, attn, getattr(attn, name),
+                     [c for c in FORWARD_CASES[name] if c[6] == "bf16"], gen)
+    except AssertionError as e:
+        log(f"[mutants] child: {name} rejected ({e})")
+        return MUTANT_REJECTED
+    return 0
 
 
 def phase_dsp(torch) -> None:
@@ -1955,10 +2047,12 @@ def _request(i: int, steps: int = 50, denoising: float = 0.75) -> dict:
 
 
 def _expect_counts(what: str, launches: int, rows: int) -> None:
-    got = (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls)
-    if got != (launches, rows, 0):
-        raise AssertionError(f"{what}: (K1, K2, plain) launches {got}, expected "
-                             f"{(launches, rows, 0)}")
+    """K1's, K2's and plain calls as expected, every K1 launch of a serving
+    path on the warp-specialised body (d = 40, 64, 80 without the LSE)."""
+    got = (COUNTS.launches, COUNTS.row_launches, COUNTS.plain_calls, COUNTS.k1_ws_launches)
+    if got != (launches, rows, 0, launches):
+        raise AssertionError(f"{what}: (K1, K2, plain, K1 on the warp-specialised body) "
+                             f"launches {got}, expected {(launches, rows, 0, launches)}")
 
 
 def _serve(server):
@@ -3272,15 +3366,20 @@ def main(argv=None) -> int:
     parser.add_argument("--mutants", action="store_true",
                         help="instead of the smoke: build each planted fault of the kernel "
                              "body (MUTANTS) and show that the kernel check rejects it")
+    parser.add_argument("--mutant-check", nargs=2, metavar=("I", "KERNEL"),
+                        help="(--mutants' child) check KERNEL built from mutant I's sources")
     args = parser.parse_args(argv)
 
     import torch
 
-    smi, clock_hz = phase_card(torch)
     sys.path.insert(0, str(REPO))
     from riffusion_tpu_torch.ops import attention as attn
     from riffusion_tpu_torch.util import torch_util
 
+    if args.mutant_check:
+        torch_util.configure_numerics()
+        return mutant_check(torch, attn, int(args.mutant_check[0]), args.mutant_check[1])
+    smi, clock_hz = phase_card(torch)
     torch_util.configure_numerics()
     phase_build()
     if args.mutants:

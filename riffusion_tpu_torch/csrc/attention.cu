@@ -49,20 +49,32 @@
 // FMA, one thread per query row, the same online softmax) exists so the
 // kernel can be held against its plain version at fp32 tolerance; the
 // serving and training paths run the bf16 instances.
+//
+// The serving forward at d = 64 (SDXL's 70 self-attention sites) runs
+// attention_fwd_ws.cuh's warp-specialised body instead, which overlaps the
+// exponentials with the products (that file says how); ops/attention.py
+// routes by head width and passes the choice as `body` (1: that body, 0:
+// attention_fwd.cuh's). The LSE instances (training) stay on
+// attention_fwd.cuh.
 
 #include "attention_fwd.cuh"
+#include "attention_fwd_ws.cuh"
 
 extern "C" int riff_attention_forward(const void* q, const void* k, const void* v, void* o,
                                       float* lse, long long q_sb, long long q_ss, long long k_sb,
                                       long long k_ss, long long v_sb, long long v_ss,
                                       long long o_sb, long long o_ss, int batch, int s_q,
                                       int s_kv, int num_heads, int head_dim, float scale,
-                                      int dtype, int device, void* stream) {
+                                      int dtype, int device, void* stream, int body) {
   riff::Params p;
   const int rc = riff::fwd_params(p, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
                                   o_ss, batch, s_q, s_kv, num_heads, head_dim, scale, dtype,
                                   device);
   if (rc != 0) return rc;
+  if (body == 1) {
+    return dtype == 0 ? riff::fwd_ws_launch(p, batch, num_heads, stream)
+                      : (int)cudaErrorInvalidValue;
+  }
   return lse != nullptr ? riff::fwd_launch<2, true>(p, dtype, batch, num_heads, stream)
                         : riff::fwd_launch<2, false>(p, dtype, batch, num_heads, stream);
 }

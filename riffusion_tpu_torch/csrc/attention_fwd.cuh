@@ -2,7 +2,9 @@
 // O = softmax(Q K^T * scale) V over packed (b, s, h*d) operands:
 // attention_fwd_bf16_kernel, and the host code that launches it. K1
 // (attention.cu) launches it with the log-sum-exp write when training asks
-// for it, K2 (row_attention.cu) without; both with two warpgroups per block
+// for it and at the widths its warp-specialised serving body
+// (attention_fwd_ws.cuh: d = 40, 64, 80) does not take, K2
+// (row_attention.cu) without; both with two warpgroups per block
 // (attention.cu gives the times of one against two). Their fp32
 // check instances are attention_common.cuh's attention_f32_kernel. The
 // Hopper building blocks (cp.async tile copies, descriptors, wgmma, ex2) are
@@ -52,7 +54,8 @@
 // SM at d = 40; the next tile's S in the tensor cores while this tile's
 // exponentials run (FA3's overlap inside a warpgroup, with a second set of
 // S accumulators, 120 registers); the previous tile's P V in the tensor
-// cores during them. No TMA, warp specialisation or clusters yet.
+// cores during them. No TMA or warp specialisation here: K1's serving
+// forward has both (attention_fwd_ws.cuh), which the overlap needed.
 
 #pragma once
 

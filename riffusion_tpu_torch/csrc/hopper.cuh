@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks of the bf16 kernel bodies, the backward's
-// (attention_bwd.cuh) and K2's forward (attention_fwd.cuh): cp.async copies
-// into shared memory and the tile copies built on them, the shared-memory
-// matrix descriptor, warpgroup matrix multiply (wgmma.mma_async) with its
-// fences, and the SFU's exp2. PTX only; no library.
+// (attention_bwd.cuh) and the forward's (attention_fwd.cuh, and K1's
+// warp-specialised attention_fwd_ws.cuh): cp.async copies into shared
+// memory and the tile copies built on them, the shared-memory matrix
+// descriptors, warpgroup matrix multiply (wgmma.mma_async) with its fences,
+// the SFU's exp2, and the parts of a warp-specialised pipeline: mbarriers,
+// TMA tile loads, named barriers and setmaxnreg. PTX only; no library (the
+// driver's cuda.h is read for the tensor-map type alone).
 //
 // A shared-memory operand of wgmma is described by a 64-bit descriptor:
 // the start address, the leading and the stride byte offsets (each >> 4),
@@ -16,9 +19,18 @@
 // - MN-major (M or N contiguous, selected by the instruction's transpose
 //   bit): SBO = the step to the next 8 columns along M or N, LBO = the step
 //   to the next 8 rows along K.
+// With the 128-byte swizzle (what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
+// writes) an operand is rows of 128 bytes, the 16-byte chunks of row r
+// stored at chunk index c ^ (r % 8), in atoms of 8 rows (1024 bytes,
+// 1024-aligned):
+// - K-major: a row is 64 bf16 of K; SBO = 1024, the step to the next 8 rows
+//   along M or N; a k16 step within the row moves the start 32 bytes on.
+// - MN-major: a row is 64 bf16 of M or N; SBO = 1024, the step to the next
+//   8 rows along K; LBO = the step to the next 64 columns along M or N.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +81,12 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
 // The descriptor of the same operand `bytes` further on (a multiple of 16).
 __device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
+}
+
+// A 128-byte-swizzle descriptor of the operand starting at `p` (in a
+// 1024-aligned atom, or 32-byte steps into one along K).
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p, uint32_t lbo) {
+  return smem_desc(p, lbo, 1024) | static_cast<uint64_t>(1) << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -148,6 +166,81 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The warp-specialised pipeline. An mbarrier (8 bytes of shared memory)
+// completes a phase when its expected arrivals have arrived and the bytes
+// it was told to expect (expect_tx) have landed; a wait names the parity of
+// the phase it waits for (0 for the first). A TMA load copies a box of a
+// tensor map into shared memory and counts its bytes on an mbarrier; parts
+// of the box outside the tensor are written as zeros.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+
+// Make the initialised mbarriers visible to the async proxy (TMA) and the
+// block; a __syncthreads must follow.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also tells the barrier to expect `bytes` more.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The box of 4-d tensor map `map` at coordinates (c0, c1, c2, c3), innermost
+// first, into `dst` (1024-aligned for a swizzled map), counted on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A named barrier (1..15; 0 is __syncthreads') over `threads` threads: sync
+// waits for them all, arrive counts this thread and goes on.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The register cap of this warpgroup's threads, lowered or raised (all four
+// warps together; N a multiple of 8 in [24, 256]).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 constexpr int kMnMajor = 1;  // the transpose bit of an MN-major B operand (0: K-major)
@@ -333,6 +426,25 @@ struct Wgmma<112> {
 
 template <>
 struct Wgmma<128> {
+  __device__ static void ss(float* d, uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
   template <int TRANS_B>
   __device__ static void rs(float* d, const uint32_t (&a)[4], uint64_t b) {
     asm volatile(

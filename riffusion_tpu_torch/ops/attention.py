@@ -9,7 +9,11 @@ the layout the to_q / to_k / to_v projections emit. They port the JAX
 package's Pallas attention kernels:
 
 - `attention` (csrc/attention.cu) is K1, jax's TPU flash_attention called
-  from riffusion_tpu/models/layers.py. Its gradient is two more kernels,
+  from riffusion_tpu/models/layers.py. Its bf16 forward without the
+  log-sum-exp runs the warp-specialised body (csrc/attention_fwd_ws.cuh)
+  at the head widths of `kernels.K1_WS_HEAD_DIMS` (40, 64, 80), chosen
+  here by the width and counted in COUNTS.k1_ws_launches; every other call
+  runs csrc/attention_fwd.cuh's body. Its gradient is two more kernels,
   as the TPU's custom VJP is: csrc/attention_dkv.cu (dK, dV) and
   csrc/attention_dq.cu (dQ), behind `attention_backward`.
 - `row_attention` (csrc/row_attention.cu) is K2, riffusion_tpu/ops/
@@ -57,7 +61,8 @@ from riffusion_tpu_torch.ops import kernels
 __all__ = [
     "attention", "row_attention", "attention_backward", "attention_reference",
     "attention_backward_reference", "compare_to_plain", "backward_delta", "compare_grads_to_plain",
-    "kernel_takes_head_dim", "route", "route_batch", "routed_batch", "TOLERANCE", "GRAD_TOLERANCE",
+    "kernel_takes_head_dim", "k1_ws_body", "route", "route_batch", "routed_batch", "TOLERANCE",
+    "GRAD_TOLERANCE",
 ]
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -244,25 +249,33 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def k1_ws_body(head_dim: int, dtype: torch.dtype, lse: bool) -> bool:
+    """Whether K1 runs the warp-specialised body: bf16 without the
+    log-sum-exp at a width of kernels.K1_WS_HEAD_DIMS."""
+    return dtype == torch.bfloat16 and not lse and head_dim in kernels.K1_WS_HEAD_DIMS
+
+
 def _launch(
     name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
-    lse: T.Optional[torch.Tensor] = None,
+    lse: T.Optional[torch.Tensor] = None, ws_body: bool = False,
 ) -> torch.Tensor:
     """Launch forward kernel `name` on CUDA operands (checked here) into a
     new output, on the current stream, writing the rows' log-sum-exp into
-    `lse` ((b, h, s_q) fp32) when it is given; raises if the launch is
+    `lse` ((b, h, s_q) fp32) when it is given; K1 through its
+    warp-specialised body where `ws_body`. Raises if the launch is
     refused."""
     _check_operands(name, q=q, k=k, v=v)
     b, s_q, inner = q.shape
     out = torch.empty((b, s_q, inner), dtype=q.dtype, device=q.device)
     fn = kernels.entry(name)
+    body = (int(ws_body),) if name == "attention" else ()
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         b, s_q, k.shape[1], num_heads, inner // num_heads, float(scale),
-        _KERNEL_DTYPES[q.dtype], q.device.index, _stream(q),
+        _KERNEL_DTYPES[q.dtype], q.device.index, _stream(q), *body,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
@@ -398,8 +411,10 @@ def attention(
     if q.device.type == "cpu":
         kernels.COUNTS.plain_calls += 1
         return attention_reference(q, k, v, num_heads=num_heads, scale=scale)
-    out = _launch("attention", q, k, v, num_heads, scale)
+    ws_body = k1_ws_body(q.shape[2] // num_heads, q.dtype, lse=False)
+    out = _launch("attention", q, k, v, num_heads, scale, ws_body=ws_body)
     kernels.COUNTS.launches += 1
+    kernels.COUNTS.k1_ws_launches += ws_body
     return out
 
 

@@ -23,6 +23,12 @@ Counters. `COUNTS` counts each kernel's launches and the calls that took a
 plain version instead (its fields say whose). A wrapper called while a CUDA
 graph is captured counts its launch there; the graph's program (aot.py)
 takes those counts back and adds them again on each replay.
+
+K1's bodies. K1 (csrc/attention.cu) runs one of two bodies: the
+warp-specialised attention_fwd_ws.cuh at the head widths of
+`K1_WS_HEAD_DIMS` (serving's bf16 forward without the log-sum-exp), and
+attention_fwd.cuh's, K2's too, everywhere else. `k1_instance` names the
+instance a width runs, as a profiler shows it.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ import typing as T
 from pathlib import Path
 
 __all__ = ["KERNELS", "FORWARD_KERNELS", "TRAIN_KERNELS", "CSRC", "BUILD_DIR", "COUNTS",
-           "Counts", "entry", "build_kernels", "built_on_disk", "ptxas_instances"]
+           "Counts", "entry", "build_kernels", "built_on_disk", "ptxas_instances",
+           "K1_WS_HEAD_DIMS", "k1_instance", "check_register_caps"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -63,7 +70,9 @@ _BACKWARD_ARGS = (_P,) * 8 + (_I64,) * 10 + (_I32,) * 5 + (_F32, _I32, _I32, _P)
 _FORWARD_BODY = ("attention_fwd_bf16_kernel", "attention_f32_kernel")
 
 KERNELS = {
-    "attention": Kernel("attention.cu", "riff_attention_forward", _FORWARD_ARGS, _FORWARD_BODY),
+    # K1's entry point takes its body last (1: the warp-specialised one)
+    "attention": Kernel("attention.cu", "riff_attention_forward", _FORWARD_ARGS + (_I32,),
+                        _FORWARD_BODY + ("attention_fwd_bf16_kernel_ws",)),
     "row_attention": Kernel("row_attention.cu", "riff_row_attention_forward", _FORWARD_ARGS,
                             _FORWARD_BODY),
     "attention_dkv": Kernel("attention_dkv.cu", "riff_attention_bwd_dkv", _BACKWARD_ARGS,
@@ -86,10 +95,29 @@ KERNELS = {
 FORWARD_KERNELS = ("attention", "row_attention", "group_norm")  # what serving launches
 TRAIN_KERNELS = ("attention", "attention_dkv", "attention_dq", "adamw")  # what a trainer launches
 
+#: The head widths whose bf16 K1 forward without the log-sum-exp runs the
+#: warp-specialised body (attention_fwd_ws.cuh): 64, SDXL's every
+#: self-attention site, and SD v1's 40 and 80, where it also measured faster
+#: than attention_fwd.cuh's in one call (PERF.md).
+K1_WS_HEAD_DIMS = (40, 64, 80)
+
+
+def k1_instance(head_dim: int, lse: bool = False) -> str:
+    """The bf16 instance K1 launches at `head_dim` (with the log-sum-exp
+    write where `lse`) as a profiler names it, without its namespace and
+    parameters: `name<DP, DN, ...>`, DP the width padded to 16 and DN the
+    width of P V (attention.cu's and the bodies' dispatch)."""
+    dp = -(-head_dim // 16) * 16
+    if head_dim in K1_WS_HEAD_DIMS and not lse:
+        return f"attention_fwd_bf16_kernel_ws<{dp}, {head_dim}, 128, {2 if dp > 64 else 3}>"
+    dn = 40 if head_dim == 40 else dp
+    return f"attention_fwd_bf16_kernel<{dp}, {dn}, 2, {'true' if lse else 'false'}>"
+
 
 @dataclasses.dataclass
 class Counts:
-    launches: int = 0  # K1 (ops/attention.py)
+    launches: int = 0  # K1 (ops/attention.py), either body
+    k1_ws_launches: int = 0  # those of K1's that ran the warp-specialised body
     row_launches: int = 0  # K2
     bwd_dkv_launches: int = 0
     bwd_dq_launches: int = 0
@@ -202,10 +230,11 @@ def build_kernels(
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed ({proc.returncode}) building {source}:\n{out}")
                 os.replace(tmp, so_path)
+            log = log_path.read_text() if log_path.is_file() else ""
+            check_register_caps(log, source)
             fn = getattr(ctypes.CDLL(str(so_path)), KERNELS[name].entry)
             fn.restype = ctypes.c_int
             fn.argtypes = list(KERNELS[name].argtypes)
-            log = log_path.read_text() if log_path.is_file() else ""
             _built[name] = BuiltKernel(fn=fn, source=source, path=so_path, build_seconds=seconds,
                                        compiler_log=log)
         return {n: _built[n] for n in names}
@@ -220,17 +249,36 @@ def entry(name: str) -> T.Any:
     return built.fn
 
 
+WS_THREADS = 384  # attention_fwd_ws.cuh's block: a producer and two consumer warpgroups
+
+
+def check_register_caps(compiler_log: str, source: Path) -> None:
+    """Raise unless each warp-specialised instance (`..._ws<...>`, one block
+    of WS_THREADS an SM) launches with its block's share of the SM's 65,536
+    registers: its warpgroups move registers between them with setmaxnreg,
+    and a consumer that asks for more than the producer gave up waits for
+    ever."""
+    share = 65536 // WS_THREADS // 8 * 8
+    for instance, registers, _ in ptxas_instances(compiler_log):
+        used = int(re.search(r"Used (\d+) registers", registers).group(1))
+        if "_ws<" in instance and used != share:
+            raise RuntimeError(f"{source}: {instance} launches with {used} registers, not its "
+                               f"block's {share}: its setmaxnreg would not be met")
+
+
 def ptxas_instances(compiler_log: str) -> T.List[T.Tuple[str, str, str]]:
     """(instance, registers, spills) of each kernel instance in an nvcc
     `-Xptxas -v` log: the instance as `name<args>` read from the mangled
     name (`_ZN4riff25attention_fwd_bf16_kernelILi48ELi40ELi2ELb0EEEv...` ->
-    `attention_fwd_bf16_kernel<48, 40, 2, 0>`; a bfloat16 or float type
+    `attention_fwd_bf16_kernel<48, 40, 2, 0>`, `..._kernel_wsILi64E...` ->
+    `attention_fwd_bf16_kernel_ws<64, ...>`; a bfloat16 or float type
     argument as `bf16` or `float`), ptxas's "Used ... registers"
     line and its spill line."""
     found, instance, spills = [], "?", ""
     for line in compiler_log.splitlines():
         entry_fn = re.search(
-            r"Compiling entry function '(\w+?_kernel)I((?:L[ib]\d+E|13__nv_bfloat16|f)+)E", line)
+            r"Compiling entry function '(\w+?_kernel(?:_[a-z]+)?)I"
+            r"((?:L[ib]\d+E|13__nv_bfloat16|f)+)E", line)
         if entry_fn:  # the name after the mangling's last length prefix, and its arguments
             name = re.split(r"\d+(?=[a-z])", entry_fn.group(1))[-1]
             args = [value or ("bf16" if bf16 else "float") for value, bf16 in

@@ -57,10 +57,11 @@ CAPACITY = 100_000
 #: The ops.kernels.COUNTS fields `export()` adds to its counters: the NHWC
 #: GroupNorm kernel's calls (ops/group_norm.py), the GroupNorm calls on the
 #: card that ran torch's F.group_norm instead (models/layers.py), K1's
-#: launches, the self-attention sites routed to the plain composition, and
-#: the one-pass AdamW's launches (ops/adamw.py).
+#: launches and those of them that ran its warp-specialised body, the
+#: self-attention sites routed to the plain composition, and the one-pass
+#: AdamW's launches (ops/adamw.py).
 KERNEL_COUNTERS = ("group_norm_launches", "group_norm_library_calls", "launches",
-                   "plain_self_sites", "adamw_launches")
+                   "k1_ws_launches", "plain_self_sites", "adamw_launches")
 
 #: Host events `count()` adds up: SDXL's second text tower's runs
 #: (riffusion_pipeline.py) and the sharded trainer's all-reduce calls

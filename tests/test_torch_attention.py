@@ -23,6 +23,7 @@ from riffusion_tpu.models.layers import Attention as JaxAttention
 from riffusion_tpu.ops.attention import _reference, full_row_attention
 from riffusion_tpu_torch.models.layers import Attention
 from riffusion_tpu_torch.models.weights import state_dict_from_jax
+from riffusion_tpu_torch.ops import attention as attn_ops
 from riffusion_tpu_torch.ops.attention import (
     TOLERANCE,
     attention,
@@ -383,6 +384,36 @@ def test_route_matches_the_jax_gate():
     # the serving shapes: batch 16 (UNet batch 32) and the single clip (2)
     assert route(32, 4096, 40, True) == "row" and route(32, 1024, 80, True) == "flash"
     assert route(2, 4096, 40, True) == "flash" and route(32, 4096, 40, False) == "plain"
+
+
+@pytest.mark.parametrize("head_dim,dtype,lse,ws", [
+    (64, torch.bfloat16, False, True), (40, torch.bfloat16, False, True),
+    (80, torch.bfloat16, False, True), (64, torch.bfloat16, True, False),
+    (40, torch.bfloat16, True, False), (64, torch.float32, False, False),
+    (32, torch.bfloat16, False, False), (128, torch.bfloat16, False, False),
+], ids=["d64", "d40", "d80", "d64-lse", "d40-lse", "d64-fp32", "d32", "d128"])
+def test_k1_body_is_chosen_by_head_width(head_dim, dtype, lse, ws):
+    """K1's warp-specialised body takes serving's bf16 forward at SDXL's
+    d = 64 and SD v1's 40 and 80; the LSE instances (training), the fp32
+    check instance and the other widths keep attention_fwd.cuh's."""
+    assert attn_ops.k1_ws_body(head_dim, dtype, lse) is ws
+
+
+@pytest.mark.parametrize("name,ws_body,body", [
+    ("attention", True, (1,)), ("attention", False, (0,)), ("row_attention", False, ()),
+])
+def test_launch_passes_k1_its_body(monkeypatch, name, ws_body, body):
+    """K1's entry point gets the body as its last argument, after the
+    stream; K2's takes none."""
+    calls = []
+    monkeypatch.setattr(attn_ops, "_check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(attn_ops, "_stream", lambda x: 7)
+    monkeypatch.setattr(attn_ops.kernels, "entry", lambda n: lambda *args: calls.append(args) or 0)
+    q = torch.zeros(2, 16, 64)
+    attn_ops._launch(name, q, q, q, 1, 0.125, ws_body=ws_body)
+    (args,) = calls
+    assert len(args) == len(KERNELS[name].argtypes) and args[-1 - len(body)] == 7
+    assert args[len(args) - len(body):] == body
 
 
 def test_row_attention_wrapper_validation():

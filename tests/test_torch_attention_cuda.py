@@ -87,6 +87,86 @@ def test_kernel_matches_plain(cuda_device, b, s_q, s_kv, h, d, dtype, mult):
     assert ok, (max_abs, rel_rms)
 
 
+# K1's warp-specialised body (csrc/attention_fwd_ws.cuh), serving's bf16
+# forward at d = 40, 64 and 80: SDXL's two sites, then the body's tile
+# edges (128 query rows a block, 128-row K/V tiles): s_q and s_kv one short
+# of and one past a tile, one K/V tile, a ragged last K/V tile, and a query
+# tile whose second consumer has no row to write.
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,h,d,mult",
+    [
+        (2, 4096, 4096, 10, 64, 1.0),
+        (2, 1024, 1024, 20, 64, 1.0),
+        (2, 127, 127, 4, 64, 1.0),
+        (2, 129, 129, 4, 64, 1.0),
+        (2, 127, 129, 4, 40, 1.0),
+        (2, 129, 127, 4, 80, 1.0),
+        (3, 200, 128, 2, 64, 1.0),
+        (1, 100, 100, 2, 64, 1.0),
+        (2, 256, 300, 2, 80, 1.0),
+        (2, 65, 1000, 2, 64, 1.0),
+        (1, 1024, 1024, 2, 64, 8.0),
+    ],
+    ids=["sdxl-4096", "sdxl-1024", "s127", "s129", "s_q127-s_kv129-d40", "s_q129-s_kv127-d80",
+         "one-kv-tile", "one-short-tile", "ragged-last-d80", "half-query-tile", "large-logits"],
+)
+def test_warp_specialised_body_matches_plain(cuda_device, b, s_q, s_kv, h, d, mult):
+    q, k, v = _qkv(cuda_device, b, s_q, s_kv, h, d, torch.bfloat16, mult)
+    COUNTS.reset()
+    out = attention(q, k, v, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert (COUNTS.launches, COUNTS.k1_ws_launches, COUNTS.plain_calls) == (1, 1, 0)
+    ref = attention_reference(q, k, v, num_heads=h, scale=d**-0.5)
+    max_abs, rel_rms, ok = compare_to_plain(out, ref)
+    assert ok, (max_abs, rel_rms)
+
+
+def test_warp_specialised_body_replays_in_a_graph(cuda_device):
+    """The body's tensor maps are kernel parameters, captured by value: a
+    CUDA graph replayed on new operands copied into its buffers gives what
+    an eager call on them gives, bit for bit."""
+    q, k, v = _qkv(cuda_device, 2, 1024, 1024, 20, 64, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        attention(q, k, v, num_heads=20, scale=0.125)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    COUNTS.reset()
+    with torch.cuda.graph(graph):
+        out = attention(q, k, v, num_heads=20, scale=0.125)
+    assert COUNTS.k1_ws_launches == 1
+    for seed in (1, 2):
+        for dst, src in zip((q, k, v), _qkv(cuda_device, 2, 1024, 1024, 20, 64, torch.bfloat16,
+                                            seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        eager = attention(q, k, v, num_heads=20, scale=0.125)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert compare_to_plain(eager, attention_reference(q, k, v, num_heads=20,
+                                                           scale=0.125))[2]
+
+
+def test_profiler_names_the_body_as_the_benchmark_reads_it(cuda_device):
+    """A profiler names SDXL's K1 launch `attention_fwd_bf16_kernel_ws<64,
+    64, ...>` (ops.kernels.k1_instance), which bench_port's K1 roofline
+    finds by its `attention_fwd_bf16_kernel` text and reads as d = 64."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_port.metrics import _attention
+    from riffusion_tpu_torch.ops.kernels import k1_instance
+
+    q, k, v = _qkv(cuda_device, 2, 1024, 1024, 20, 64, torch.bfloat16)
+    attention(q, k, v, num_heads=20, scale=0.125)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention(q, k, v, num_heads=20, scale=0.125)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if _attention.FORWARD in e.key]
+    assert len(names) == 1 and k1_instance(64) in names[0], names
+    assert _attention.head_dim(names[0]) == 64
+
+
 def test_strided_operands(cuda_device):
     """q, k, v as column slices of one packed (b, s, 3*h*d) projection: the
     kernel reads them through their strides, with no copy."""

@@ -320,7 +320,7 @@ def test_tracing_export_counts_the_group_norm_paths():
         COUNTS.reset()
     assert {k: counters[k] for k in tracing.KERNEL_COUNTERS} == {
         "group_norm_launches": 3, "group_norm_library_calls": 2, "launches": 0,
-        "plain_self_sites": 0, "adamw_launches": 0}
+        "k1_ws_launches": 0, "plain_self_sites": 0, "adamw_launches": 0}
 
 
 def test_ptxas_instances_read_the_group_norm_kernels():

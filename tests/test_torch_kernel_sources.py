@@ -69,12 +69,14 @@ def test_table_names_every_kernel_of_the_sources():
 
 
 def test_global_kernels_are_found():
-    """The pattern above finds every kernel the sources define: one bf16
-    forward body (K1's and K2's), two backward bodies, their fp32 check
+    """The pattern above finds every kernel the sources define: two bf16
+    forward bodies (K2's and K1's outside serving, and K1's warp-specialised
+    one), two backward bodies, their fp32 check
     instances, the NHWC GroupNorm's two launches, and the one-pass AdamW's
     update and step counts."""
     assert _global_kernels() == {
-        "attention_fwd_bf16_kernel", "attention_f32_kernel", "attention_dkv_bf16_kernel",
+        "attention_fwd_bf16_kernel", "attention_fwd_bf16_kernel_ws", "attention_f32_kernel",
+        "attention_dkv_bf16_kernel",
         "attention_dq_bf16_kernel", "attention_dkv_f32_kernel", "attention_dq_f32_kernel",
         "group_norm_stats_kernel", "group_norm_apply_kernel", "adamw_kernel",
         "adamw_count_kernel"}
@@ -132,3 +134,46 @@ def test_entry_builds_the_kernels_round_at_first_use(monkeypatch, name, round_):
     monkeypatch.setattr(kernels, "build_kernels", build)
     assert kernels.entry(name) == f"fn of {name}"
     assert asked == [round_]
+
+
+@pytest.mark.parametrize("head_dim,lse", [(40, False), (64, False), (80, False), (40, True),
+                                          (80, True), (24, False), (128, True)])
+def test_k1_instance_names_read_as_their_head_width(head_dim, lse):
+    """bench_port's rooflines find K1's launches by `attention_fwd_bf16_kernel`
+    in a profiler's name and read the head width from the second template
+    argument: every instance K1 launches at the cells' widths, on either
+    body, gives it (the others give their padded width)."""
+    from bench_port.metrics import _attention
+
+    name = kernels.k1_instance(head_dim, lse)
+    assert _attention.FORWARD in name
+    expected = head_dim if head_dim in (40, 64, 80) else -(-head_dim // 16) * 16
+    for shown in (f"void riff::{name}(riff::Params)",
+                  f"void riff::{name}(riff::Params, CUtensorMap_st, CUtensorMap_st, "
+                  "CUtensorMap_st)"):
+        assert _attention.head_dim(shown) == expected
+
+
+@pytest.mark.parametrize("head_dim", kernels.K1_WS_HEAD_DIMS)
+def test_k1_ws_widths_have_the_named_instances(head_dim):
+    """Each width ops/attention.py routes to the warp-specialised body has
+    that body's instance in csrc/attention_fwd_ws.cuh's dispatch, with the
+    template arguments `k1_instance` names: a width routed there without one
+    would be refused on the card."""
+    args = kernels.k1_instance(head_dim).split("<", 1)[1].rstrip(">")
+    text = (kernels.CSRC / "attention_fwd_ws.cuh").read_text()
+    assert f"case {head_dim}: return (int)launch_fwd_ws<{args}>(" in text
+
+
+def test_warp_specialised_builds_are_held_to_their_register_share():
+    """ptxas's log names the warp-specialised instance as `k1_instance` does,
+    and a build whose launch registers are not its block's share of the SM
+    (65,536 over 384 threads: 168) is refused: its consumers' setmaxnreg
+    would wait for registers the producer never gives up."""
+    log = ("ptxas info    : Compiling entry function '_ZN4riff28attention_fwd_bf16_kernel_wsILi64E"
+           "Li64ELi128ELi3EEEvNS_6ParamsE14CUtensorMap_stS2_S2_' for 'sm_90a'\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n")
+    assert kernels.ptxas_instances(log)[0][0] == kernels.k1_instance(64)
+    kernels.check_register_caps(log, Path("attention.cu"))
+    with pytest.raises(RuntimeError, match="setmaxnreg"):
+        kernels.check_register_caps(log.replace("Used 168", "Used 128"), Path("attention.cu"))

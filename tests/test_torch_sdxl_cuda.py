@@ -129,6 +129,7 @@ def test_a_request_runs_k1_at_every_self_attention_site(card, monkeypatch):
         image, segment = pipe.riffuse_audio(inputs, seed, params=params)
         counts = COUNTS.snapshot()
         assert counts["launches"] == SELF_ATTENTION_SITES * evaluations, counts
+        assert counts["k1_ws_launches"] == counts["launches"], counts  # all at d = 64
         assert counts["plain_self_sites"] == 0 and counts["row_launches"] == 0, counts
         assert counts["group_norm_launches"] == norms * evaluations, counts
         assert tracing.export()["counters"]["launches"] - before == counts["launches"]

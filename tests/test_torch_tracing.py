@@ -254,7 +254,8 @@ def test_a_capture_records_two_events_a_stage_only_with_the_switch(monkeypatch, 
                                   "stage_unread": 0, "text_encoder_2_calls": 0,
                                   "allreduce_calls": 0, "group_norm_launches": 0,
                                   "group_norm_library_calls": 0, "launches": 0,
-                                  "plain_self_sites": 0, "adamw_launches": 0}
+                                  "k1_ws_launches": 0, "plain_self_sites": 0,
+                                  "adamw_launches": 0}
     assert [r["stages"] for r in result["replays"]] == [{"riffusion.one": 1.5,
                                                          "riffusion.two": 2.5}] * 2
     assert result["stages"]["riffusion.one"] == {"count": 2, "s": 0.003}
